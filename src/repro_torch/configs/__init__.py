@@ -1,0 +1,45 @@
+"""Architecture registry of the port: ``get_config(arch_id)``.
+
+The port runs the archs in ``_MODULES``.  Every other arch id of the JAX
+package is listed in ``_LATER`` with the ROADMAP item that brings it, and
+asking for it raises.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import List
+
+from repro_torch.configs.base import InputShape, LayerSpec, ModelConfig
+
+_MODULES = {
+    "granite-3-2b": "granite_3_2b",
+}
+
+# arch id -> the ROADMAP item (queue A/B) that ports what it needs
+_LATER = {
+    "qwen2-vl-72b": "A2 (M-RoPE, embeddings input)",
+    "musicgen-large": "A2 (sinusoidal positions, embeddings input)",
+    "nemotron-4-15b": "A2 (dense archs beyond granite-3-2b)",
+    "stablelm-12b": "A2 (dense archs beyond granite-3-2b)",
+    "deepseek-67b": "A2 (dense archs beyond granite-3-2b)",
+    "granite-moe-1b-a400m": "A2 + B3 (MoE layers, moe_gemm kernel)",
+    "phi3.5-moe-42b-a6.6b": "A2 + B3 (MoE layers, moe_gemm kernel)",
+    "jamba-1.5-large-398b": "A2 + B3 + B4 (Mamba and MoE layers)",
+    "falcon-mamba-7b": "A2 + B4 (Mamba layers, selective_scan kernel)",
+}
+
+ARCH_IDS: List[str] = list(_MODULES)
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    if arch_id in _LATER:
+        raise NotImplementedError(
+            f"arch {arch_id!r} is not ported yet: ROADMAP item {_LATER[arch_id]}"
+        )
+    if arch_id not in _MODULES:
+        raise KeyError(f"unknown arch {arch_id!r}; the port runs: {ARCH_IDS}")
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
+    return mod.CONFIG
+
+
+__all__ = ["ARCH_IDS", "InputShape", "LayerSpec", "ModelConfig", "get_config"]

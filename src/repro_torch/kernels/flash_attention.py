@@ -1,0 +1,86 @@
+"""Flash attention: the CUDA kernel's wrapper, its launch counter and its plain version.
+
+Replaces the Pallas TPU kernel ``flash_attention`` of
+``src/repro/kernels/flash_attention.py`` (``pallas_call`` at line 129, body
+``_fwd_kernel`` at line 29): causal GQA forward with an online softmax,
+queries at the last ``Sq`` of ``Skv`` keys, kv tiles above the diagonal
+skipped, rows that see no key giving 0.  The kernel is
+``csrc/flash_attention.cu``: bound by operations at prefill shapes, so bf16
+runs both products on the tensor cores (``mma.sync``, f32 accumulate) and
+keeps scores and the running state in registers; f32 runs in true f32 (no
+TF32).  One block serves one ``block_q`` query tile and loops over the keys
+one ``block_kv`` tile at a time in shared memory.
+
+The tile is the caller's: ``kernels/geometry.flash_launch`` applies the JAX
+kernel's clamp to the sequence length and raises ``ValueError`` for a tile
+that does not fit a Hopper block; nothing else changes it.
+``LAUNCHES.tiles`` records every tile launched since the last reset.
+
+A CPU tensor takes the plain version (``ref.attention``); a CUDA tensor
+launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.geometry import flash_launch
+from repro_torch.kernels.ref import attention as attention_plain
+
+LAUNCHES = _build.LaunchCounter("flash_attention")
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+
+
+def _launcher():
+    lib = _build.load("flash_attention")
+    fn = lib.flash_attention_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, Hq, Sq, D)
+    k: torch.Tensor,  # (B, Hkv, Skv, D)
+    v: torch.Tensor,  # (B, Hkv, Skv, D)
+    *,
+    causal: bool = True,
+    block_q: int = 128,
+    block_kv: int = 128,
+) -> torch.Tensor:
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, causal=causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu tensors, not {q.device}")
+    B, Hq, Sq, D = q.shape
+    _, Hkv, Skv, _ = k.shape
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"flash_attention kernel takes float32 or bfloat16, not {q.dtype}")
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype or t.device != q.device or tuple(t.shape) != (B, Hkv, Skv, D):
+            raise ValueError(
+                f"{name} must be {(B, Hkv, Skv, D)} {q.dtype} on {q.device}; got "
+                f"{tuple(t.shape)} {t.dtype} on {t.device}"
+            )
+    if Hq % Hkv:
+        raise ValueError(f"q heads {Hq} not a multiple of kv heads {Hkv}")
+    launch = flash_launch(B, Hq, Sq, Skv, D, _DTYPE_NAMES[q.dtype], block_q, block_kv)
+    o = torch.empty_like(q)
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"flash_attention kernel takes contiguous, 16-byte aligned {name}")
+    lib, fn = _launcher()
+    err = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        B, Hq, Hkv, Sq, Skv, D, launch.block_q, launch.block_kv, launch.kv_pad,
+        launch.threads, launch.smem_bytes, int(causal), float(D ** -0.5),
+        _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(lib, "flash_attention", err)
+    LAUNCHES.add(tile=(launch.block_q, launch.block_kv))
+    return o

@@ -1,0 +1,119 @@
+"""GQA attention block: prefill forward + KV-cache decode step.
+
+Parameters keep the JAX layout: ``wq (d, H*hd)`` etc., applied as ``x @ w``.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.kernels.ops import KernelTiles
+from repro_torch.models import layers
+
+
+def init(cfg: ModelConfig, gen: torch.Generator, device, n_periods: int = 0) -> dict:
+    """Weights of one attention slot; with ``n_periods`` a stacked leading axis."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    dt = getattr(torch, cfg.dtype)
+    o_scale = 0.02 / max(1.0, (2 * cfg.n_layers) ** 0.5)
+    lead = (n_periods,) if n_periods else ()
+    return {
+        "wq": layers.dense_init(gen, lead + (d, H * hd), dt, device),
+        "wk": layers.dense_init(gen, lead + (d, Hkv * hd), dt, device),
+        "wv": layers.dense_init(gen, lead + (d, Hkv * hd), dt, device),
+        "wo": layers.dense_init(gen, lead + (H * hd, d), dt, device, scale=o_scale),
+    }
+
+
+def _project(p, x, cfg):
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, hd).transpose(1, 2)
+    k = (x @ p["wk"]).reshape(B, S, cfg.n_kv_heads, hd).transpose(1, 2)
+    v = (x @ p["wv"]).reshape(B, S, cfg.n_kv_heads, hd).transpose(1, 2)
+    return q, k, v
+
+
+def forward(
+    p: dict,
+    cfg: ModelConfig,
+    x: torch.Tensor,  # (B, S, d)
+    positions: torch.Tensor,
+    *,
+    tiles: KernelTiles,
+) -> torch.Tensor:
+    B, S, _ = x.shape
+    q, k, v = _project(p, x, cfg)
+    q, k = layers.apply_positions(q, k, cfg, positions)
+    # the kernel takes (B, H, S, hd) in contiguous memory
+    o = ops.attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True, tiles=tiles)
+    o = o.transpose(1, 2).reshape(B, S, -1)
+    return o @ p["wo"]
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device,
+               kv_dtype: str = "bf16", n_periods: int = 0) -> dict:
+    if kv_dtype == "int8":
+        raise NotImplementedError("the int8 KV cache is not ported yet: ROADMAP item A3")
+    lead = (n_periods,) if n_periods else ()
+    shape = lead + (batch, cfg.n_kv_heads, max_len, cfg.resolved_head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+    }
+
+
+def _write_at_cur_(c: torch.Tensor, new: torch.Tensor, cur: torch.Tensor, commit) -> None:
+    """Write ``new (B,Hkv,1,hd)`` into ``c (B,Hkv,L,hd)`` in place at position
+    ``cur`` (scalar, or ``(B,)`` per row), in the rows where ``commit`` is
+    true (every row when ``commit`` is None); the other rows keep their slot."""
+    rows = torch.arange(c.shape[0], device=c.device)
+    pos = cur.expand(c.shape[0])
+    new = new[:, :, 0]
+    if commit is not None:
+        new = torch.where(commit[:, None, None], new, c[rows, :, pos])
+    c[rows, :, pos] = new
+
+
+def decode_step(
+    p: dict,
+    cfg: ModelConfig,
+    cache: dict,
+    x: torch.Tensor,  # (B, 1, d)
+    cur: torch.Tensor,  # int position of the new token: scalar, or (B,) per-row
+    commit=None,  # (B,) bool: the rows whose new K/V is written; None = all
+) -> Tuple[torch.Tensor, dict]:
+    """Attend one new token per row and write its K/V into ``cache`` in place
+    (the JAX step returns a new cache instead).  A row outside ``commit``
+    attends over its cache as it stands, so its output is not that row's
+    next step; the serving engine discards it."""
+    if "k_s" in cache:
+        raise NotImplementedError("the int8 KV cache is not ported yet: ROADMAP item A3")
+    B = x.shape[0]
+    hd = cfg.resolved_head_dim
+    cur = torch.as_tensor(cur, dtype=torch.long, device=x.device)
+    per_row = cur.ndim == 1  # continuous batching: each row at its own length
+
+    q, k_new, v_new = _project(p, x, cfg)  # (B,H,1,hd), (B,Hkv,1,hd)
+    pos = cur[:, None] if per_row else cur.expand(B, 1)
+    q, k_new = layers.apply_positions(q, k_new, cfg, pos)
+    k, v = cache["k"], cache["v"]
+    _write_at_cur_(k, k_new.to(k.dtype), cur, commit)
+    _write_at_cur_(v, v_new.to(v.dtype), cur, commit)
+    # GQA-grouped masked attention over the full cache: query heads reshape
+    # to (Hkv, groups) so the cache is never repeated; f32 on the logits.
+    # Plain PyTorch, as the JAX package's decode attention is plain jnp.
+    groups = cfg.n_heads // cfg.n_kv_heads
+    qg = q.reshape(B, cfg.n_kv_heads, groups, 1, hd)
+    logits = torch.einsum("bkgqd,bktd->bkgqt", qg.float(), k.float()) * (hd ** -0.5)
+    t = torch.arange(k.shape[2], device=x.device)
+    lim = cur[:, None, None, None, None] if per_row else cur
+    logits = logits.masked_fill(~(t <= lim), -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bkgqt,bktd->bkgqd", probs, v.float()).to(x.dtype)
+    o = o.reshape(B, cfg.n_heads, 1, hd).transpose(1, 2).reshape(B, 1, -1)
+    return o @ p["wo"], cache

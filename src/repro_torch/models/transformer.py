@@ -1,0 +1,188 @@
+"""Model composition: a stack of ``n_periods`` copies of the layer period.
+
+The counterpart of the JAX package's ``models/transformer.py``.  Parameters
+are a plain dict with the JAX pytree's nesting (``blocks.b0.attn.wq`` ...)
+and its stacked leading ``n_periods`` axis; the ``lax.scan`` over periods is
+a Python loop over that axis.  Attention + dense-MLP layer plans run;
+Mamba and MoE slots raise with the ROADMAP item that ports them.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.kernels.ops import DEFAULT_TILES, KernelTiles
+from repro_torch.models import attention, layers
+
+
+def _check_plan(cfg: ModelConfig) -> list:
+    plan = cfg.layer_plan()
+    for spec in plan:
+        if spec.mixer != "attn":
+            raise NotImplementedError(
+                f"{cfg.name}: Mamba layers are not ported yet: ROADMAP items A2 + B4"
+            )
+        if spec.mlp == "moe":
+            raise NotImplementedError(
+                f"{cfg.name}: MoE layers are not ported yet: ROADMAP items A2 + B3"
+            )
+    if cfg.input_kind != "tokens":
+        raise NotImplementedError(f"{cfg.name}: embeddings input is not ported yet: ROADMAP item A2")
+    return plan
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+def _mlp_init(cfg: ModelConfig, gen, device, n: int) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    dt = getattr(torch, cfg.dtype)
+    o_scale = 0.02 / max(1.0, (2 * cfg.n_layers) ** 0.5)
+    p = {
+        "w_up": layers.dense_init(gen, (n, d, f), dt, device),
+        "w_down": layers.dense_init(gen, (n, f, d), dt, device, scale=o_scale),
+    }
+    if cfg.act == "swiglu":
+        p["w_gate"] = layers.dense_init(gen, (n, d, f), dt, device)
+    return p
+
+
+def _block_init(cfg: ModelConfig, spec: LayerSpec, gen, device, n: int) -> dict:
+    dt = getattr(torch, cfg.dtype)
+    p: dict = {
+        "norm1": torch.ones((n, cfg.d_model), dtype=dt, device=device),
+        "attn": attention.init(cfg, gen, device, n_periods=n),
+    }
+    if spec.mlp != "none":
+        p["norm2"] = torch.ones((n, cfg.d_model), dtype=dt, device=device)
+        p["mlp"] = _mlp_init(cfg, gen, device, n)
+    return p
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
+    """Random weights drawn on ``device`` from a seeded ``torch.Generator``
+    (the same layout as the JAX ``init_params``, not the same numbers)."""
+    device = resolve_device(device)
+    plan = _check_plan(cfg)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dt = getattr(torch, cfg.dtype)
+    n = cfg.n_periods
+    params = {
+        "blocks": {f"b{i}": _block_init(cfg, spec, gen, device, n) for i, spec in enumerate(plan)},
+        "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=device),
+        "embed": layers.dense_init(gen, (cfg.vocab_size, cfg.d_model), dt, device),
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = layers.dense_init(gen, (cfg.d_model, cfg.vocab_size), dt, device)
+    return params
+
+
+def period_params(tree: dict, i: int) -> dict:
+    """Period ``i`` of a stacked parameter or cache tree (views, no copy)."""
+    return {k: period_params(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# Shared pieces
+# ---------------------------------------------------------------------------
+def _mlp_forward(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    up = x @ p["w_up"]
+    if cfg.act == "swiglu":
+        h = F.silu((x @ p["w_gate"]).float()) * up.float()
+    else:
+        h = layers.activate(up.float(), cfg.act)
+    return h.to(x.dtype) @ p["w_down"]
+
+
+def _embed(params: dict, cfg: ModelConfig, inputs: torch.Tensor) -> torch.Tensor:
+    if cfg.pos_kind == "sinusoidal":
+        raise NotImplementedError("sinusoidal positions are not ported yet: ROADMAP item A2")
+    return params["embed"][inputs]  # (B, S, d)
+
+
+def _logits(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    h = layers.norm(h, params["final_norm"], cfg.norm)
+    if cfg.tie_embeddings:
+        return h @ params["embed"].T
+    return h @ params["head"]
+
+
+def _block_forward(bp, spec, cfg, h, positions, tiles):
+    hn = layers.norm(h, bp["norm1"], cfg.norm)
+    h = h + attention.forward(bp["attn"], cfg, hn, positions, tiles=tiles)
+    if spec.mlp != "none":
+        hn = layers.norm(h, bp["norm2"], cfg.norm)
+        h = h + _mlp_forward(bp["mlp"], cfg, hn)
+    return h
+
+
+# ---------------------------------------------------------------------------
+# Forward (prefill)
+# ---------------------------------------------------------------------------
+@torch.no_grad()
+def forward(
+    params: dict,
+    cfg: ModelConfig,
+    inputs: torch.Tensor,  # (B,S) tokens
+    positions: torch.Tensor,  # (B,S)
+    *,
+    tiles: KernelTiles = DEFAULT_TILES,
+) -> torch.Tensor:
+    plan = _check_plan(cfg)
+    h = _embed(params, cfg, inputs)
+    for p in range(cfg.n_periods):
+        pp = period_params(params["blocks"], p)
+        for i, spec in enumerate(plan):
+            h = _block_forward(pp[f"b{i}"], spec, cfg, h, positions, tiles)
+    return _logits(params, cfg, h)
+
+
+# ---------------------------------------------------------------------------
+# Decode (serve_step) with per-slot caches
+# ---------------------------------------------------------------------------
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, kv_dtype: str = "bf16",
+               device="cuda") -> dict:
+    """Stacked (n_periods leading dim) cache matching the block structure."""
+    device = resolve_device(device)
+    plan = _check_plan(cfg)
+    dt = getattr(torch, cfg.dtype)
+    return {
+        f"b{i}": attention.init_cache(cfg, batch, max_len, dt, device, kv_dtype,
+                                      n_periods=cfg.n_periods)
+        for i, _ in enumerate(plan)
+    }
+
+
+@torch.no_grad()
+def decode_step(
+    params: dict,
+    cfg: ModelConfig,
+    cache: dict,
+    inputs: torch.Tensor,  # (B,1) tokens
+    cur,  # int position of the new token: scalar, or (B,) per-row
+    commit=None,  # (B,) bool: the rows whose new K/V is written; None = all
+) -> Tuple[torch.Tensor, dict]:
+    """(logits (B, V), cache).  Where the JAX step returns a new cache tree,
+    this one writes the new token's K/V into ``cache`` in place, in the rows
+    of ``commit`` only: the logits of a row outside it are not its next
+    step's (see ``attention.decode_step``)."""
+    plan = _check_plan(cfg)
+    device = inputs.device
+    cur = torch.as_tensor(cur, dtype=torch.long, device=device)
+    h = _embed(params, cfg, inputs)
+    for p in range(cfg.n_periods):
+        pp = period_params(params["blocks"], p)
+        pc = period_params(cache, p)  # views: the writes land in the stacked cache
+        for i, spec in enumerate(plan):
+            bp = pp[f"b{i}"]
+            hn = layers.norm(h, bp["norm1"], cfg.norm)
+            mixed, _ = attention.decode_step(bp["attn"], cfg, pc[f"b{i}"], hn, cur, commit)
+            h = h + mixed
+            if spec.mlp != "none":
+                hn = layers.norm(h, bp["norm2"], cfg.norm)
+                h = h + _mlp_forward(bp["mlp"], cfg, hn)
+    return _logits(params, cfg, h[:, -1, :]), cache  # (B, V)

@@ -1,0 +1,169 @@
+"""The port's granite model on the CPU against the JAX package's.
+
+Reduced granite-3-2b (f32, the JAX ``reduced()`` layer count), JAX-initialised
+weights carried across with ``convert.params_from_numpy``, tokens drawn with
+numpy: prefill logits, decode logits and the updated KV cache must agree.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.models import transformer as jtf
+from repro_torch import convert
+from repro_torch.configs import get_config
+from repro_torch.core.space import SchedulePlan
+from repro_torch.models import transformer as ttf
+from repro_torch.training.train_step import make_positions, make_prefill_step, tiles_from_plan
+
+torch.set_num_threads(1)
+
+B, S = 2, 16
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def model():
+    jcfg = jax_get_config("granite-3-2b").reduced()
+    cfg = get_config("granite-3-2b").reduced()
+    jparams = jtf.init_params(jcfg, jax.random.PRNGKey(0))
+    params = convert.params_from_numpy(jax.tree.map(np.asarray, jparams), cfg, device="cpu")
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    return jcfg, cfg, jparams, params, toks
+
+
+def _np(tree):
+    return {k: _np(v) if isinstance(v, dict) else np.asarray(v) for k, v in tree.items()}
+
+
+def _tnp(tree):
+    return {k: _tnp(v) if isinstance(v, dict) else v.numpy() for k, v in tree.items()}
+
+
+def _assert_tree_close(a, b):
+    assert a.keys() == b.keys()
+    for k in a:
+        if isinstance(a[k], dict):
+            _assert_tree_close(a[k], b[k])
+        else:
+            np.testing.assert_allclose(a[k], b[k], **TOL)
+
+
+def test_config_copy_matches_jax(model):
+    jcfg, cfg, *_ = model
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert dataclasses.asdict(get_config("granite-3-2b")) == dataclasses.asdict(
+        jax_get_config("granite-3-2b")
+    )
+    assert cfg.n_layers == 2 and cfg.dtype == "float32"
+
+
+def test_converted_params_keep_nesting_and_stacked_axis(model):
+    jcfg, cfg, jparams, params, _ = model
+    jleaves = jax.tree_util.tree_leaves_with_path(jparams)
+    for path, leaf in jleaves:
+        node = params
+        for key in path:
+            node = node[key.key]
+        assert tuple(node.shape) == tuple(leaf.shape)
+        np.testing.assert_array_equal(node.numpy(), np.asarray(leaf))
+    assert params["blocks"]["b0"]["attn"]["wq"].shape[0] == cfg.n_periods
+
+
+def test_prefill_logits_match_jax(model):
+    jcfg, cfg, jparams, params, toks = model
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32)[None], (B, S))
+    exp = jtf.forward(jparams, jcfg, jnp.asarray(toks), jnp.asarray(pos))
+    plan = SchedulePlan(attn_block=(8, 16))
+    step = make_prefill_step(cfg, None, plan, device="cpu")
+    batch = {
+        "inputs": torch.from_numpy(toks).long(),
+        "positions": make_positions(cfg, B, S, device="cpu"),
+    }
+    got = step(params, batch)
+    assert got.shape == (B, S, cfg.vocab_size)
+    np.testing.assert_allclose(got.numpy(), np.asarray(exp), **TOL)
+    assert tiles_from_plan(plan).attn_block_q == 8
+
+
+def test_decode_scalar_cur_matches_jax(model):
+    jcfg, cfg, jparams, params, toks = model
+    T, L = 6, 8
+    jcache = jtf.init_cache(jcfg, B, L)
+    cache = ttf.init_cache(cfg, B, L, device="cpu")
+    for t in range(T):
+        jl, jcache = jtf.decode_step(jparams, jcfg, jcache, jnp.asarray(toks[:, t:t + 1]), jnp.int32(t))
+        tl, cache = ttf.decode_step(params, cfg, cache, torch.from_numpy(toks[:, t:t + 1]).long(), t)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    _assert_tree_close(_tnp(cache), _np(jcache))
+
+
+def test_decode_per_row_cur_matches_jax(model):
+    jcfg, cfg, jparams, params, toks = model
+    L = 8
+    jcache = jtf.init_cache(jcfg, B, L)
+    cache = ttf.init_cache(cfg, B, L, device="cpu")
+    # rows at different lengths: row 0 at 2, row 1 at 5, over a filled cache
+    for t in range(6):
+        _, jcache = jtf.decode_step(jparams, jcfg, jcache, jnp.asarray(toks[:, t:t + 1]), jnp.int32(t))
+        _, cache = ttf.decode_step(params, cfg, cache, torch.from_numpy(toks[:, t:t + 1]).long(), t)
+    cur = np.array([2, 5], np.int32)
+    tok = toks[:, 7:8]
+    jl, jcache = jtf.decode_step(jparams, jcfg, jcache, jnp.asarray(tok), jnp.asarray(cur))
+    tl, cache = ttf.decode_step(params, cfg, cache, torch.from_numpy(tok).long(), torch.from_numpy(cur))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    _assert_tree_close(_tnp(cache), _np(jcache))
+
+
+def test_decode_commit_writes_only_its_rows_in_place(model):
+    """The in-place masked write equals the JAX engine's commit: the new cache
+    where ``commit`` is true, the old one elsewhere, and the same tree object."""
+    jcfg, cfg, jparams, params, toks = model
+    L = 8
+    jcache = jtf.init_cache(jcfg, B, L)
+    cache = ttf.init_cache(cfg, B, L, device="cpu")
+    for t in range(3):
+        _, jcache = jtf.decode_step(jparams, jcfg, jcache, jnp.asarray(toks[:, t:t + 1]), jnp.int32(t))
+        _, cache = ttf.decode_step(params, cfg, cache, torch.from_numpy(toks[:, t:t + 1]).long(), t)
+    cur = np.array([3, 1], np.int32)
+    commit = np.array([True, False])
+    jl, jnew = jtf.decode_step(jparams, jcfg, jcache, jnp.asarray(toks[:, 5:6]), jnp.asarray(cur))
+    exp = jax.tree.map(
+        lambda new, old: np.where(commit.reshape((1, B) + (1,) * (new.ndim - 2)), new, old), jnew, jcache
+    )
+    tl, got = ttf.decode_step(params, cfg, cache, torch.from_numpy(toks[:, 5:6]).long(),
+                              torch.from_numpy(cur), commit=torch.from_numpy(commit))
+    assert got is cache
+    _assert_tree_close(_tnp(got), _np(exp))
+    np.testing.assert_allclose(tl.numpy()[commit], np.asarray(jl)[commit], **TOL)
+
+
+def test_decode_matches_forward(model):
+    """Token-by-token decode reproduces the teacher-forced forward logits
+    (the port's mirror of test_models_smoke.test_decode_matches_forward)."""
+    _, cfg, _, params, toks = model
+    T = 8
+    x = torch.from_numpy(toks[:, :T]).long()
+    full = ttf.forward(params, cfg, x, make_positions(cfg, B, T, device="cpu"))
+    cache = ttf.init_cache(cfg, B, T, device="cpu")
+    for t in range(T):
+        last, cache = ttf.decode_step(params, cfg, cache, x[:, t:t + 1], t)
+    np.testing.assert_allclose(last.numpy(), full[:, -1].numpy(), atol=2e-3, rtol=2e-3)
+
+
+def test_unported_paths_raise_with_their_roadmap_item(model):
+    _, cfg, *_ = model
+    with pytest.raises(NotImplementedError, match="A3"):
+        ttf.init_cache(cfg, B, 8, kv_dtype="int8", device="cpu")
+    with pytest.raises(NotImplementedError, match="B4"):
+        get_config("falcon-mamba-7b")
+    with pytest.raises(NotImplementedError, match="B3"):
+        get_config("granite-moe-1b-a400m")
+    with pytest.raises(NotImplementedError, match="A8"):
+        make_prefill_step(cfg, None, SchedulePlan(), mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="A2"):
+        make_positions(dataclasses.replace(cfg, pos_kind="mrope"), B, S, device="cpu")
