@@ -81,6 +81,12 @@ class ModelConfig:
         return self.d_model // max(self.n_heads, 1)
 
     @property
+    def resolved_dt_rank(self) -> int:
+        if self.dt_rank:
+            return self.dt_rank
+        return math.ceil(self.d_model / 16)
+
+    @property
     def is_moe(self) -> bool:
         return self.n_experts > 0
 

@@ -3,8 +3,11 @@
 ``params_from_numpy`` takes the JAX ``init_params`` pytree with its leaves as
 numpy arrays (``jax.tree.map(np.asarray, params)``) and returns the port's
 parameter dict: the same nesting, the same stacked leading ``n_periods``
-axis, the same ``(in, out)`` weight layout.  bf16 leaves (numpy's
-``ml_dtypes`` bfloat16) pass through float32, which holds them exactly.
+axis, the same ``(in, out)`` weight layout.  Each leaf keeps its own dtype:
+the MoE ``router`` and the Mamba ``A_log`` and ``Dp`` are f32, every other
+leaf (Mamba's ``dt_b`` included) is in ``cfg.dtype``; a leaf of another
+dtype raises.  bf16 leaves (numpy's ``ml_dtypes`` bfloat16) pass through
+float32, which holds them exactly.
 """
 from __future__ import annotations
 
@@ -13,6 +16,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+
+F32_LEAVES = ("router", "A_log", "Dp")  # f32 whatever the model dtype
 
 
 def _leaf(a, device) -> torch.Tensor:
@@ -31,8 +36,18 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     if periods != {cfg.n_periods}:
         raise ValueError(f"stacked axis {sorted(periods)} != n_periods {cfg.n_periods}")
 
-    def conv(t):
-        return {k: conv(v) if isinstance(v, dict) else _leaf(v, device) for k, v in t.items()}
+    def conv(t, path=()):
+        return {
+            k: conv(v, path + (k,)) if isinstance(v, dict) else _checked(v, path + (k,))
+            for k, v in t.items()
+        }
+
+    def _checked(a, path):
+        want = "float32" if path[-1] in F32_LEAVES else cfg.dtype
+        got = np.asarray(a).dtype.name
+        if got != want:
+            raise ValueError(f"leaf {'.'.join(path)} is {got}; the port expects {want}")
+        return _leaf(a, device)
 
     return conv(tree)
 

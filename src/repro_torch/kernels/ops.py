@@ -13,22 +13,34 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import moe_gemm as _mg
+from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import rmsnorm as _rn
+from repro_torch.kernels import selective_scan as _ss
 
 
 @dataclasses.dataclass(frozen=True)
 class KernelTiles:
-    """Schedule-tunable kernel block shapes (the scan and MoE tiles join
-    with their kernels, ROADMAP items B3 and B4)."""
+    """Schedule-tunable kernel block shapes (the JAX package's defaults)."""
 
     attn_block_q: int = 256
     attn_block_kv: int = 256
+    scan_chunk: int = 128
+    scan_d_block: int = 256
+    moe_block_c: int = 128
+    moe_block_f: int = 256
+    moe_block_d: int = 256
 
 
 DEFAULT_TILES = KernelTiles()
 
 # every kernel of the port, by name, with its launch counter
-COUNTERS = {"rmsnorm": _rn.LAUNCHES, "flash_attention": _fa.LAUNCHES}
+COUNTERS = {
+    "rmsnorm": _rn.LAUNCHES,
+    "flash_attention": _fa.LAUNCHES,
+    "moe_gemm": _mg.LAUNCHES,
+    "selective_scan": _ss.LAUNCHES,
+}
 
 
 def reset_counters() -> None:
@@ -48,3 +60,18 @@ def attention(q, k, v, *, causal: bool = True, tiles: KernelTiles = DEFAULT_TILE
 
 def rmsnorm(x, w, *, eps: float = 1e-6) -> torch.Tensor:
     return _rn.rmsnorm(x, w, eps=eps)
+
+
+def selective_scan(u, dt, A, Bm, Cm, D, *, tiles: KernelTiles = DEFAULT_TILES) -> torch.Tensor:
+    return _ss.selective_scan(
+        u, dt, A, Bm, Cm, D, chunk=tiles.scan_chunk, d_block=tiles.scan_d_block
+    )
+
+
+selective_scan_step = _ref.selective_scan_step  # decode step: plain, as in the JAX package
+
+
+def moe_gemm(x, w, *, tiles: KernelTiles = DEFAULT_TILES) -> torch.Tensor:
+    return _mg.moe_gemm(
+        x, w, block_c=tiles.moe_block_c, block_f=tiles.moe_block_f, block_d=tiles.moe_block_d
+    )

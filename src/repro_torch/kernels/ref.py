@@ -44,3 +44,53 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps) * w.float()
     return y.to(x.dtype)
+
+
+def selective_scan(
+    u: torch.Tensor,  # (B, L, Di)
+    dt: torch.Tensor,  # (B, L, Di)   (already softplus'd)
+    A: torch.Tensor,  # (Di, N)      (negative reals)
+    Bm: torch.Tensor,  # (B, L, N)
+    Cm: torch.Tensor,  # (B, L, N)
+    D: torch.Tensor,  # (Di,)
+) -> torch.Tensor:
+    """y_t = C_t . x_t + D*u_t with x_t = exp(dt_t A) x_{t-1} + dt_t u_t B_t;
+    the state in f32, the output in ``u.dtype``."""
+    Bsz, L, Di = u.shape
+    N = A.shape[1]
+    uf, dtf = u.float(), dt.float()
+    Af, Bf, Cf = A.float(), Bm.float(), Cm.float()
+    x = torch.zeros((Bsz, Di, N), dtype=torch.float32, device=u.device)
+    ys = []
+    for t in range(L):
+        dA = torch.exp(dtf[:, t, :, None] * Af[None])  # (B, Di, N)
+        dBu = (dtf[:, t] * uf[:, t])[..., None] * Bf[:, t, None, :]
+        x = dA * x + dBu
+        ys.append(torch.einsum("bdn,bn->bd", x, Cf[:, t]))
+    y = torch.stack(ys, dim=1) + uf * D.float()[None, None]
+    return y.to(u.dtype)
+
+
+def selective_scan_step(
+    x: torch.Tensor,  # (B, Di, N) carried state
+    u: torch.Tensor,  # (B, Di)
+    dt: torch.Tensor,  # (B, Di)
+    A: torch.Tensor,  # (Di, N)
+    b: torch.Tensor,  # (B, N)
+    c: torch.Tensor,  # (B, N)
+    D: torch.Tensor,  # (Di,)
+):
+    """Single decode step; returns (new_state, y).  ``dt * u`` is taken in the
+    input dtype before the f32 cast, as the JAX step does."""
+    xf = x.float()
+    dA = torch.exp(dt.float()[..., None] * A.float()[None])
+    dBu = (dt * u).float()[..., None] * b.float()[:, None, :]
+    xf = dA * xf + dBu
+    y = torch.einsum("bdn,bn->bd", xf, c.float())
+    y = y + u.float() * D.float()[None]
+    return xf.to(x.dtype), y.to(u.dtype)
+
+
+def moe_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x: (E, C, d), w: (E, d, f) -> (E, C, f); f32 accumulation, output in x.dtype."""
+    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)

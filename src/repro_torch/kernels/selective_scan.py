@@ -1,0 +1,87 @@
+"""Mamba-1 selective scan: the CUDA kernel's wrapper, its launch counter and its plain version.
+
+Replaces the Pallas TPU kernel ``selective_scan`` of
+``src/repro/kernels/selective_scan.py`` (``pallas_call`` at line 90, body
+``_scan_kernel`` at line 31): ``x_t = exp(dt_t A) x_{t-1} + dt_t u_t B_t``,
+``y_t = <x_t, C_t> + D u_t`` with the state in f32.  The kernel is
+``csrc/selective_scan.cu``: one block per ``(batch, d_block)`` steps through
+all of ``L`` with one thread per channel and its states in registers,
+staging ``chunk`` time steps of the inputs at a time in shared memory.
+
+``u``, ``dt``, ``Bm`` and ``Cm`` arrive in the model dtype; ``A`` and ``D``
+in f32 whatever the model dtype (``models/mamba.py``).  The tile is the
+caller's: ``kernels/geometry.scan_launch`` applies the JAX kernel's clamp,
+raises ``ValueError`` where the JAX kernel asserts divisibility or the tile
+does not fit a Hopper block, and changes nothing else.  ``LAUNCHES.tiles``
+records every ``(chunk, d_block)`` launched since the last reset.
+
+A CPU tensor takes the plain version (``ref.selective_scan``); a CUDA tensor
+launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.geometry import scan_launch
+from repro_torch.kernels.ref import selective_scan as selective_scan_plain
+
+LAUNCHES = _build.LaunchCounter("selective_scan")
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+
+
+def _launcher():
+    lib = _build.load("selective_scan")
+    fn = lib.selective_scan_launch
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def selective_scan(
+    u: torch.Tensor,  # (B, L, Di)
+    dt: torch.Tensor,  # (B, L, Di)
+    A: torch.Tensor,  # (Di, N) f32
+    Bm: torch.Tensor,  # (B, L, N)
+    Cm: torch.Tensor,  # (B, L, N)
+    D: torch.Tensor,  # (Di,) f32
+    *,
+    chunk: int = 128,
+    d_block: int = 128,
+) -> torch.Tensor:
+    if u.device.type == "cpu":
+        return selective_scan_plain(u, dt, A, Bm, Cm, D)
+    if u.device.type != "cuda":
+        raise ValueError(f"selective_scan runs on cuda or cpu tensors, not {u.device}")
+    if u.dtype not in _DTYPE_CODES:
+        raise ValueError(f"selective_scan kernel takes float32 or bfloat16, not {u.dtype}")
+    B, L, Di = u.shape
+    N = A.shape[-1]
+    want = {
+        "dt": (dt, (B, L, Di), u.dtype), "A": (A, (Di, N), torch.float32),
+        "Bm": (Bm, (B, L, N), u.dtype), "Cm": (Cm, (B, L, N), u.dtype),
+        "D": (D, (Di,), torch.float32),
+    }
+    for name, (t, shape, dtype) in want.items():
+        if tuple(t.shape) != shape or t.dtype != dtype or t.device != u.device:
+            raise ValueError(
+                f"{name} must be {shape} {dtype} on {u.device}; got "
+                f"{tuple(t.shape)} {t.dtype} on {t.device}"
+            )
+    launch = scan_launch(B, L, Di, N, _DTYPE_NAMES[u.dtype], chunk, d_block)
+    y = torch.empty_like(u)
+    for name, t in (("u", u), ("y", y), *((n, v[0]) for n, v in want.items())):
+        if not t.is_contiguous():
+            raise ValueError(f"selective_scan kernel takes a contiguous {name}")
+    lib, fn = _launcher()
+    err = fn(
+        u.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), D.data_ptr(),
+        y.data_ptr(), B, L, Di, N, launch.chunk, launch.d_block, launch.smem_bytes,
+        _DTYPE_CODES[u.dtype], torch.cuda.current_stream(u.device).cuda_stream,
+    )
+    _build.check(lib, "selective_scan", err)
+    LAUNCHES.add(tile=(launch.chunk, launch.d_block))
+    return y

@@ -1,9 +1,12 @@
 """Serving CLI: batched decode with the continuous-batching engine.
 
-    python -m repro_torch.launch.serve --arch granite-3-2b [--smoke] [--device cpu]
+    python -m repro_torch.launch.serve --arch ARCH [--smoke] [--device cpu]
 
-Runs on the CUDA device unless ``--device cpu`` is given; weights are
-random, drawn on the device from ``--seed``.
+ARCH is any arch the port registers (``repro_torch.configs.ARCH_IDS``):
+granite-3-2b, granite-moe-1b-a400m and falcon-mamba-7b fit one H100 at full
+width; jamba-1.5-large-398b and phi3.5-moe-42b-a6.6b only with ``--smoke``
+(the reduced config).  Runs on the CUDA device unless ``--device cpu`` is
+given; weights are random, drawn on the device from ``--seed``.
 """
 from __future__ import annotations
 

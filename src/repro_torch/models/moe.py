@@ -1,0 +1,127 @@
+"""Mixture-of-Experts MLP: top-k routing, sort-based capacity dispatch.
+
+The counterpart of the JAX package's ``models/moe.py`` on one device
+(``dist=None``): sort the (token, expert) pairs by expert with a stable
+sort, scatter them into a capacity-padded ``(E, C, d)`` buffer, run the
+three grouped GEMMs (``ops.moe_gemm``, the CUDA kernel on the card), and
+combine with the routing weights.  A pair past its expert's capacity is
+dropped: it adds 0 to slot 0 of its expert (``index_put_`` with
+``accumulate=True``, as the JAX ``.at[se, pos].add``), never overwriting it.
+The expert-parallel shard_map path is ROADMAP item A8.
+
+Routing ties: ``torch.topk`` does not specify which of two equal
+probabilities comes first, ``jax.lax.top_k`` takes the lower index; random
+router weights make a tie improbable, and the tests use tie-free logits.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.kernels.ops import KernelTiles
+from repro_torch.models import layers
+
+CAPACITY_FACTOR = 1.25
+
+
+def capacity(n_tokens: int, cfg: ModelConfig, block: int = 8) -> int:
+    """Static per-expert capacity, rounded up to the MoE GEMM tile."""
+    c = int(n_tokens * cfg.experts_per_token * CAPACITY_FACTOR / cfg.n_experts)
+    c = max(c, block)
+    return ((c + block - 1) // block) * block
+
+
+def init(cfg: ModelConfig, gen: torch.Generator, device, n_periods: int = 0) -> dict:
+    """Weights of one MoE slot; with ``n_periods`` a stacked leading axis.
+    The router is f32 whatever the model dtype, as in the JAX package."""
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    dt = getattr(torch, cfg.dtype)
+    o_scale = 0.02 / max(1.0, (2 * cfg.n_layers) ** 0.5)
+    lead = (n_periods,) if n_periods else ()
+    p = {
+        "router": layers.dense_init(gen, lead + (d, E), torch.float32, device),
+        "w_up": layers.dense_init(gen, lead + (E, d, f), dt, device),
+        "w_down": layers.dense_init(gen, lead + (E, f, d), dt, device, scale=o_scale),
+    }
+    if cfg.act == "swiglu":
+        p["w_gate"] = layers.dense_init(gen, lead + (E, d, f), dt, device)
+    return p
+
+
+def route(p: dict, cfg: ModelConfig, xt: torch.Tensor):
+    """(router probs (T, E) f32, top-k weights renormalised (T, k), top-k experts (T, k))."""
+    probs = torch.softmax(xt.float() @ p["router"], dim=-1)
+    topw, topi = torch.topk(probs, cfg.experts_per_token, dim=-1)
+    return probs, topw / topw.sum(dim=-1, keepdim=True), topi
+
+
+def dispatch(topi: torch.Tensor, topw: torch.Tensor, E: int, C: int):
+    """Sort-based dispatch of the (token, expert) pairs: (sorted expert,
+    sorted token, sorted weight, keep, slot within the expert)."""
+    T, k = topi.shape
+    flat_e = topi.reshape(-1)
+    flat_t = torch.arange(T, device=topi.device).repeat_interleave(k)
+    order = torch.argsort(flat_e, stable=True)
+    se, st, sw = flat_e[order], flat_t[order], topw.reshape(-1)[order]
+    counts = torch.bincount(flat_e, minlength=E)
+    seg_start = torch.cumsum(counts, 0) - counts  # exclusive prefix
+    pos = torch.arange(T * k, device=topi.device) - seg_start[se]  # rank within expert
+    keep = pos < C
+    return se, st, sw, keep, torch.where(keep, pos, 0)
+
+
+def group(xt: torch.Tensor, se, st, keep, pos, E: int, C: int) -> torch.Tensor:
+    """The capacity-padded ``(E, C, d)`` buffer of the kept pairs' tokens; a
+    dropped pair adds 0 to slot 0 of its expert."""
+    grouped = torch.zeros((E, C, xt.shape[1]), dtype=xt.dtype, device=xt.device)
+    src = torch.where(keep[:, None], xt[st], 0).to(xt.dtype)
+    return grouped.index_put_((se, pos), src, accumulate=True)
+
+
+def forward(
+    p: dict,
+    cfg: ModelConfig,
+    x: torch.Tensor,  # (B, S, d)
+    *,
+    tiles: KernelTiles,
+    dist=None,
+) -> torch.Tensor:
+    if dist is not None:
+        raise NotImplementedError(
+            "the expert-parallel MoE path is not ported yet: ROADMAP item A8"
+        )
+    B, S, d = x.shape
+    T = B * S
+    E = cfg.n_experts
+    C = capacity(T, cfg, block=tiles.moe_block_c if T >= tiles.moe_block_c else 8)
+
+    xt = x.reshape(T, d)
+    _, topw, topi = route(p, cfg, xt)
+    se, st, sw, keep, pos = dispatch(topi, topw, E, C)
+
+    grouped = group(xt, se, st, keep, pos, E, C)
+
+    # --- expert FFN (grouped GEMMs) ---
+    up = ops.moe_gemm(grouped, p["w_up"], tiles=tiles)
+    if cfg.act == "swiglu":
+        gate = ops.moe_gemm(grouped, p["w_gate"], tiles=tiles)
+        hidden = F.silu(gate.float()) * up.float()
+    else:
+        hidden = layers.activate(up.float(), cfg.act)
+    out = ops.moe_gemm(hidden.to(x.dtype), p["w_down"], tiles=tiles)  # (E, C, d)
+
+    # --- combine ---
+    gathered = out[se, pos] * sw[:, None].to(out.dtype)
+    gathered = torch.where(keep[:, None], gathered, 0)
+    y = torch.zeros((T, d), dtype=torch.float32, device=x.device)
+    y.index_add_(0, st, gathered.float())
+    return y.to(x.dtype).reshape(B, S, d)
+
+
+def aux_loss(router_probs: torch.Tensor, topi: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """Switch-style load-balancing loss (optional, used by the trainer)."""
+    me = router_probs.mean(dim=0)
+    ce = torch.bincount(topi.reshape(-1), minlength=n_experts) / topi.numel()
+    return n_experts * torch.sum(me * ce)

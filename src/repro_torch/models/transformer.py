@@ -3,8 +3,9 @@
 The counterpart of the JAX package's ``models/transformer.py``.  Parameters
 are a plain dict with the JAX pytree's nesting (``blocks.b0.attn.wq`` ...)
 and its stacked leading ``n_periods`` axis; the ``lax.scan`` over periods is
-a Python loop over that axis.  Attention + dense-MLP layer plans run;
-Mamba and MoE slots raise with the ROADMAP item that ports them.
+a Python loop over that axis.  A slot's mixer is attention or Mamba and its
+MLP dense, MoE or none, so every arch's layer plan runs (Jamba's 8-layer
+period of 1 attention + 7 Mamba with MoE every other slot included).
 """
 from __future__ import annotations
 
@@ -16,23 +17,13 @@ import torch.nn.functional as F
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import DEFAULT_TILES, KernelTiles
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, mamba, moe
 
 
 def _check_plan(cfg: ModelConfig) -> list:
-    plan = cfg.layer_plan()
-    for spec in plan:
-        if spec.mixer != "attn":
-            raise NotImplementedError(
-                f"{cfg.name}: Mamba layers are not ported yet: ROADMAP items A2 + B4"
-            )
-        if spec.mlp == "moe":
-            raise NotImplementedError(
-                f"{cfg.name}: MoE layers are not ported yet: ROADMAP items A2 + B3"
-            )
     if cfg.input_kind != "tokens":
         raise NotImplementedError(f"{cfg.name}: embeddings input is not ported yet: ROADMAP item A2")
-    return plan
+    return cfg.layer_plan()
 
 
 # ---------------------------------------------------------------------------
@@ -53,13 +44,15 @@ def _mlp_init(cfg: ModelConfig, gen, device, n: int) -> dict:
 
 def _block_init(cfg: ModelConfig, spec: LayerSpec, gen, device, n: int) -> dict:
     dt = getattr(torch, cfg.dtype)
-    p: dict = {
-        "norm1": torch.ones((n, cfg.d_model), dtype=dt, device=device),
-        "attn": attention.init(cfg, gen, device, n_periods=n),
-    }
+    p: dict = {"norm1": torch.ones((n, cfg.d_model), dtype=dt, device=device)}
+    if spec.mixer == "attn":
+        p["attn"] = attention.init(cfg, gen, device, n_periods=n)
+    else:
+        p["mamba"] = mamba.init(cfg, gen, device, n_periods=n)
     if spec.mlp != "none":
         p["norm2"] = torch.ones((n, cfg.d_model), dtype=dt, device=device)
-        p["mlp"] = _mlp_init(cfg, gen, device, n)
+        p["mlp"] = (moe.init(cfg, gen, device, n_periods=n) if spec.mlp == "moe"
+                    else _mlp_init(cfg, gen, device, n))
     return p
 
 
@@ -111,13 +104,23 @@ def _logits(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     return h @ params["head"]
 
 
+def _mlp_slot(bp, spec, cfg, h, tiles):
+    """The block's MLP half: ``h`` plus its dense or MoE MLP of ``norm2(h)``."""
+    if spec.mlp == "none":
+        return h
+    hn = layers.norm(h, bp["norm2"], cfg.norm)
+    if spec.mlp == "moe":
+        return h + moe.forward(bp["mlp"], cfg, hn, tiles=tiles)
+    return h + _mlp_forward(bp["mlp"], cfg, hn)
+
+
 def _block_forward(bp, spec, cfg, h, positions, tiles):
     hn = layers.norm(h, bp["norm1"], cfg.norm)
-    h = h + attention.forward(bp["attn"], cfg, hn, positions, tiles=tiles)
-    if spec.mlp != "none":
-        hn = layers.norm(h, bp["norm2"], cfg.norm)
-        h = h + _mlp_forward(bp["mlp"], cfg, hn)
-    return h
+    if spec.mixer == "attn":
+        h = h + attention.forward(bp["attn"], cfg, hn, positions, tiles=tiles)
+    else:
+        h = h + mamba.forward(bp["mamba"], cfg, hn, tiles=tiles)
+    return _mlp_slot(bp, spec, cfg, h, tiles)
 
 
 # ---------------------------------------------------------------------------
@@ -151,9 +154,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, kv_dtype: str = "bf16
     plan = _check_plan(cfg)
     dt = getattr(torch, cfg.dtype)
     return {
-        f"b{i}": attention.init_cache(cfg, batch, max_len, dt, device, kv_dtype,
-                                      n_periods=cfg.n_periods)
-        for i, _ in enumerate(plan)
+        f"b{i}": (
+            attention.init_cache(cfg, batch, max_len, dt, device, kv_dtype, n_periods=cfg.n_periods)
+            if spec.mixer == "attn"
+            else mamba.init_cache(cfg, batch, dt, device, n_periods=cfg.n_periods)
+        )
+        for i, spec in enumerate(plan)
     }
 
 
@@ -164,12 +170,15 @@ def decode_step(
     cache: dict,
     inputs: torch.Tensor,  # (B,1) tokens
     cur,  # int position of the new token: scalar, or (B,) per-row
-    commit=None,  # (B,) bool: the rows whose new K/V is written; None = all
+    commit=None,  # (B,) bool: the rows whose new cache state is written; None = all
+    *,
+    tiles: KernelTiles = DEFAULT_TILES,
 ) -> Tuple[torch.Tensor, dict]:
     """(logits (B, V), cache).  Where the JAX step returns a new cache tree,
-    this one writes the new token's K/V into ``cache`` in place, in the rows
-    of ``commit`` only: the logits of a row outside it are not its next
-    step's (see ``attention.decode_step``)."""
+    this one writes the new token's K/V, conv window and SSM state into
+    ``cache`` in place, in the rows of ``commit`` only: the logits of a row
+    outside it are not its next step's (see ``attention.decode_step``).
+    ``tiles`` reaches the MoE MLP's grouped GEMMs."""
     plan = _check_plan(cfg)
     device = inputs.device
     cur = torch.as_tensor(cur, dtype=torch.long, device=device)
@@ -180,9 +189,9 @@ def decode_step(
         for i, spec in enumerate(plan):
             bp = pp[f"b{i}"]
             hn = layers.norm(h, bp["norm1"], cfg.norm)
-            mixed, _ = attention.decode_step(bp["attn"], cfg, pc[f"b{i}"], hn, cur, commit)
-            h = h + mixed
-            if spec.mlp != "none":
-                hn = layers.norm(h, bp["norm2"], cfg.norm)
-                h = h + _mlp_forward(bp["mlp"], cfg, hn)
+            if spec.mixer == "attn":
+                mixed, _ = attention.decode_step(bp["attn"], cfg, pc[f"b{i}"], hn, cur, commit)
+            else:
+                mixed, _ = mamba.decode_step(bp["mamba"], cfg, pc[f"b{i}"], hn, commit)
+            h = _mlp_slot(bp, spec, cfg, h + mixed, tiles)
     return _logits(params, cfg, h[:, -1, :]), cache  # (B, V)

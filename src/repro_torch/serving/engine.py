@@ -91,8 +91,9 @@ class ServingEngine:
         """One decode step of every slot at its own length; commit only the
         slots in ``mask``.  The JAX engine computes a whole new cache and
         keeps old or new state per slot with ``where``; here the step writes
-        the new K/V of the slots in ``mask`` into the engine's cache in place
-        (one masked write per layer), so no second cache exists.  The tokens
+        the new K/V, conv window and SSM state of the slots in ``mask`` into
+        the engine's cache in place (one masked write per cache leaf), so no
+        second cache exists.  The tokens
         of slots outside ``mask`` are not used."""
         dev = self.device
         tokens = torch.from_numpy(self.tokens).to(dev, torch.long)
@@ -102,8 +103,10 @@ class ServingEngine:
         return torch.argmax(logits, dim=-1)
 
     def _reset_slot(self, slot: int) -> None:
-        # zero one slot's cache on (re)assignment; stale KV past the new
-        # request's length is masked by position anyway
+        # zero one slot's cache on (re)assignment: stale KV past the new
+        # request's length is masked by position anyway, but the Mamba conv
+        # window and SSM state are not position-addressed, and the zeroing is
+        # what keeps a new request from inheriting its predecessor's state
         for leaves in self.cache.values():
             for c in leaves.values():
                 c[:, slot].zero_()

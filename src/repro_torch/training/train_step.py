@@ -19,7 +19,11 @@ from repro_torch.models import transformer
 
 
 def tiles_from_plan(plan: SchedulePlan) -> KernelTiles:
-    return KernelTiles(attn_block_q=plan.attn_block[0], attn_block_kv=plan.attn_block[1])
+    return KernelTiles(
+        attn_block_q=plan.attn_block[0],
+        attn_block_kv=plan.attn_block[1],
+        scan_chunk=plan.scan_chunk,
+    )
 
 
 def make_positions(cfg: ModelConfig, batch: int, seq: int, device="cuda") -> torch.Tensor:
@@ -60,10 +64,12 @@ def make_serve_step(
     device="cuda",
 ) -> Callable:
     """(params, cache, inputs, cur, commit=None) -> (logits, cache): one decode
-    token, its K/V written into ``cache`` in place for the rows in ``commit``."""
+    token, its cache state written into ``cache`` in place for the rows in
+    ``commit``; the plan's tiles reach the MoE MLP's grouped GEMMs."""
     _single_device(mesh, device)
+    tiles = tiles_from_plan(plan)
 
     def serve_step(params, cache, inputs, cur, commit=None):
-        return transformer.decode_step(params, cfg, cache, inputs, cur, commit=commit)
+        return transformer.decode_step(params, cfg, cache, inputs, cur, commit=commit, tiles=tiles)
 
     return serve_step

@@ -90,8 +90,17 @@ def test_serve_cli_runs_on_the_cpu_when_asked(capsys):
     assert "completed 3/3 requests" in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "falcon-mamba-7b"])
+def test_serve_cli_runs_the_moe_and_mamba_archs_on_the_cpu(arch, capsys):
+    from repro_torch.launch import serve
+
+    assert serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                       "--requests", "3", "--max-new", "2"]) == 0
+    assert "completed 3/3 requests" in capsys.readouterr().out
+
+
 def test_kernel_build_is_keyed_on_source_into_an_ignored_directory():
-    for name in ("rmsnorm", "flash_attention"):
+    for name in ("rmsnorm", "flash_attention", "moe_gemm", "selective_scan"):
         path = _build.library_path(name)
         assert path.parent == ROOT / "build" / "repro_torch"
         assert path == _build.library_path(name)  # deterministic

@@ -16,7 +16,9 @@ from repro.kernels.flash_attention import flash_attention as jax_flash_attention
 from repro.kernels.rmsnorm import rmsnorm as jax_rmsnorm
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import _build, geometry, ops, ref
+from repro_torch.kernels import moe_gemm as mg
 from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels import selective_scan as ss
 
 torch.set_num_threads(1)
 
@@ -160,6 +162,113 @@ def test_wrappers_refuse_other_devices():
     q = torch.empty((1, 2, 8, 64), device="meta")
     with pytest.raises(ValueError):
         fa.flash_attention(q, q, q)
+    x = torch.empty((2, 8, 16), device="meta")
+    with pytest.raises(ValueError):
+        mg.moe_gemm(x, torch.empty((2, 16, 16), device="meta"))
+    u = torch.empty((1, 8, 16), device="meta")
+    a = torch.empty((16, 4), device="meta")
+    b = torch.empty((1, 8, 4), device="meta")
+    with pytest.raises(ValueError):
+        ss.selective_scan(u, u, a, b, b, torch.empty((16,), device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# moe_gemm and selective_scan launch geometry
+def test_kernel_tiles_are_the_jax_defaults():
+    t = ops.DEFAULT_TILES
+    assert (t.attn_block_q, t.attn_block_kv, t.scan_chunk, t.scan_d_block) == (256, 256, 128, 256)
+    assert (t.moe_block_c, t.moe_block_f, t.moe_block_d) == (128, 256, 256)
+    assert set(ops.COUNTERS) == {"rmsnorm", "flash_attention", "moe_gemm", "selective_scan"}
+
+
+@pytest.mark.parametrize(
+    "E,C,d,f,dtype,tile,launched,threads",
+    [
+        # granite-moe prefill up/gate and down, decode at 4 slots (C = 8)
+        (32, 1280, 1024, 512, "bfloat16", (128, 256, 256), (128, 256, 256), 512),
+        (32, 1280, 512, 1024, "bfloat16", (128, 256, 256), (128, 256, 256), 512),
+        (32, 8, 1024, 512, "bfloat16", (128, 256, 256), (8, 256, 256), 128),
+        # test_kernels.py's f32 tiles, f = 48 with block_f = 16 included
+        (4, 32, 64, 48, "float32", (16, 16, 32), (16, 16, 32), 4),
+        (2, 16, 32, 32, "float32", (16, 32, 16), (16, 32, 16), 8),
+        (8, 8, 16, 16, "float32", (8, 16, 16), (8, 16, 16), 2),
+        (32, 128, 1024, 512, "float32", (128, 256, 256), (128, 256, 256), 512),
+    ],
+)
+def test_moe_tile_is_only_clamped(E, C, d, f, dtype, tile, launched, threads):
+    launch = geometry.moe_gemm_launch(E, C, d, f, dtype, *tile)
+    assert (launch.block_c, launch.block_f, launch.block_d) == launched  # JAX's min(block, dim)
+    assert launch.threads == threads and launch.smem_bytes <= geometry.SMEM_PER_BLOCK
+    assert launch.grid == (E, C // launched[0], f // launched[1])
+
+
+def test_moe_default_tile_smem_matches_kernel_layout():
+    # x tile [128][256 + 8] and w tile [256][256 + 8], bf16
+    launch = geometry.moe_gemm_launch(32, 1280, 1024, 512, "bfloat16", 128, 256, 256)
+    assert launch.smem_bytes == (128 * 264 + 256 * 264) * 2 == 202_752
+    # decode: the 8-row tile is padded to one warp's 32 rows inside the kernel
+    launch = geometry.moe_gemm_launch(32, 8, 1024, 512, "bfloat16", 128, 256, 256)
+    assert launch.smem_bytes == (32 * 264 + 256 * 264) * 2
+
+
+@pytest.mark.parametrize(
+    "E,C,d,f,dtype,tile,needs",
+    [
+        (4, 40, 64, 48, "float32", (16, 16, 32), "does not divide"),    # C % block_c
+        (4, 32, 64, 48, "float32", (16, 32, 32), "does not divide"),    # f % block_f
+        (4, 32, 64, 48, "float32", (16, 16, 48), "does not divide"),    # d % block_d
+        (32, 1280, 1024, 512, "bfloat16", (256, 256, 256), "1024 threads"),
+        (32, 1280, 1024, 512, "bfloat16", (128, 256, 512), "bytes of shared memory"),
+        (32, 1280, 1024, 512, "float32", (256, 256, 256), "1024 threads"),
+        (2, 16, 36, 32, "bfloat16", (16, 32, 36), "multiples of 8"),
+    ],
+)
+def test_moe_tile_that_cannot_launch_raises_naming_it(E, C, d, f, dtype, tile, needs):
+    with pytest.raises(ValueError) as ei:
+        geometry.moe_gemm_launch(E, C, d, f, dtype, *tile)
+    assert "moe tile" in str(ei.value) and needs in str(ei.value)
+
+
+@pytest.mark.parametrize(
+    "B,L,Di,N,dtype,tile,launched",
+    [
+        (1, 4096, 8192, 16, "bfloat16", (128, 256), (128, 256)),
+        (1, 4096, 8192, 16, "bfloat16", (64, 256), (64, 256)),
+        (1, 320, 8192, 16, "float32", (64, 256), (64, 256)),
+        (2, 64, 32, 8, "float32", (16, 16), (16, 16)),
+        (1, 128, 64, 16, "float32", (64, 32), (64, 32)),
+        (2, 32, 16, 4, "float32", (32, 16), (32, 16)),    # chunk == L
+        (1, 96, 48, 8, "float32", (32, 48), (32, 48)),    # d_block == Di
+        (1, 16, 48, 8, "float32", (32, 256), (16, 48)),   # both clamped
+    ],
+)
+def test_scan_tile_is_only_clamped(B, L, Di, N, dtype, tile, launched):
+    launch = geometry.scan_launch(B, L, Di, N, dtype, *tile)
+    assert (launch.chunk, launch.d_block) == launched
+    assert launch.threads == launched[1] and launch.grid == (B, Di // launched[1])
+    assert launch.smem_bytes == geometry.scan_smem_bytes(*launched, N, dtype) <= geometry.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize(
+    "L,Di,N,dtype,tile,needs",
+    [
+        (4096, 8192, 16, "bfloat16", (256, 256), "278528 bytes"),
+        (4096, 8192, 16, "float32", (128, 256), "278528 bytes"),
+        (96, 64, 8, "float32", (64, 32), "does not divide"),
+        (64, 48, 8, "float32", (16, 32), "does not divide"),
+        (64, 1024, 8, "float32", (16, 1024), "1024 threads"),
+        (64, 64, 32, "float32", (16, 32), "N=32"),
+    ],
+)
+def test_scan_tile_that_cannot_launch_raises_naming_it(L, Di, N, dtype, tile, needs):
+    with pytest.raises(ValueError, match=needs):
+        geometry.scan_launch(1, L, Di, N, dtype, *tile)
+
+
+def test_launchable_scan_chunks_at_falcon_mamba_widths():
+    assert geometry.launchable_scan_chunks(256, 16, "bfloat16") == [64, 128]
+    assert geometry.launchable_scan_chunks(256, 16, "float32") == [64]
+    assert geometry.SCAN_CHUNK_OPTIONS == (64, 128, 256)
 
 
 # ---------------------------------------------------------------------------
