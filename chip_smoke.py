@@ -7,27 +7,37 @@ Phases, one JSON line each (every line carries the card's name and power
 limit as ``nvidia-smi`` reports them):
 
 1. ``device``: torch, CUDA, the card.
-2. ``build``: the four CUDA kernels compiled with ``nvcc`` for ``sm_90a``
+2. ``build``: the five CUDA sources compiled with ``nvcc`` for ``sm_90a``
    from ``src/repro_torch/kernels/csrc/``, one ``nvcc`` each, in parallel;
    seconds and ``ptxas -v`` lines.
 3. ``kernels.rmsnorm`` / ``kernels.flash_attention`` / ``kernels.moe_gemm`` /
-   ``kernels.selective_scan``: each kernel against its plain PyTorch version
-   on the card, at the main paths' shapes and at the shapes of
-   ``tests/test_kernels.py`` (plus ragged ones); error and tolerance, kernel /
-   plain / library ms (CUDA events), and the bound.
-4. Per arch -- granite-3-2b, granite-moe-1b-a400m, falcon-mamba-7b, each at
-   full width and depth, bf16, random weights from seed 0, freed before the
-   next is made:
+   ``kernels.selective_scan`` / ``kernels.quantize``: each kernel against its
+   plain PyTorch version on the card, at the main paths' shapes and at the
+   shapes of ``tests/test_kernels.py`` (plus ragged ones; for the int8 pair
+   also zero rows and exact .5 ties, held bit for bit); error and
+   tolerance, kernel / plain / library ms (CUDA events), and the bound.
+4. ``grad``: the autograd Function of rmsnorm, flash attention and moe_gemm
+   at the training shapes against autograd through the plain version, on
+   the card; the scan must refuse an input that requires grad.
+5. Per serving arch -- granite-3-2b, granite-moe-1b-a400m, falcon-mamba-7b,
+   each at full width and depth, bf16, random weights from seed 0, freed
+   before the next is made:
    ``prefill`` through ``make_prefill_step`` at 1x4096 tokens (plan tile ==
    launched tile, exact launch counts, median step time, tokens/s, memory);
    ``serve`` through ``ServingEngine`` (4 slots, 6 requests; exact launches
    per decode call); ``profile`` (``torch.profiler`` over one prefill and
    one decode step); for falcon-mamba also ``slot_reuse``, the second
    occupant of a slot against a fresh engine.
-5. ``parity``: 2-layer f32 models at full width of each arch, card (kernels)
-   against the port's CPU path (plain versions); for the MoE arch the
-   routing must agree too.
-6. ``kernels``: one summary entry per ported kernel.
+6. ``train``: granite-moe-1b-a400m at full width through ``Trainer`` /
+   ``make_train_step``, B=2 x S=4096 in two microbatches, under plan (a)
+   remat full, int8 moments and int8 grad_comm (all five of its kernels)
+   and plan (b) remat dots, f32 moments: per-step loss, grad norm, lr, ms,
+   tokens/s, peak memory, exact launches per step, and a profile.
+7. ``parity``: 2-layer f32 models at full width of each serving arch, card
+   (kernels) against the port's CPU path (plain versions); for the MoE arch
+   the routing must agree too.  ``train_parity``: the same for granite-moe's
+   loss, every gradient and one int8-moment optimizer step.
+8. ``kernels``: one summary entry per ported kernel (all six).
 
 Every launch counter is set to 0 just before a path is driven and read just
 after it.  Any failure raises and exits non-zero.  The last line is the
@@ -37,6 +47,7 @@ the card from a seed; nothing is downloaded.  Nothing of JAX is imported.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import re
 import statistics
@@ -54,16 +65,24 @@ SM_COUNT = 132
 SFU_EXP_PER_SM_CLOCK = 16  # exp2 results a clock per SM: NVIDIA throughput table, compute capability 9.0
 SEQ = 4096
 SEED = 0
-KERNELS = ("rmsnorm", "flash_attention", "moe_gemm", "selective_scan")
+KERNELS = ("rmsnorm", "flash_attention", "moe_gemm", "selective_scan",
+           "quantize_int8", "dequantize_int8")
+LIBRARIES = ("rmsnorm", "flash_attention", "moe_gemm", "selective_scan", "quantize")  # csrc/*.cu
 ARCHS = ("granite-3-2b", "granite-moe-1b-a400m", "falcon-mamba-7b")
 
 # launches of one 1x4096 prefill by arch: the one cross-check of
 # _expected_counts, which gives every other expected count
+NO_QUANT = {"quantize_int8": 0, "dequantize_int8": 0}  # inference quantizes nothing
 EXPECTED_PREFILL = {
-    "granite-3-2b": {"rmsnorm": 81, "flash_attention": 40, "moe_gemm": 0, "selective_scan": 0},
-    "granite-moe-1b-a400m": {"rmsnorm": 49, "flash_attention": 24, "moe_gemm": 72, "selective_scan": 0},
-    "falcon-mamba-7b": {"rmsnorm": 65, "flash_attention": 0, "moe_gemm": 0, "selective_scan": 64},
+    "granite-3-2b": {"rmsnorm": 81, "flash_attention": 40, "moe_gemm": 0, "selective_scan": 0,
+                     **NO_QUANT},
+    "granite-moe-1b-a400m": {"rmsnorm": 49, "flash_attention": 24, "moe_gemm": 72,
+                             "selective_scan": 0, **NO_QUANT},
+    "falcon-mamba-7b": {"rmsnorm": 65, "flash_attention": 0, "moe_gemm": 0, "selective_scan": 64,
+                        **NO_QUANT},
 }
+TRAIN_ARCH = "granite-moe-1b-a400m"
+TRAIN_STEPS = 3  # a plan's steps on the card: the first is timed apart (warm-up)
 
 CARD = {"card": None, "power_limit": None}
 
@@ -144,7 +163,8 @@ def ptxas_lines(text: str) -> list:
         if m:
             name = m.group(1)
             base = re.search(r"(flash_fwd_bf16|flash_fwd_f32|rmsnorm_kernel|moe_gemm_bf16|"
-                             r"moe_gemm_f32|selective_scan_kernel)", name)
+                             r"moe_gemm_f32|selective_scan_kernel|dequantize_kernel|"
+                             r"quantize_kernel)", name)
             arg = re.search(r"ILi(\d+)E|I(f|13__nv_bfloat16)E", name)
             label = base.group(1) if base else name
             if arg:
@@ -385,6 +405,212 @@ def phase_kernels_scan(torch, F, ss):
     return rows
 
 
+def _tie_rows(torch, gen, R: int, C: int):
+    """Rows whose elements but the first are exact .5 ties: ``x = (k + 0.5) *
+    scale`` with ``scale`` a power of two and the first element ``±127 *
+    scale``, so that ``x / scale`` is exactly ``k + 0.5``."""
+    scale = torch.exp2(torch.randint(-12, 4, (R, 1), generator=gen, device="cuda").float())
+    k = torch.randint(-127, 127, (R, C), generator=gen, device="cuda").float()
+    x = (k + 0.5) * scale
+    sign = torch.where(torch.rand((R,), generator=gen, device="cuda") < 0.5, 1.0, -1.0)
+    x[:, 0] = 127.0 * scale[:, 0] * sign
+    return x
+
+
+def phase_kernels_quantize(torch, qt):
+    """Both int8 kernels against their plain versions: q and the scale
+    bit-equal, the f32 dequantize bit-equal and the bf16 one within one bf16
+    step; at the optimizer's moment leaves of granite-moe (w_up, the tied
+    embedding, the router), test_kernels.py's shapes, a bf16 input, a ragged
+    width, zero rows and exact .5 ties."""
+    E, L, d, f = 32, 24, 1024, 512
+    # (R, C, dtype, kind, role)
+    cases = [  # the cheap tie rows first: they catch a rounding fault by design
+        (4096, d, "float32", "ties", "exact .5 ties"),
+        (777, 1000, "float32", "ties", "exact .5 ties, ragged"),
+        (L * E * d, f, "float32", "normal", "train moment w_up"),
+        (49155, d, "float32", "normal", "train moment embed"),
+        (L * d, E, "float32", "normal", "train moment router"),
+        (49155, d, "bfloat16", "normal", "bf16 gradient embed"),
+        (8, 128, "float32", "normal", "test"), (16, 64, "float32", "normal", "test"),
+        (4, 256, "float32", "normal", "test"),
+        (4099, 1000, "float32", "zero rows", "ragged width, zero rows"),
+        (4099, 1000, "bfloat16", "normal", "ragged width"),
+    ]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    rows = []
+    for R, C, dtype, kind, role in cases:
+        dt = getattr(torch, dtype)
+        if kind == "ties":
+            x = _tie_rows(torch, gen, R, C).to(dt)
+        else:
+            x = (torch.randn((R, C), generator=gen, device="cuda") * 3.0).to(dt)
+        if kind == "zero rows":
+            x[::3] = 0
+        qt.QUANT_LAUNCHES.reset()
+        qt.DEQUANT_LAUNCHES.reset()
+        q, s = qt.quantize_int8(x)
+        torch.cuda.synchronize()
+        qp, sp = qt.quantize_int8_plain(x)
+        q_diff = int((q != qp).sum().item())
+        if q_diff or not torch.equal(s, sp):
+            raise AssertionError(
+                f"quantize_int8 {role} {dtype} {(R, C)}: {q_diff} codes differ from the plain "
+                f"version (max |dq| {(q.int() - qp.int()).abs().max().item()}), scale equal: "
+                f"{torch.equal(s, sp)}")
+        row = {"shape": [R, C], "dtype": dtype, "role": role, "kind": kind,
+               "q_bit_equal": True, "scale_equal": True, "max_abs_err": 0.0}
+        if kind == "ties":
+            k = torch.floor(x[:, 1:].float() / s)
+            even = bool((q[:, 1:].int() % 2 == 0).all())
+            if not even or not bool(((q[:, 1:] == k) | (q[:, 1:] == k + 1)).all()):
+                raise AssertionError(f"quantize_int8 {role}: a tie was not rounded half to even")
+        for out_dt in (torch.float32, torch.bfloat16):
+            got = qt.dequantize_int8(q, s, dtype=out_dt)
+            torch.cuda.synchronize()
+            exp = qt.dequantize_int8_plain(q, s, dtype=out_dt)
+            err = (got.float() - exp.float()).abs()
+            if out_dt == torch.float32 and not torch.equal(got, exp):
+                raise AssertionError(f"dequantize_int8 {role} f32 differs: max {err.max().item()}")
+            step = exp.float().abs() * 2.0 ** -7  # one bf16 step
+            if out_dt == torch.bfloat16 and bool((err > step).any()):
+                raise AssertionError(f"dequantize_int8 {role} bf16 beyond one step: max {err.max().item()}")
+            row[f"dequant_{str(out_dt)[6:]}_max_abs_err"] = err.max().item()
+            row[f"dequant_{str(out_dt)[6:]}_bit_equal"] = bool(torch.equal(got, exp))
+        if (qt.QUANT_LAUNCHES.count, qt.DEQUANT_LAUNCHES.count) != (1, 2):
+            raise AssertionError(f"quantize {role}: launches {qt.QUANT_LAUNCHES.count}, "
+                                 f"{qt.DEQUANT_LAUNCHES.count}")
+        if role.startswith(("train", "bf16")):
+            esz = x.element_size()
+            q_bytes = R * C * esz + R * C + 4 * R  # x read, q and the scales written
+            dq_bytes = R * C + 4 * R + R * C * 4  # q and the scales read, f32 written
+            qb, qby = bound(q_bytes, 4 * R * C, "float32")
+            db, dby = bound(dq_bytes, R * C, "float32")
+            row.update(
+                ms=cuda_ms(torch, lambda: qt.quantize_int8(x)),
+                plain_ms=cuda_ms(torch, lambda: qt.quantize_int8_plain(x)),
+                library_ms=None, bound_ms=qb, bound_by=qby, bytes=q_bytes,
+                dequant_ms=cuda_ms(torch, lambda: qt.dequantize_int8(q, s)),
+                dequant_plain_ms=cuda_ms(torch, lambda: qt.dequantize_int8_plain(q, s)),
+                dequant_library_ms=cuda_ms(torch, lambda: torch.mul(q, s)),
+                dequant_bound_ms=db, dequant_bound_by=dby, dequant_bytes=dq_bytes,
+            )
+        rows.append(row)
+        del x, q, s, qp, sp
+    emit("kernels.quantize", cases=rows,
+         library="quantize: none (no one PyTorch call computes it); dequantize: torch.mul(q, scale)")
+    return rows
+
+
+def _grad_case(torch, what, fn_kernel, fn_plain, inputs, gen, tol, counter, launches):
+    """Forward and gradients of ``fn_kernel`` (the wrapper, through its
+    autograd Function) against autograd through ``fn_plain``, on the card."""
+    xs = [t.detach().clone().requires_grad_() for t in inputs]
+    counter.reset()
+    y = fn_kernel(*xs)
+    if not y.requires_grad or y.grad_fn is None:
+        raise AssertionError(f"grad {what}: the kernel's output is detached from the graph")
+    gy = torch.randn(y.shape, generator=gen, device="cuda").to(y.dtype)
+    got = torch.autograd.grad(y, xs, gy)
+    torch.cuda.synchronize()
+    if counter.count != launches:
+        raise AssertionError(f"grad {what}: {counter.count} launches, expected {launches}")
+    ps = [t.detach().clone().requires_grad_() for t in inputs]
+    yp = fn_plain(*ps)
+    exp = torch.autograd.grad(yp, ps, gy)
+    out = {"forward": check_close(y, yp, f"grad {what} forward", **tol)}
+    for i, (g, e) in enumerate(zip(got, exp)):
+        out[f"d{i}"] = check_close(g, e, f"grad {what} d{i}", **tol)
+    return out, xs, gy
+
+
+def phase_grad(torch, rn, fa, mg, ss):
+    """Each kernel's autograd Function on the card at the training shapes
+    against autograd through its plain version; the scan must refuse."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    f32 = dict(atol=1e-4, rtol=1e-4)
+    rows = []
+
+    def randn(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(getattr(torch, dtype))
+
+    for dtype, tol in (("bfloat16", TOL_BF16), ("float32", f32)):
+        x, w = randn((SEQ, 1024), dtype), (1 + randn((1024,), "float32", 0.1)).to(getattr(torch, dtype))
+        stats, xs, gy = _grad_case(torch, f"rmsnorm {dtype}", lambda a, b: rn.rmsnorm(a, b),
+                                   lambda a, b: rn.rmsnorm_plain(a, b), [x, w], gen, tol,
+                                   rn.LAUNCHES, 1)
+        row = {"kernel": "rmsnorm", "shape": [SEQ, 1024], "dtype": dtype, **stats}
+        if dtype == "bfloat16":
+            row.update(
+                fwd_bwd_ms=cuda_ms(torch, lambda: torch.autograd.grad(rn.rmsnorm(*xs), xs, gy)),
+                plain_fwd_bwd_ms=cuda_ms(torch, lambda: torch.autograd.grad(
+                    rn.rmsnorm_plain(*xs), xs, gy)),
+                note="backward is the plain version's, recomputed")
+        rows.append(row)
+
+    for dtype, shape, tol in (("bfloat16", (1, 16, 8, SEQ, SEQ, 64), TOL_BF16),
+                              ("float32", (1, 4, 2, 512, 512, 64), f32)):
+        B, Hq, Hkv, Sq, Skv, D = shape
+        q, k, v = randn((B, Hq, Sq, D), dtype), randn((B, Hkv, Skv, D), dtype), randn((B, Hkv, Skv, D), dtype)
+        stats, xs, gy = _grad_case(
+            torch, f"flash {dtype}",
+            lambda a, b, c: fa.flash_attention(a, b, c, causal=True, block_q=256, block_kv=256),
+            lambda a, b, c: fa.attention_plain(a, b, c, causal=True), [q, k, v], gen, tol,
+            fa.LAUNCHES, 1)
+        row = {"kernel": "flash_attention", "shape": list(shape), "dtype": dtype, **stats}
+        if dtype == "bfloat16":
+            row.update(
+                fwd_bwd_ms=cuda_ms(torch, lambda: torch.autograd.grad(fa.flash_attention(
+                    *xs, causal=True, block_q=256, block_kv=256), xs, gy), iters=5),
+                plain_fwd_bwd_ms=cuda_ms(torch, lambda: torch.autograd.grad(
+                    fa.attention_plain(*xs, causal=True), xs, gy), iters=5),
+                note="backward is the plain version's, recomputed")
+        rows.append(row)
+        del q, k, v, xs, gy
+
+    # granite-moe's training shapes: 1x4096 tokens a microbatch, C = 1280
+    for dtype, (E, C, d, f), tol in (("bfloat16", (32, 1280, 1024, 512), TOL_BF16),
+                                     ("bfloat16", (32, 1280, 512, 1024), TOL_BF16),
+                                     ("float32", (32, 256, 1024, 512), f32)):
+        x, w = randn((E, C, d), dtype), randn((E, d, f), dtype)
+        stats, xs, gy = _grad_case(
+            torch, f"moe_gemm {dtype} {(E, C, d, f)}",
+            lambda a, b: mg.moe_gemm(a, b, block_c=128, block_f=256, block_d=256),
+            mg.moe_gemm_plain, [x, w], gen, tol, mg.LAUNCHES, 3)
+        tiles = sorted(mg.LAUNCHES.tiles)
+        row = {"kernel": "moe_gemm", "shape": [E, C, d, f], "dtype": dtype, "tiles": tiles, **stats}
+        if dtype == "bfloat16":
+            xt = x.transpose(1, 2).contiguous()
+            wt = w.transpose(1, 2).contiguous()
+            gyc = gy.contiguous()
+            for name, a, b in (("dx", gyc, wt), ("dw", xt, gyc)):
+                e_, c_, k_ = a.shape
+                f_ = b.shape[2]
+                nbytes = (a.numel() + b.numel() + e_ * c_ * f_) * a.element_size()
+                b_ms, b_by = bound(nbytes, 2 * e_ * c_ * k_ * f_, dtype)
+                row[name] = {
+                    "shape": [e_, c_, k_, f_], "bound_ms": b_ms, "bound_by": b_by,
+                    "ms": cuda_ms(torch, lambda: mg.moe_gemm(a, b, block_c=128, block_f=256, block_d=256)),
+                    "plain_ms": cuda_ms(torch, lambda: mg.moe_gemm_plain(a, b)),
+                    "library_ms": cuda_ms(torch, lambda: torch.bmm(a, b)),
+                }
+        rows.append(row)
+        del x, w, xs, gy
+
+    u = randn((1, 256, 512), "bfloat16").requires_grad_()
+    A = -torch.ones((512, 16), device="cuda")
+    bm = randn((1, 256, 16), "bfloat16")
+    try:
+        ss.selective_scan(u, u, A, bm, bm, torch.ones(512, device="cuda"))
+    except NotImplementedError as e:
+        scan = str(e)
+    else:
+        raise AssertionError("selective_scan returned an output for an input that requires grad")
+    emit("grad", cases=rows, scan_refuses=scan,
+         note="rmsnorm/flash backward: plain recompute; moe_gemm backward: 2 kernel launches")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 def _plan_tiles(cfg, tiles, tokens: int) -> dict:
     """The tiles a run of ``tokens`` tokens must launch, by kernel: the plan's,
@@ -416,7 +642,7 @@ def _expected_counts(cfg) -> dict:
     the final one, a kernel per attention or Mamba mixer, three grouped GEMMs
     per SwiGLU MoE MLP."""
     plan, n = cfg.layer_plan(), cfg.n_periods
-    per = {"rmsnorm": 0, "flash_attention": 0, "moe_gemm": 0, "selective_scan": 0}
+    per = {n: 0 for n in KERNELS}
     for s in plan:
         per["rmsnorm"] += 1 + (s.mlp != "none")
         per["flash_attention"] += s.mixer == "attn"
@@ -560,7 +786,8 @@ def phase_slot_reuse(np, cfg, params, ServingEngine):
 
 
 def _kernel_group(name: str) -> str:
-    if re.search(r"rmsnorm_kernel|flash_fwd|moe_gemm_(bf16|f32)|selective_scan_kernel", name):
+    if re.search(r"rmsnorm_kernel|flash_fwd|moe_gemm_(bf16|f32)|selective_scan_kernel|"
+                 r"quantize_kernel", name):
         return "kernels"
     if re.search(r"gemm|cutlass|nvjet|xmma|sm90_|cublas|matmul", name, re.I):
         return "matmul"
@@ -663,6 +890,200 @@ def phase_parity(torch, np, base_cfg, plan, ops, transformer, moe, make_position
          logits_abs_max=exp.abs().max().item(), routing=routing)
 
 
+def _expected_train_counts(cfg, plan, params, moment_dtype: str, optim) -> dict:
+    """Launches of one train step of ``cfg`` under ``plan``, per microbatch:
+    the forward's; with remat (``dots`` or ``full``) the period's kernels
+    again in the backward (the final norm lies outside the remat period);
+    two more grouped GEMMs for each one's backward (rmsnorm's and flash's
+    backward are plain recomputes: no launch).  Then per quantizable leaf two
+    quantizes and two dequantizes for int8 moments, one each for int8
+    ``grad_comm``."""
+    fwd = _expected_counts(cfg)
+    rerun = int(plan.remat != "none")
+    counts = {
+        "rmsnorm": fwd["rmsnorm"] + rerun * (fwd["rmsnorm"] - 1),
+        "flash_attention": fwd["flash_attention"] * (1 + rerun),
+        "moe_gemm": fwd["moe_gemm"] * (1 + rerun) + 2 * fwd["moe_gemm"],
+        "selective_scan": 0,
+    }
+    counts = {k: v * plan.microbatches for k, v in counts.items()}
+    n_quant = sum(optim._quantizable(p) for _, p in optim.leaves(params))
+    per_leaf = 2 * (moment_dtype == "int8") + (plan.grad_comm == "int8")
+    counts["quantize_int8"] = counts["dequantize_int8"] = n_quant * per_leaf
+    return counts
+
+
+def _bf16_frozen(torch, p, lr: float, weight_decay: float) -> bool:
+    """True when one AdamW step cannot move any element of the bf16 leaf
+    ``p``: the step moves an element by at most ``lr * (1 + wd * |p|)`` (the
+    first step's ``m^/(sqrt(v^) + eps)`` is at most 1 in size), which is
+    below 2^(e-9) for an element in [2^e, 2^(e+1)) -- half the bf16 spacing
+    below a power of two, the nearest a value can come to rounding away.
+    The ones-initialised norm weights are such leaves at lr 1e-3."""
+    if p.dtype != torch.bfloat16:
+        return False
+    a = p.float().abs()
+    half_step = torch.exp2(torch.floor(torch.log2(a)) - 9)  # 0 where p == 0
+    return bool((lr * (1 + weight_decay * a) < half_step).all())
+
+
+def phase_train(torch, name, plan, mods) -> dict:
+    """granite-moe at full width through ``Trainer`` / ``make_train_step``:
+    B=2, S=4096, two microbatches of 1x4096; exact launches per step, finite
+    loss and gradient norm, every leaf moved by step 1, a profile."""
+    optim = mods.optim
+    cfg = mods.get_config(TRAIN_ARCH)
+    oc = optim.OptimizerConfig(peak_lr=1e-3, warmup_steps=2, moment_dtype=plan.opt_dtype)
+    shape = mods.InputShape("train_chip", SEQ, 2, "train")
+    tc = mods.TrainerConfig(total_steps=1, ckpt_every=10**9, log_every=1, ckpt_async=False,
+                            ckpt_dir=str(ROOT / "build" / "chip_smoke_ckpt"), seed=SEED)
+    tr = mods.Trainer(cfg, shape, plan, tc, opt_cfg=oc, device="cuda")
+    params, opt_state, _ = tr.init_state()
+    expected = _expected_train_counts(cfg, plan, params, oc.moment_dtype, optim)
+    before = {k: v.detach().clone() for k, v in optim.leaves(params)}
+    mods.ops.reset_counters()
+    params, opt_state, step = tr.run(params, opt_state, 0)
+    first = mods.ops.launch_counts()
+    if first != expected:
+        raise AssertionError(f"train {name}: step 1 launches {first}, expected {expected}")
+    lr1 = tr.metrics_log[0]["lr"]
+    unchanged = [k for k, v in optim.leaves(params) if torch.equal(v, before[k])]
+    frozen = [k for k in unchanged if _bf16_frozen(torch, before[k], lr1, oc.weight_decay)]
+    if set(unchanged) - set(frozen):
+        raise AssertionError(f"train {name}: leaves unchanged after step 1: "
+                             f"{sorted(set(unchanged) - set(frozen))}")
+    del before
+    gc.collect()  # what earlier phases left in reference cycles is not this run's memory
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()  # peak of steps 2..: weights, state, one step's work
+    tr.tc.total_steps = TRAIN_STEPS
+    mods.ops.reset_counters()
+    params, opt_state, step = tr.run(params, opt_state, step)
+    rest = mods.ops.launch_counts()
+    want = {k: v * (TRAIN_STEPS - 1) for k, v in expected.items()}
+    if rest != want:
+        raise AssertionError(f"train {name}: steps 2-{TRAIN_STEPS} launches {rest}, expected {want}")
+    peak = torch.cuda.max_memory_allocated()
+    log = tr.metrics_log
+    if len(log) != TRAIN_STEPS or not all(
+            torch.isfinite(torch.tensor([r["loss"], r["grad_norm"]])).all() for r in log):
+        raise AssertionError(f"train {name}: non-finite loss or grad_norm: {log}")
+    steady = [r["step_time_s"] for r in log[1:]]
+    med = statistics.median(steady)
+    batch = tr.batch_at(step)
+    prof = _profile_one(torch, lambda: tr.step_fn(params, opt_state, batch))
+    emit("train", arch=cfg.name, plan=name, plan_fields={
+             k: getattr(plan, k) for k in ("remat", "microbatches", "opt_dtype", "grad_comm")},
+         batch=2, seq=SEQ, microbatch_tokens=SEQ * 2 // plan.microbatches,
+         steps=[{"step": r["step"], "loss": r["loss"], "grad_norm": r["grad_norm"], "lr": r["lr"],
+                 "step_ms": r["step_time_s"] * 1e3,
+                 "tokens_per_s": 2 * SEQ / r["step_time_s"]} for r in log],
+         median_step_ms=med * 1e3, tokens_per_s=2 * SEQ / med, peak_memory_gib=peak / 2**30,
+         launches_per_step=expected, launches_step1=first, launches_rest=rest,
+         leaves_frozen_by_bf16_rounding=frozen, profile=prof)
+    del tr, params, opt_state, batch
+    torch.cuda.empty_cache()
+    return {k: first[k] + rest[k] for k in first}
+
+
+def phase_train_parity(torch, np, mods):
+    """A 2-layer f32 granite-moe at full width, B=1, S=512: loss and every
+    gradient leaf on the card (kernels and their Functions) against the
+    port's CPU path; then one ``apply_updates`` with int8 moments from the
+    same gradients on both."""
+    optim, transformer, moe, ops = mods.optim, mods.transformer, mods.moe, mods.ops
+    cfg = dataclasses.replace(mods.get_config(TRAIN_ARCH), n_layers=2, dtype="float32")
+    tiles = mods.tiles_from_plan(mods.SchedulePlan())
+    params = {"cpu": transformer.init_params(cfg, SEED, device="cpu")}
+    params["cuda"] = _tree_to(params["cpu"], "cuda")
+    S = 512
+    toks = torch.from_numpy(np.random.default_rng(SEED + 7).integers(0, cfg.vocab_size, (1, S)))
+    routes = {"cuda": [], "cpu": []}
+    real_route = moe.route
+    out, counts = {}, None
+    try:
+        for device in ("cuda", "cpu"):
+            def route(p, c, xt, device=device):
+                r = real_route(p, c, xt)
+                routes[device].append(r)
+                return r
+            moe.route = route
+            paths, leaves = zip(*optim.leaves(params[device]))
+            for p in leaves:
+                p.requires_grad_(True)
+            ops.reset_counters()
+            t = toks.to(device)
+            logits = transformer.forward(params[device], cfg, t,
+                                         mods.make_positions(cfg, 1, S, device=device), tiles=tiles)
+            loss = mods.cross_entropy(logits[:, :-1], t[:, 1:])
+            grads = torch.autograd.grad(loss, leaves)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                counts = ops.launch_counts()
+            out[device] = (loss.detach().cpu(), {k: g.detach().cpu() for k, g in zip(paths, grads)})
+    finally:
+        moe.route = real_route
+    fwd = _expected_counts(cfg)
+    want = {**fwd, "moe_gemm": 3 * fwd["moe_gemm"]}
+    if counts != want:
+        raise AssertionError(f"train_parity: launches {counts}, expected {want}")
+    loss_stats = check_close(out["cuda"][0][None], out["cpu"][0][None], "train_parity loss",
+                             atol=1e-5, rtol=1e-5)
+    grad_rel = {}
+    for k, g_cpu in out["cpu"][1].items():
+        g = out["cuda"][1][k]
+        grad_rel[k] = ((g - g_cpu).norm() / g_cpu.norm().clamp_min(1e-30)).item()
+        if not bool(g.isfinite().all()) or grad_rel[k] > 1e-4:
+            raise AssertionError(f"train_parity: gradient {k} rel {grad_rel[k]} > 1e-4")
+    k_top, gaps = cfg.experts_per_token, []
+    for (_, _, topi_gpu), (probs, _, topi_cpu) in zip(routes["cuda"], routes["cpu"], strict=True):
+        if not torch.equal(topi_gpu.cpu(), topi_cpu):
+            raise AssertionError("train_parity: routing differs between card and CPU")
+        top = probs.detach().sort(dim=-1, descending=True).values
+        gaps.append((top[:, k_top - 1] - top[:, k_top]).min().item())
+
+    # one optimizer step with int8 moments from the same (CPU) gradients
+    oc = optim.OptimizerConfig(peak_lr=1e-3, warmup_steps=2, moment_dtype="int8")
+    states = {d: optim.init_opt_state(params[d], oc) for d in ("cuda", "cpu")}
+    for d in ("cuda", "cpu"):
+        g = optim.tree_from_leaves(params[d], {k: v.to(d) for k, v in out["cpu"][1].items()})
+        ops.reset_counters()
+        optim.apply_updates(params[d], g, states[d], oc)
+        if d == "cuda":
+            torch.cuda.synchronize()
+            opt_counts = ops.launch_counts()
+    n_quant = sum(optim._quantizable(p) for _, p in optim.leaves(params["cpu"]))
+    if (opt_counts["quantize_int8"], opt_counts["dequantize_int8"]) != (2 * n_quant, 2 * n_quant):
+        raise AssertionError(f"train_parity: optimizer launches {opt_counts}, expected "
+                             f"{2 * n_quant} of each quantize kernel")
+    worst_param, n_codes, n_diff = 0.0, 0, 0
+    for (k, p_gpu), (_, p_cpu) in zip(optim.leaves(params["cuda"]), optim.leaves(params["cpu"])):
+        st = check_close(p_gpu.detach().cpu(), p_cpu.detach(), f"train_parity param {k}",
+                         atol=1e-6, rtol=1e-5)
+        worst_param = max(worst_param, st["max_abs_err"])
+    for mom in ("mu", "nu"):
+        for (k, m_gpu), (_, m_cpu) in zip(optim.leaves(states["cuda"][mom]),
+                                         optim.leaves(states["cpu"][mom])):
+            if isinstance(m_cpu, dict):
+                d = m_gpu["q"].cpu().int() - m_cpu["q"].int()
+                if d.abs().max().item() > 1:
+                    raise AssertionError(f"train_parity: {mom} {k} codes differ by more than 1")
+                n_codes += d.numel()
+                n_diff += int((d != 0).sum().item())
+                check_close(m_gpu["s"].cpu(), m_cpu["s"], f"train_parity {mom} {k} scale",
+                            atol=0.0, rtol=1e-5)
+            else:
+                check_close(m_gpu.cpu(), m_cpu, f"train_parity {mom} {k}", atol=1e-7, rtol=1e-5)
+    if n_diff > 1e-5 * n_codes:
+        raise AssertionError(f"train_parity: {n_diff} of {n_codes} int8 codes differ (limit 1e-5)")
+    emit("train_parity", arch=cfg.name, n_layers=2, dtype="float32", tokens=S, launches=counts,
+         loss_cuda=out["cuda"][0].item(), loss_cpu=out["cpu"][0].item(), loss=loss_stats,
+         worst_grad_rel=max(grad_rel.values()), grad_rel=grad_rel,
+         routing={"layers": len(gaps), "topi_equal": True, "min_gap_kth_to_next_prob": min(gaps)},
+         optimizer={"moment_dtype": "int8", "launches": opt_counts, "worst_param_abs_err": worst_param,
+                    "codes": n_codes, "codes_differing": n_diff})
+
+
 def _tree_to(tree, device):
     return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}
 
@@ -694,7 +1115,37 @@ SOURCES = {
     "moe_gemm": ("src/repro_torch/kernels/csrc/moe_gemm.cu", "src/repro/kernels/moe_gemm.py:69"),
     "selective_scan": ("src/repro_torch/kernels/csrc/selective_scan.cu",
                        "src/repro/kernels/selective_scan.py:90"),
+    "quantize_int8": ("src/repro_torch/kernels/csrc/quantize.cu", "src/repro/kernels/quantize.py:36"),
+    "dequantize_int8": ("src/repro_torch/kernels/csrc/quantize.cu",
+                        "src/repro/kernels/quantize.py:65"),
 }
+_SUMMARY_KEYS = ("shape", "dtype", "role", "max_abs_err", "rel_err", "ms", "plain_ms", "bound_ms",
+                 "bound_by", "library_ms")
+
+
+def _summary_row(n: str, rows: list, launches: int) -> dict:
+    """One kernel's entry of the ``kernels`` line; for the int8 pair, from the
+    quantize phase's rows (``dequant_*`` fields for the dequantize)."""
+    src, replaces = SOURCES[n]
+    head = {"name": n, "route": "cuda", "source": src, "replaces": replaces, "launches": launches}
+    timed = [r for r in rows if "ms" in r]
+    if n in ("quantize_int8", "dequantize_int8"):
+        pre = "" if n == "quantize_int8" else "dequant_"
+        err = (lambda r: 0.0) if n == "quantize_int8" else (  # q and scale bit-equal
+            lambda r: max(r["dequant_float32_max_abs_err"], r["dequant_bfloat16_max_abs_err"]))
+        main_shapes = [{"shape": r["shape"], "dtype": r["dtype"], "role": r["role"],
+                        "max_abs_err": err(r), **{k: r[pre + k] for k in (
+                            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+                       for r in timed]
+        return {**head, **main_shapes[0], "max_abs_err": max(err(r) for r in rows),
+                "main_path_shapes": main_shapes}
+    row = timed[0]  # the main path's first shape
+    return {
+        **head, "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "main_max_abs_err": row["max_abs_err"], "main_mean_abs_exp": row["mean_abs_exp"],
+        "main_rel_err": row["rel_err"], **{k: row[k] for k in _SUMMARY_KEYS if k != "max_abs_err"},
+        "main_path_shapes": [{k: r[k] for k in _SUMMARY_KEYS} for r in timed],
+    }
 
 
 def main() -> int:
@@ -712,16 +1163,20 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
 
-    from repro_torch.configs import get_config
+    from repro_torch.configs import InputShape, get_config
     from repro_torch.core.space import SchedulePlan
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gemm as mg
+    from repro_torch.kernels import quantize as qt
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import selective_scan as ss
     from repro_torch.models import moe, transformer
+    from repro_torch.models.losses import cross_entropy
     from repro_torch.serving.engine import ServingEngine
+    from repro_torch.training import optimizer as optim
     from repro_torch.training.train_step import make_positions, make_prefill_step, tiles_from_plan
+    from repro_torch.training.trainer import Trainer, TrainerConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the f32 plain versions in true f32
     torch.backends.cudnn.allow_tf32 = False
@@ -734,9 +1189,9 @@ def main() -> int:
          max_sm_clock_mhz=max_sm_clock_mhz())
 
     t0 = time.perf_counter()
-    _build.build(KERNELS)
+    _build.build(LIBRARIES)
     emit("build", seconds=time.perf_counter() - t0, flags=" ".join(_build.NVCC_FLAGS),
-         ptxas={n: ptxas_lines(_build.ptxas_report(n)) for n in KERNELS})
+         ptxas={n: ptxas_lines(_build.ptxas_report(n)) for n in LIBRARIES})
 
     rows = {
         "rmsnorm": phase_kernels_rmsnorm(torch, F, rn),
@@ -744,11 +1199,15 @@ def main() -> int:
         "moe_gemm": phase_kernels_moe(torch, F, mg),
         "selective_scan": phase_kernels_scan(torch, F, ss),
     }
+    rows["quantize_int8"] = rows["dequantize_int8"] = phase_kernels_quantize(torch, qt)
+    phase_grad(torch, rn, fa, mg, ss)
 
     mods = types.SimpleNamespace(
         get_config=get_config, ops=ops, transformer=transformer, ServingEngine=ServingEngine,
         make_prefill_step=make_prefill_step, make_positions=make_positions,
-        tiles_from_plan=tiles_from_plan,
+        tiles_from_plan=tiles_from_plan, moe=moe, optim=optim, cross_entropy=cross_entropy,
+        InputShape=InputShape, Trainer=Trainer, TrainerConfig=TrainerConfig,
+        SchedulePlan=SchedulePlan,
     )
     plans = {
         "granite-3-2b": [SchedulePlan(), SchedulePlan(attn_block=(128, 128))],
@@ -760,7 +1219,19 @@ def main() -> int:
         for counts in run_path(torch, np, arch, plans[arch], mods):
             for n in KERNELS:
                 launches[n] += counts[n]
+        gc.collect()  # the engine holds its weights in a reference cycle
         torch.cuda.empty_cache()
+    # training: (a) runs all five kernels of the arch, (b) has f32 moments
+    train_plans = {
+        "a": SchedulePlan(remat="full", microbatches=2, opt_dtype="int8", grad_comm="int8"),
+        "b": SchedulePlan(remat="dots", microbatches=2),
+    }
+    for name, plan in train_plans.items():
+        counts = phase_train(torch, name, plan, mods)
+        if name == "a" and not all(counts[n] for n in ("quantize_int8", "dequantize_int8", "moe_gemm")):
+            raise AssertionError(f"train plan a launched {counts}")
+        for n in KERNELS:
+            launches[n] += counts[n]
     for n in KERNELS:
         if launches[n] == 0:
             raise AssertionError(f"the main paths launched no {n} kernel")
@@ -771,24 +1242,9 @@ def main() -> int:
     for arch in ARCHS:
         phase_parity(torch, np, get_config(arch), parity_plans[arch], ops, transformer, moe,
                      make_positions, tiles_from_plan)
+    phase_train_parity(torch, np, mods)
 
-    summary = []
-    for n in KERNELS:
-        row = rows[n][0]  # the main path's first shape
-        src, replaces = SOURCES[n]
-        summary.append({
-            "name": n, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[n],
-            "max_abs_err": max(r["max_abs_err"] for r in rows[n]),
-            "main_max_abs_err": row["max_abs_err"], "main_mean_abs_exp": row["mean_abs_exp"],
-            "main_rel_err": row["rel_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "shape": row["shape"], "dtype": row["dtype"], "role": row["role"],
-            "main_path_shapes": [
-                {k: r[k] for k in ("shape", "dtype", "role", "max_abs_err", "rel_err", "ms",
-                                   "plain_ms", "bound_ms", "bound_by", "library_ms")}
-                for r in rows[n] if "ms" in r],
-        })
+    summary = [_summary_row(n, rows[n], launches[n]) for n in KERNELS]
     print(json.dumps({"kernels": summary}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,16 @@
 #!/usr/bin/env python3
-"""Plant known faults in copies of the port's CUDA kernels and check that the
-kernel phases of ``chip_smoke.py`` catch every one.
+"""Plant known faults in copies of the port's kernels and wrappers and check
+that the kernel and gradient phases of ``chip_smoke.py`` catch every one.
 
     python3 scripts/torch_fault_check.py DIR     # on a machine with a CUDA card
 
 ``DIR`` must lie outside the checkout.  Each case is a copy of ``src/`` and
-``chip_smoke.py`` in ``DIR/<case>`` with at most one edit to one kernel's
-source under ``csrc/``; the copy builds its own kernels and runs, in a fresh
-process, the ``chip_smoke`` phase of the edited kernel (the unedited control
-runs the phases of every kernel that has a fault below).  The control must
-pass and every mutant must fail.  Prints one JSON line per case (with the
-failing check's numbers) and exits 1 if any case went the other way.
+``chip_smoke.py`` in ``DIR/<case>`` with one fault planted in one file under
+``src/repro_torch/kernels/`` (a CUDA source or a wrapper); the copy builds its
+own kernels and runs, in a fresh process, the ``chip_smoke`` phase that must
+catch it (the unedited control runs every phase named below).  The control
+must pass and every mutant must fail.  Prints one JSON line per case (with
+the failing check's numbers) and exits 1 if any case went the other way.
 """
 from __future__ import annotations
 
@@ -21,47 +21,74 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-CSRC = Path("src/repro_torch/kernels/csrc")
+KERNELS = Path("src/repro_torch/kernels")
 
-# kernel -> (its module under repro_torch.kernels, its chip_smoke phase)
+# chip_smoke phase -> its call, with the kernel modules imported by RUN
 PHASES = {
-    "flash_attention": ("flash_attention", "phase_kernels_flash"),
-    "moe_gemm": ("moe_gemm", "phase_kernels_moe"),
-    "selective_scan": ("selective_scan", "phase_kernels_scan"),
+    "phase_kernels_flash": "chip_smoke.phase_kernels_flash(torch, F, fa)",
+    "phase_kernels_moe": "chip_smoke.phase_kernels_moe(torch, F, mg)",
+    "phase_kernels_scan": "chip_smoke.phase_kernels_scan(torch, F, ss)",
+    "phase_kernels_quantize": "chip_smoke.phase_kernels_quantize(torch, qt)",
+    "phase_grad": "chip_smoke.phase_grad(torch, rn, fa, mg, ss)",
+}
+# the phase that must catch a fault in each file
+PHASE_OF = {
+    "csrc/flash_attention.cu": "phase_kernels_flash",
+    "csrc/moe_gemm.cu": "phase_kernels_moe",
+    "csrc/selective_scan.cu": "phase_kernels_scan",
+    "csrc/quantize.cu": "phase_kernels_quantize",
+    "rmsnorm.py": "phase_grad",
 }
 
-# case -> (kernel, text of its source, the replacement); the first occurrence
-# in the file is replaced, which is the bf16 kernel's where a file has two
+# case -> (file under src/repro_torch/kernels, [(text, replacement), ...]);
+# each text's first occurrence is replaced, which is the bf16 kernel's where a
+# .cu file has two
 CASES = {
     "control": None,
     # query tiles from row 2048 on never visit their last kv tile: only the
     # 4096-token main-path shapes have such rows
-    "flash_skip_last_kv_tile_from_row_2048": (
-        "flash_attention",
+    "flash_skip_last_kv_tile_from_row_2048": ("csrc/flash_attention.cu", [(
         "const int n_tiles = kv_tiles(Skv, block_kv, causal, q_off + q_end - 1);",
         "const int n_tiles = kv_tiles(Skv, block_kv, causal, q_off + q_end - 1) - (q0 >= 2048);",
-    ),
+    )]),
     # the accumulator of the first 8 rows of each warp is not rescaled when
     # the running max grows
-    "flash_alpha_not_applied_to_rows_g": (
-        "flash_attention",
+    "flash_alpha_not_applied_to_rows_g": ("csrc/flash_attention.cu", [(
         "        acc[n][0] *= alpha_a;\n        acc[n][1] *= alpha_a;\n",
         "",
-    ),
+    )]),
     # the bf16 grouped GEMM never runs its last block_d step
-    "moe_gemm_skip_last_block_d_step": (
-        "moe_gemm",
+    "moe_gemm_skip_last_block_d_step": ("csrc/moe_gemm.cu", [(
         "for (int d0 = 0; d0 < d; d0 += block_d) {",
         "for (int d0 = 0; d0 < d - block_d; d0 += block_d) {",
-    ),
+    )]),
     # the scan's state is zeroed at every chunk boundary instead of once per
     # (batch, d-block): right within a chunk, wrong from the second one on
-    "scan_zero_state_every_chunk": (
-        "selective_scan",
+    "scan_zero_state_every_chunk": ("csrc/selective_scan.cu", [(
         "    __syncthreads();  // the previous chunk is consumed\n",
         "    for (int n = 0; n < kMaxN; ++n) x[n] = 0.f;\n"
         "    __syncthreads();  // the previous chunk is consumed\n",
-    ),
+    )]),
+    # quantize rounds half away from zero (roundf) instead of half to even
+    "quantize_round_half_away_from_zero": ("csrc/quantize.cu", [(
+        "const float r = rintf(__fdiv_rn(x, scale));",
+        "const float r = roundf(__fdiv_rn(x, scale));",
+    )]),
+    # quantize multiplies by 127 / amax instead of dividing by amax / 127
+    "quantize_scale_by_reciprocal": ("csrc/quantize.cu", [
+        ("const float r = rintf(__fdiv_rn(x, scale));", "const float r = rintf(x * scale);"),
+        ("  if (lane == 0) scale[row] = s;\n",
+         "  if (lane == 0) scale[row] = s;\n"
+         "  const float inv = amax > 0.f ? __fdiv_rn(127.0f, amax) : 1.0f;\n"),
+        ("quant_one(to_f32(e[j]), s)", "quant_one(to_f32(e[j]), inv)"),
+        ("quant_one(to_f32(xr[i]), s)", "quant_one(to_f32(xr[i]), inv)"),
+    ]),
+    # the rmsnorm wrapper launches without its autograd Function: the output
+    # is cut from the graph and every gradient below it is lost
+    "rmsnorm_output_detached": ("rmsnorm.py", [(
+        "        return RMSNormFn.apply(x, w, eps, lambda a, b: _launch(a, b, eps))\n",
+        "        return _launch(x, w, eps)\n",
+    )]),
 }
 
 RUN = """
@@ -69,9 +96,10 @@ import sys
 sys.path.insert(0, "src")
 import torch, torch.nn.functional as F
 import chip_smoke
-from repro_torch.kernels import {module} as kernel
+from repro_torch.kernels import flash_attention as fa, moe_gemm as mg, quantize as qt
+from repro_torch.kernels import rmsnorm as rn, selective_scan as ss
 torch.backends.cuda.matmul.allow_tf32 = False
-chip_smoke.{phase}(torch, F, kernel)
+{call}
 """
 
 
@@ -80,26 +108,27 @@ def run_case(base: Path, name: str, edit) -> dict:
     shutil.rmtree(work, ignore_errors=True)
     shutil.copytree(ROOT / "src", work / "src", ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy2(ROOT / "chip_smoke.py", work / "chip_smoke.py")
-    kernels = sorted({c[0] for c in CASES.values() if c is not None})
+    phases = sorted({PHASE_OF[c[0]] for c in CASES.values() if c is not None})
     if edit is not None:
-        kernel, old, new = edit
-        path = work / CSRC / f"{kernel}.cu"
+        rel, pairs = edit
+        path = work / KERNELS / rel
         text = path.read_text()
-        if old not in text:
-            raise RuntimeError(f"{name}: the text to edit is not in {path.name}")
-        path.write_text(text.replace(old, new, 1))
-        kernels = [kernel]
+        for old, new in pairs:
+            if old not in text:
+                raise RuntimeError(f"{name}: the text to edit is not in {path.name}")
+            text = text.replace(old, new, 1)
+        path.write_text(text)
+        phases = [PHASE_OF[rel]]
     failure, passed = [], True
-    for kernel in kernels:
-        module, phase = PHASES[kernel]
-        proc = subprocess.run([sys.executable, "-c", RUN.format(module=module, phase=phase)],
+    for phase in phases:
+        proc = subprocess.run([sys.executable, "-c", RUN.format(call=PHASES[phase])],
                               cwd=work, capture_output=True, text=True, timeout=900)
         lines = [ln for ln in proc.stderr.splitlines() if ln.startswith("AssertionError")]
         if proc.returncode != 0 and not lines:
             raise RuntimeError(f"{name}: the {phase} phase did not run:\n{proc.stderr[-4000:]}")
         passed &= proc.returncode == 0
         failure += lines
-    return {"case": name, "kernels": kernels, "phase_passed": passed,
+    return {"case": name, "phases": phases, "phase_passed": passed,
             "caught": failure[-1] if failure else None, "as_expected": passed == (edit is None)}
 
 

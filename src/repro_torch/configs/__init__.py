@@ -9,7 +9,7 @@ from __future__ import annotations
 import importlib
 from typing import List
 
-from repro_torch.configs.base import InputShape, LayerSpec, ModelConfig
+from repro_torch.configs.base import SHAPES, InputShape, LayerSpec, ModelConfig
 
 _MODULES = {
     "granite-3-2b": "granite_3_2b",
@@ -43,4 +43,10 @@ def get_config(arch_id: str) -> ModelConfig:
     return mod.CONFIG
 
 
-__all__ = ["ARCH_IDS", "InputShape", "LayerSpec", "ModelConfig", "get_config"]
+def get_shape(name: str) -> InputShape:
+    if name not in SHAPES:
+        raise KeyError(f"unknown shape {name!r}; known: {list(SHAPES)}")
+    return SHAPES[name]
+
+
+__all__ = ["ARCH_IDS", "SHAPES", "InputShape", "LayerSpec", "ModelConfig", "get_config", "get_shape"]

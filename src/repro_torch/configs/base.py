@@ -41,6 +41,14 @@ class InputShape:
         return self.seq_len * self.global_batch
 
 
+SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
+
+
 @dataclass(frozen=True)
 class ModelConfig:
     name: str

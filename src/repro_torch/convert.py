@@ -7,7 +7,9 @@ axis, the same ``(in, out)`` weight layout.  Each leaf keeps its own dtype:
 the MoE ``router`` and the Mamba ``A_log`` and ``Dp`` are f32, every other
 leaf (Mamba's ``dt_b`` included) is in ``cfg.dtype``; a leaf of another
 dtype raises.  bf16 leaves (numpy's ``ml_dtypes`` bfloat16) pass through
-float32, which holds them exactly.
+float32, which holds them exactly.  ``opt_state_from_numpy`` carries the
+JAX optimizer state across the same way, so that an optimizer step can be
+compared from identical state.
 """
 from __future__ import annotations
 
@@ -58,3 +60,31 @@ def _leaves(t: dict):
             yield from _leaves(v)
         else:
             yield v
+
+
+def opt_state_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
+    """The JAX ``init_opt_state`` / ``apply_updates`` state, its leaves as numpy
+    (``jax.tree.map(np.asarray, state)``), as the port's optimizer state:
+    ``mu``/``nu`` with the parameter nesting, each leaf an f32 tensor or an
+    int8 moment ``{"q": int8, "s": f32}``, and ``step`` as an int."""
+    device = resolve_device(device)
+    for name in ("mu", "nu", "step"):
+        if name not in tree:
+            raise KeyError(f"optimizer state lacks {name!r}")
+
+    def moment(a, path):
+        a = np.asarray(a)
+        want = "int8" if path[-1] == "q" else "float32"
+        if a.dtype.name != want:
+            raise ValueError(f"moment leaf {'.'.join(path)} is {a.dtype.name}; expected {want}")
+        return torch.from_numpy(np.array(a)).to(device)
+
+    def conv(t, path):
+        return {k: conv(v, path + (k,)) if isinstance(v, dict) else moment(v, path + (k,))
+                for k, v in t.items()}
+
+    periods = {np.asarray(v).shape[0] for b in tree["mu"]["blocks"].values() for v in _leaves(b)}
+    if periods != {cfg.n_periods}:
+        raise ValueError(f"stacked axis {sorted(periods)} != n_periods {cfg.n_periods}")
+    return {"mu": conv(tree["mu"], ("mu",)), "nu": conv(tree["nu"], ("nu",)),
+            "step": int(np.asarray(tree["step"]))}

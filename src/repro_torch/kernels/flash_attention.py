@@ -17,7 +17,12 @@ that does not fit a Hopper block; nothing else changes it.
 ``LAUNCHES.tiles`` records every tile launched since the last reset.
 
 A CPU tensor takes the plain version (``ref.attention``); a CUDA tensor
-launches the kernel or raises.
+launches the kernel or raises.  Where autograd records (grad enabled and an
+input that requires grad), the launch goes through ``FlashAttentionFn``: the
+JAX kernel is forward-only, so its backward recomputes the plain version
+from the saved ``q``, ``k``, ``v`` (never the ``S x S`` scores, which are
+not saved) and returns its gradient; at 1x4096 with 16 heads that backward
+holds one layer's f32 scores, about 1 GiB, at a time.
 """
 from __future__ import annotations
 
@@ -70,6 +75,39 @@ def flash_attention(
     if Hq % Hkv:
         raise ValueError(f"q heads {Hq} not a multiple of kv heads {Hkv}")
     launch = flash_launch(B, Hq, Sq, Skv, D, _DTYPE_NAMES[q.dtype], block_q, block_kv)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttentionFn.apply(
+            q, k, v, causal, lambda a, b, c: _launch(a, b, c, causal, launch)
+        )
+    return _launch(q, k, v, causal, launch)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``launch(q, k, v)`` forward; backward by recompute through ``ref.attention``.
+
+    Saves only ``q``, ``k``, ``v``.  ``launch`` is the kernel on the card
+    (the tests pass the plain version to check the backward on the CPU).
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, launch):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return launch(q, k, v)
+
+    @staticmethod
+    def backward(ctx, go):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            qd, kd, vd = (t.detach().requires_grad_() for t in (q, k, v))
+            o = attention_plain(qd, kd, vd, causal=ctx.causal)
+            gq, gk, gv = torch.autograd.grad(o, (qd, kd, vd), go)
+        return gq, gk, gv, None, None
+
+
+def _launch(q, k, v, causal: bool, launch) -> torch.Tensor:
+    B, Hq, Sq, D = q.shape
+    _, Hkv, Skv, _ = k.shape
     o = torch.empty_like(q)
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o)):
         if not t.is_contiguous() or t.data_ptr() % 16:

@@ -16,7 +16,12 @@ changes nothing else.  ``LAUNCHES.tiles`` records every tile launched since
 the last reset.
 
 A CPU tensor takes the plain version (``ref.moe_gemm``); a CUDA tensor
-launches the kernel or raises.
+launches the kernel or raises.  Where autograd records (grad enabled and an
+input that requires grad), the launch goes through ``MoeGemmFn``, whose
+backward is two more grouped GEMMs of the same form, each a launch of the
+same kernel with the same tile: ``dx = dy . w^T`` as ``(E,C,f) . (E,f,d)``
+and ``dw = x^T . dy`` as ``(E,d,C) . (E,C,f)``, on transposed copies made
+contiguous first.
 """
 from __future__ import annotations
 
@@ -61,6 +66,35 @@ def moe_gemm(
             f"w must be ({E}, {d}, f) {x.dtype} on {x.device}; got "
             f"{tuple(w.shape)} {w.dtype} on {w.device}"
         )
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return MoeGemmFn.apply(x, w, lambda a, b: _launch(a, b, block_c, block_f, block_d))
+    return _launch(x, w, block_c, block_f, block_d)
+
+
+class MoeGemmFn(torch.autograd.Function):
+    """``gemm(x, w)`` forward; backward ``dx = gemm(dy, w^T)``, ``dw = gemm(x^T, dy)``.
+
+    ``gemm`` is the kernel on the card, so the backward launches it twice
+    (the tests pass the plain version to check the formulas on the CPU).
+    """
+
+    @staticmethod
+    def forward(ctx, x, w, gemm):
+        ctx.save_for_backward(x, w)
+        ctx.gemm = gemm
+        return gemm(x, w)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        gy = gy.contiguous()
+        gx = ctx.gemm(gy, w.transpose(1, 2).contiguous()) if ctx.needs_input_grad[0] else None
+        gw = ctx.gemm(x.transpose(1, 2).contiguous(), gy) if ctx.needs_input_grad[1] else None
+        return gx, gw, None
+
+
+def _launch(x, w, block_c: int, block_f: int, block_d: int) -> torch.Tensor:
+    E, C, d = x.shape
     f = w.shape[2]
     launch = moe_gemm_launch(E, C, d, f, _DTYPE_NAMES[x.dtype], block_c, block_f, block_d)
     out = torch.empty((E, C, f), dtype=x.dtype, device=x.device)

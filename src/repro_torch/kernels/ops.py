@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import moe_gemm as _mg
+from repro_torch.kernels import quantize as _qt
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.kernels import selective_scan as _ss
@@ -40,6 +41,8 @@ COUNTERS = {
     "flash_attention": _fa.LAUNCHES,
     "moe_gemm": _mg.LAUNCHES,
     "selective_scan": _ss.LAUNCHES,
+    "quantize_int8": _qt.QUANT_LAUNCHES,
+    "dequantize_int8": _qt.DEQUANT_LAUNCHES,
 }
 
 
@@ -75,3 +78,12 @@ def moe_gemm(x, w, *, tiles: KernelTiles = DEFAULT_TILES) -> torch.Tensor:
     return _mg.moe_gemm(
         x, w, block_c=tiles.moe_block_c, block_f=tiles.moe_block_f, block_d=tiles.moe_block_d
     )
+
+
+def quantize_int8(x) -> tuple:
+    """``x (R, C)`` -> ``(q int8 (R, C), scale f32 (R, 1))``, rowwise symmetric."""
+    return _qt.quantize_int8(x)
+
+
+def dequantize_int8(q, scale, dtype=torch.float32) -> torch.Tensor:
+    return _qt.dequantize_int8(q, scale, dtype=dtype)

@@ -94,3 +94,25 @@ def selective_scan_step(
 def moe_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: (E, C, d), w: (E, d, f) -> (E, C, f); f32 accumulation, output in x.dtype."""
     return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+
+
+def quantize_int8(x: torch.Tensor):
+    """Rowwise symmetric int8: ``x (R, C)`` -> ``(q int8 (R, C), scale f32 (R, 1))``.
+
+    ``scale = amax / 127`` (1 where ``amax == 0``), ``q = clip(round(x /
+    scale), ±127)``, rounded half to even.  Both divisions are true IEEE f32
+    divisions, as in the JAX package's eager ``ref.quantize_int8``: 127 is
+    passed as a tensor because PyTorch on CUDA divides by a Python scalar as a
+    multiply by its reciprocal, which moves the scale by an ulp on some rows.
+    (Inside ``jax.jit`` XLA makes the same rewrite of ``amax / 127.0``, so
+    the jitted JAX optimizer's scales can differ from these by one ulp.)
+    """
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.where(amax > 0, amax / amax.new_tensor(127.0), 1.0)
+    q = torch.round(xf / scale).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    return (q.float() * scale).to(dtype)

@@ -8,7 +8,10 @@ reduces the f32 sum of squares in registers and shuffles, and writes the row
 once; a ragged width is masked, never padded.
 
 A CPU tensor takes the plain version (``ref.rmsnorm``); a CUDA tensor
-launches the kernel or raises.
+launches the kernel or raises.  Where autograd records (grad enabled and an
+input that requires grad), the launch goes through ``RMSNormFn``: the JAX
+package has no backward kernel for RMSNorm, so its backward recomputes the
+plain version from the saved ``x`` and ``w`` and returns its gradient.
 """
 from __future__ import annotations
 
@@ -34,6 +37,29 @@ def _launcher():
     return lib, fn
 
 
+class RMSNormFn(torch.autograd.Function):
+    """``launch(x, w)`` forward; backward by recompute through ``ref.rmsnorm``.
+
+    Saves only ``x`` and ``w``.  ``launch`` is the kernel on the card (the
+    tests pass the plain version to check the backward on the CPU).
+    """
+
+    @staticmethod
+    def forward(ctx, x, w, eps, launch):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return launch(x, w)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        with torch.enable_grad():
+            xd, wd = x.detach().requires_grad_(), w.detach().requires_grad_()
+            y = rmsnorm_plain(xd, wd, eps=ctx.eps)
+            gx, gw = torch.autograd.grad(y, (xd, wd), gy)
+        return gx, gw, None, None
+
+
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
     """``x (..., d)``, ``w (d,)`` -> ``x * rsqrt(mean(x^2) + eps) * w`` in x.dtype."""
     if x.device.type == "cpu":
@@ -50,6 +76,13 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6) -> torch.Ten
         )
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("rmsnorm kernel takes contiguous x and w")
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return RMSNormFn.apply(x, w, eps, lambda a, b: _launch(a, b, eps))
+    return _launch(x, w, eps)
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    d = x.shape[-1]
     y = torch.empty_like(x)
     rows = x.numel() // d if d else 0
     if rows == 0:

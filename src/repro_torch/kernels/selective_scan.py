@@ -16,7 +16,10 @@ does not fit a Hopper block, and changes nothing else.  ``LAUNCHES.tiles``
 records every ``(chunk, d_block)`` launched since the last reset.
 
 A CPU tensor takes the plain version (``ref.selective_scan``); a CUDA tensor
-launches the kernel or raises.
+launches the kernel or raises.  The kernel has no gradient yet: on a CUDA
+input that requires grad (with grad enabled) the wrapper raises
+``NotImplementedError`` naming ROADMAP item A12, never returning an output
+that is silently cut from the graph.
 """
 from __future__ import annotations
 
@@ -54,6 +57,10 @@ def selective_scan(
 ) -> torch.Tensor:
     if u.device.type == "cpu":
         return selective_scan_plain(u, dt, A, Bm, Cm, D)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (u, dt, A, Bm, Cm, D)):
+        raise NotImplementedError(
+            "selective_scan has no gradient on the card yet (Mamba training): ROADMAP item A12"
+        )
     if u.device.type != "cuda":
         raise ValueError(f"selective_scan runs on cuda or cpu tensors, not {u.device}")
     if u.dtype not in _DTYPE_CODES:

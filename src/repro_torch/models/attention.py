@@ -58,7 +58,7 @@ def forward(
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device,
                kv_dtype: str = "bf16", n_periods: int = 0) -> dict:
     if kv_dtype == "int8":
-        raise NotImplementedError("the int8 KV cache is not ported yet: ROADMAP item A3")
+        raise NotImplementedError("the int8 KV cache is not ported yet: ROADMAP item A13")
     lead = (n_periods,) if n_periods else ()
     shape = lead + (batch, cfg.n_kv_heads, max_len, cfg.resolved_head_dim)
     return {
@@ -92,7 +92,7 @@ def decode_step(
     attends over its cache as it stands, so its output is not that row's
     next step; the serving engine discards it."""
     if "k_s" in cache:
-        raise NotImplementedError("the int8 KV cache is not ported yet: ROADMAP item A3")
+        raise NotImplementedError("the int8 KV cache is not ported yet: ROADMAP item A13")
     B = x.shape[0]
     hd = cfg.resolved_head_dim
     cur = torch.as_tensor(cur, dtype=torch.long, device=x.device)

@@ -9,10 +9,16 @@ period of 1 attention + 7 Mamba with MoE every other slot included).
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
@@ -123,10 +129,53 @@ def _block_forward(bp, spec, cfg, h, positions, tiles):
     return _mlp_slot(bp, spec, cfg, h, tiles)
 
 
+def _period_forward(pp, h, positions, plan, cfg, tiles):
+    for i, spec in enumerate(plan):
+        h = _block_forward(pp[f"b{i}"], spec, cfg, h, positions, tiles)
+    return h
+
+
+# the products without batch dims: what XLA's dots_with_no_batch_dims_saveable keeps
+_NO_BATCH_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _NO_BATCH_DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn, remat: str):
+    """The JAX package's ``_maybe_remat`` over one period.
+
+    ``"full"`` (``nothing_saveable``) is ``torch.utils.checkpoint`` without
+    re-entry: the backward re-runs the whole period, its kernels included.
+    ``"dots"`` (``dots_with_no_batch_dims_saveable``) is selective
+    checkpointing that saves the outputs of ``aten.mm`` / ``aten.addmm`` --
+    the projections, router and MLP products, which are 2-D once PyTorch has
+    flattened the batch -- and recomputes everything else: ``bmm`` (the
+    plain attention and grouped GEMM on the CPU), the hand kernels (whose
+    launches are no aten product), norms and activations.  Where it differs
+    from XLA: the policy sees PyTorch's ops after dispatch, not XLA's
+    ``dot_general``s after fusion, so a product XLA would fuse into a
+    neighbour and a product PyTorch lowers to ``bmm`` although it has no
+    batch dim are both recomputed; XLA may also rematerialise or CSE
+    differently.  Without grad recording there is nothing to save, and the
+    period runs as it is.
+    """
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts, _dots_policy),
+        )
+    raise ValueError(f"unknown remat policy {remat!r}; expected none, dots or full")
+
+
 # ---------------------------------------------------------------------------
-# Forward (prefill)
+# Forward (train / prefill)
 # ---------------------------------------------------------------------------
-@torch.no_grad()
 def forward(
     params: dict,
     cfg: ModelConfig,
@@ -134,13 +183,16 @@ def forward(
     positions: torch.Tensor,  # (B,S)
     *,
     tiles: KernelTiles = DEFAULT_TILES,
+    remat: str = "none",
 ) -> torch.Tensor:
+    """Logits ``(B, S, V)``.  Records autograd only where the caller does
+    (the prefill step runs it under ``torch.no_grad``); ``remat`` applies
+    per period, as in the JAX package."""
     plan = _check_plan(cfg)
     h = _embed(params, cfg, inputs)
+    body = _maybe_remat(_period_forward, remat)
     for p in range(cfg.n_periods):
-        pp = period_params(params["blocks"], p)
-        for i, spec in enumerate(plan):
-            h = _block_forward(pp[f"b{i}"], spec, cfg, h, positions, tiles)
+        h = body(period_params(params["blocks"], p), h, positions, plan, cfg, tiles)
     return _logits(params, cfg, h)
 
 

@@ -1,0 +1,148 @@
+"""AdamW with optional int8-quantized moments.
+
+The counterpart of the JAX package's ``training/optimizer.py``.  Parameters,
+gradients and moments are nested dicts with the parameter tree's nesting; a
+moment leaf is an f32 tensor or, for ``moment_dtype="int8"`` and a leaf of
+``ndim >= 2`` with a last axis of at least 16, ``{"q": int8, "s": f32 (..., 1)}``,
+rowwise over the last axis.  The int8 codec runs through ``ops.quantize_int8``
+/ ``ops.dequantize_int8`` on ``(-1, shape[-1])`` views: the hand kernels on
+the card, their plain versions on the CPU.  The stacked leading
+``n_periods`` axis makes the ``norm1``/``norm2`` leaves 2-D, so they are
+quantized, exactly as in the JAX package.
+
+Where the JAX ``apply_updates`` returns new trees, this one writes the new
+parameters and moments into the given tensors in place (one copy of each on
+the card) and returns the same objects.  Step scalars (learning rate, clip
+scale, bias corrections) are f32 0-dim tensors on the parameters' device, as
+JAX computes them.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, Iterator, Tuple
+
+import torch
+
+from repro_torch.kernels import ops
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    peak_lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    moment_dtype: str = "float32"  # float32 | int8
+
+
+def lr_at(oc: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
+    """Linear warm-up then cosine decay, in f32 like the JAX schedule."""
+    s = step.to(torch.float32)
+    warm = s / max(oc.warmup_steps, 1)
+    prog = torch.clamp((s - oc.warmup_steps) / max(oc.total_steps - oc.warmup_steps, 1), 0.0, 1.0)
+    cos = 0.5 * (1.0 + torch.cos(math.pi * prog))
+    return oc.peak_lr * torch.where(s < oc.warmup_steps, warm, cos)
+
+
+# -- int8 moment codecs -------------------------------------------------------
+def _quantizable(leaf: torch.Tensor) -> bool:
+    return leaf.ndim >= 2 and leaf.shape[-1] >= 16
+
+
+def _is_moment(m) -> bool:
+    return isinstance(m, dict) and set(m) == {"q", "s"}
+
+
+def _mom_zero(leaf: torch.Tensor, oc: OptimizerConfig):
+    if oc.moment_dtype == "int8" and _quantizable(leaf):
+        return {
+            "q": torch.zeros(leaf.shape, dtype=torch.int8, device=leaf.device),
+            "s": torch.zeros(leaf.shape[:-1] + (1,), dtype=torch.float32, device=leaf.device),
+        }
+    return torch.zeros(leaf.shape, dtype=torch.float32, device=leaf.device)
+
+
+def _mom_read(m) -> torch.Tensor:
+    if _is_moment(m):
+        q = m["q"]
+        return ops.dequantize_int8(q.reshape(-1, q.shape[-1]), m["s"].reshape(-1, 1)).reshape(q.shape)
+    return m
+
+
+def _mom_write_(m, val: torch.Tensor) -> None:
+    """Store ``val`` into the moment ``m`` in place (requantized if int8)."""
+    if _is_moment(m):
+        q, s = ops.quantize_int8(val.reshape(-1, val.shape[-1]))
+        m["q"].copy_(q.reshape(m["q"].shape))
+        m["s"].copy_(s.reshape(m["s"].shape))
+    else:
+        m.copy_(val)
+
+
+# -- trees ----------------------------------------------------------------------
+def leaves(tree: dict, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    """``(dotted path, leaf)`` in insertion order; an int8 moment is one leaf."""
+    for k, v in tree.items():
+        path = f"{prefix}{k}"
+        if isinstance(v, dict) and not _is_moment(v):
+            yield from leaves(v, path + ".")
+        else:
+            yield path, v
+
+
+def tree_from_leaves(like: dict, flat: Dict[str, Any], prefix: str = "") -> dict:
+    """The tree of ``like``'s nesting whose leaves are ``flat[dotted path]``."""
+    return {
+        k: tree_from_leaves(v, flat, f"{prefix}{k}.") if isinstance(v, dict) and not _is_moment(v)
+        else flat[f"{prefix}{k}"]
+        for k, v in like.items()
+    }
+
+
+def _map(fn, tree: dict) -> dict:
+    return {k: _map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+# -- public API ---------------------------------------------------------------
+def init_opt_state(params: dict, oc: OptimizerConfig) -> Dict[str, Any]:
+    zeros = lambda: _map(lambda p: _mom_zero(p, oc), params)  # noqa: E731
+    return {"mu": zeros(), "nu": zeros(), "step": 0}
+
+
+def global_norm(tree: dict) -> torch.Tensor:
+    sq = sum(torch.sum(torch.square(g.float())) for _, g in leaves(tree))
+    return torch.sqrt(sq)
+
+
+@torch.no_grad()
+def apply_updates(params: dict, grads: dict, state: Dict[str, Any], oc: OptimizerConfig):
+    """One AdamW step, in place: returns ``(params, state, {"lr", "grad_norm"})``
+    with the metrics as f32 0-dim tensors."""
+    flat_p = list(leaves(params))
+    device = flat_p[0][1].device
+    step = state["step"] + 1
+    step_t = torch.tensor(step, dtype=torch.int32, device=device)
+    lr = lr_at(oc, step_t)
+    gnorm = global_norm(grads)
+    scale = torch.minimum(torch.ones((), device=device), oc.clip_norm / (gnorm + 1e-9))
+    bc1 = 1.0 - oc.b1 ** step_t.to(torch.float32)
+    bc2 = 1.0 - oc.b2 ** step_t.to(torch.float32)
+    flat_g = dict(leaves(grads))
+    flat_mu, flat_nu = dict(leaves(state["mu"])), dict(leaves(state["nu"]))
+    for path, p in flat_p:
+        g = flat_g[path].float() * scale
+        m = oc.b1 * _mom_read(flat_mu[path]) + (1 - oc.b1) * g
+        v = oc.b2 * _mom_read(flat_nu[path]) + (1 - oc.b2) * g * g
+        delta = (m / bc1) / (torch.sqrt(v / bc2) + oc.eps)
+        if p.ndim >= 2:  # decoupled weight decay on matrices only
+            delta = delta + oc.weight_decay * p.float()
+        p.copy_((p.float() - lr * delta).to(p.dtype))
+        _mom_write_(flat_mu[path], m)
+        _mom_write_(flat_nu[path], v)
+    state["step"] = step
+    return params, state, {"lr": lr, "grad_norm": gnorm}

@@ -66,7 +66,11 @@ def test_entry_points_raise_without_a_card():
     from repro_torch.launch import serve
     from repro_torch.models import transformer
     from repro_torch.serving.engine import ServingEngine
-    from repro_torch.training.train_step import make_prefill_step, make_serve_step
+    from repro_torch.launch import train
+    from repro_torch.training.train_step import (
+        make_prefill_step, make_serve_step, make_train_step,
+    )
+    from repro_torch.training.trainer import Trainer
 
     cfg = get_config("granite-3-2b").reduced()
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -80,6 +84,12 @@ def test_entry_points_raise_without_a_card():
         ServingEngine(cfg, params)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--arch", "granite-3-2b", "--smoke"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_train_step(cfg, None, SchedulePlan())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(cfg, None, SchedulePlan())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--arch", "granite-3-2b", "--smoke", "--steps", "1"])
 
 
 def test_serve_cli_runs_on_the_cpu_when_asked(capsys):
@@ -100,7 +110,7 @@ def test_serve_cli_runs_the_moe_and_mamba_archs_on_the_cpu(arch, capsys):
 
 
 def test_kernel_build_is_keyed_on_source_into_an_ignored_directory():
-    for name in ("rmsnorm", "flash_attention", "moe_gemm", "selective_scan"):
+    for name in ("rmsnorm", "flash_attention", "moe_gemm", "selective_scan", "quantize"):
         path = _build.library_path(name)
         assert path.parent == ROOT / "build" / "repro_torch"
         assert path == _build.library_path(name)  # deterministic
