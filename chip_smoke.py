@@ -7,15 +7,19 @@ Phases, one JSON line each (every line carries the card's name and power
 limit as ``nvidia-smi`` reports them):
 
 1. ``device``: torch, CUDA, the card.
-2. ``build``: the five CUDA sources compiled with ``nvcc`` for ``sm_90a``
-   from ``src/repro_torch/kernels/csrc/``, one ``nvcc`` each, in parallel;
-   seconds and ``ptxas -v`` lines.
+2. ``build``: the five CUDA sources (and the shared ``csrc/sm90.cuh``)
+   compiled with ``nvcc`` for ``sm_90a`` from ``src/repro_torch/kernels/csrc/``,
+   one ``nvcc`` each, in parallel; seconds, ``ptxas -v`` lines, and the
+   registers and spill bytes of the bf16 TMA -> wgmma kernels, which must
+   not spill.
 3. ``kernels.rmsnorm`` / ``kernels.flash_attention`` / ``kernels.moe_gemm`` /
    ``kernels.selective_scan`` / ``kernels.quantize``: each kernel against its
    plain PyTorch version on the card, at the main paths' shapes and at the
    shapes of ``tests/test_kernels.py`` (plus ragged ones; for the int8 pair
-   also zero rows and exact .5 ties, held bit for bit); error and
-   tolerance, kernel / plain / library ms (CUDA events), and the bound.
+   also zero rows and exact .5 ties, held bit for bit; for moe_gemm every
+   operand layout); error and tolerance, kernel / plain / library ms (CUDA
+   events; kernel, library, kernel in turns), ``vs_library``,
+   ``achieved_tflops`` and the bound.
 4. ``grad``: the autograd Function of rmsnorm, flash attention and moe_gemm
    at the training shapes against autograd through the plain version, on
    the card; the scan must refuse an input that requires grad.
@@ -122,6 +126,21 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def timed(torch, kernel, library, ops: float, iters: int = 20, warmup: int = 3) -> dict:
+    """The kernel, the library call, the kernel again, in turns (CUDA
+    events): the kernel's mean of its two runs, its ratio to the library
+    call (``vs_library``) and the operations it does a second
+    (``achieved_tflops``).  ``library`` may be None."""
+    k1 = cuda_ms(torch, kernel, iters, warmup)
+    lib = cuda_ms(torch, library, iters, warmup) if library is not None else None
+    k2 = cuda_ms(torch, kernel, iters, warmup)
+    ms = (k1 + k2) / 2
+    out = {"ms": ms, "ms_runs": [k1, k2], "library_ms": lib, "achieved_tflops": ops / ms / 1e9}
+    if lib is not None:
+        out["vs_library"] = ms / lib
+    return out
+
+
 def bound(nbytes: float, ops: float, dtype: str):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[dtype] * 1e3
@@ -165,10 +184,13 @@ def ptxas_lines(text: str) -> list:
             base = re.search(r"(flash_fwd_bf16|flash_fwd_f32|rmsnorm_kernel|moe_gemm_bf16|"
                              r"moe_gemm_f32|selective_scan_kernel|dequantize_kernel|"
                              r"quantize_kernel)", name)
-            arg = re.search(r"ILi(\d+)E|I(f|13__nv_bfloat16)E", name)
+            ints = re.findall(r"Li(\d+)E", name)
+            arg = re.search(r"I(f|13__nv_bfloat16)E", name)
             label = base.group(1) if base else name
-            if arg:
-                label += f"<{arg.group(1) or ('float' if arg.group(2) == 'f' else 'bf16')}>"
+            if ints:
+                label += f"<{','.join(ints)}>"
+            elif arg:
+                label += f"<{'float' if arg.group(1) == 'f' else 'bf16'}>"
             cur = {"kernel": label}
             out.append(cur)
             continue
@@ -213,9 +235,8 @@ def phase_kernels_rmsnorm(torch, F, rn):
             n, d = x.numel(), shape[-1]
             b_ms, b_by = bound(2 * n * x.element_size() + d * w.element_size(), 4 * n, "float32")
             row.update(
-                ms=cuda_ms(torch, lambda: rn.rmsnorm(x, w)),
+                **timed(torch, lambda: rn.rmsnorm(x, w), lambda: F.rms_norm(x, (d,), w, 1e-6), 4 * n),
                 plain_ms=cuda_ms(torch, lambda: rn.rmsnorm_plain(x, w)),
-                library_ms=cuda_ms(torch, lambda: F.rms_norm(x, (d,), w, 1e-6)),
                 bound_ms=b_ms, bound_by=b_by,
             )
         rows.append(row)
@@ -249,6 +270,8 @@ def phase_kernels_flash(torch, F, fa):
         (2, 4, 2, 100, 333, 64, 64, 128, True, "float32", "ragged, Sq < Skv"),
         (1, 4, 2, 200, 200, 128, 128, 128, True, "bfloat16", "head_dim 128"),
         (1, 4, 4, 96, 96, 16, 32, 64, False, "bfloat16", "head_dim 16, non-causal"),
+        (2, 4, 2, 700, 1000, 64, 256, 256, True, "bfloat16", "Skv off the 64-key step, Sq < Skv"),
+        (1, 4, 2, 200, 200, 32, 128, 128, True, "bfloat16", "head_dim 32"),
     ]
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     rows = []
@@ -278,10 +301,10 @@ def phase_kernels_flash(torch, F, fa):
             ops = 4 * D * _visible_pairs(Sq, Skv, causal) * B * Hq
             b_ms, b_by = bound(nbytes, ops, dtype)
             row.update(
-                ms=cuda_ms(torch, lambda: fa.flash_attention(q, k, v, causal=causal, block_q=bq, block_kv=bkv)),
+                **timed(torch, lambda: fa.flash_attention(q, k, v, causal=causal, block_q=bq, block_kv=bkv),
+                        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True),
+                        ops),
                 plain_ms=cuda_ms(torch, lambda: fa.attention_plain(q, k, v, causal=causal), iters=5),
-                library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=causal, enable_gqa=True)),
                 bound_ms=b_ms, bound_by=b_by, ops=ops, bytes=nbytes,
             )
         rows.append(row)
@@ -290,9 +313,12 @@ def phase_kernels_flash(torch, F, fa):
 
 
 def phase_kernels_moe(torch, F, mg):
-    # (E, C, d, f, block_c, block_f, block_d, dtype, role): granite-moe's
-    # prefill at 1x4096 (C = capacity(4096) = 1280) and decode at 4 slots
-    # (C = 8), test_kernels.py's f32 tiles, and ragged tiles
+    # (E, C, d, f, block_c, block_f, block_d, dtype, role[, x_t, w_t]):
+    # granite-moe's prefill at 1x4096 (C = capacity(4096) = 1280) and decode
+    # at 4 slots (C = 8), test_kernels.py's f32 tiles, ragged tiles, and the
+    # bf16 kernel's edges: one consumer warpgroup, a block_d off the 64-deep
+    # ring stage, two column chunks, and every operand layout (x stored
+    # (E,d,C), w stored (E,f,d)) at a ragged shape
     cases = [
         (32, 1280, 1024, 512, 128, 256, 256, "bfloat16", "prefill up/gate"),
         (32, 1280, 512, 1024, 128, 256, 256, "bfloat16", "prefill down"),
@@ -304,31 +330,40 @@ def phase_kernels_moe(torch, F, mg):
         (32, 128, 1024, 512, 128, 256, 256, "float32", "parity tile"),
         (5, 48, 320, 96, 16, 96, 64, "bfloat16", "ragged E, tile below the warp tile"),
         (3, 40, 256, 200, 40, 200, 128, "bfloat16", "ragged E, block_f = 200"),
+        (4, 128, 256, 256, 64, 256, 128, "bfloat16", "block_c = 64: one consumer warpgroup"),
+        (3, 64, 320, 128, 64, 128, 40, "bfloat16", "block_d = 40, off the 64-deep stage"),
+        (2, 64, 128, 512, 64, 512, 128, "bfloat16", "block_f = 512: two column chunks"),
+        (3, 40, 64, 48, 40, 48, 64, "bfloat16", "ragged, dx layout: w stored (E,f,d)", False, True),
+        (3, 40, 64, 48, 40, 48, 64, "bfloat16", "ragged, dw layout: x stored (E,d,C)", True, False),
+        (3, 40, 64, 48, 40, 48, 64, "bfloat16", "ragged, both stored transposed", True, True),
     ]
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     rows = []
-    for E, C, d, f, bc, bf, bd, dtype, role in cases:
+    for E, C, d, f, bc, bf, bd, dtype, role, *layout in cases:
+        x_t, w_t = layout or (False, False)
         dt = getattr(torch, dtype)
-        x = torch.randn((E, C, d), generator=gen, device="cuda").to(dt)
-        w = torch.randn((E, d, f), generator=gen, device="cuda").to(dt)
+        x = torch.randn((E, d, C) if x_t else (E, C, d), generator=gen, device="cuda").to(dt)
+        w = torch.randn((E, f, d) if w_t else (E, d, f), generator=gen, device="cuda").to(dt)
         tol = TOL_BF16 if dtype == "bfloat16" else dict(atol=2e-4, rtol=2e-4)
         mg.LAUNCHES.reset()
-        got = mg.moe_gemm(x, w, block_c=bc, block_f=bf, block_d=bd)
+        got = mg.moe_gemm(x, w, block_c=bc, block_f=bf, block_d=bd, x_t=x_t, w_t=w_t)
         torch.cuda.synchronize()
         want = (min(bc, C), min(bf, f), min(bd, d))
         if sorted(mg.LAUNCHES.tiles) != [want]:
             raise AssertionError(f"moe tile {sorted(mg.LAUNCHES.tiles)} launched for requested {(bc, bf, bd)}")
-        stats = check_close(got, mg.moe_gemm_plain(x, w), f"moe_gemm {role} {dtype}", **tol)
-        row = {"shape": [E, C, d, f], "dtype": dtype, "role": role,
+        # the plain version on the transposed views: the product the layout means
+        exp = mg.moe_gemm_plain(x.transpose(1, 2) if x_t else x, w.transpose(1, 2) if w_t else w)
+        stats = check_close(got, exp, f"moe_gemm {role} {dtype}", **tol)
+        row = {"shape": [E, C, d, f], "dtype": dtype, "role": role, "x_t": x_t, "w_t": w_t,
                "tile_requested": [bc, bf, bd], "tile_launched": list(want), **stats}
         if role.startswith(("prefill", "decode")):
             nbytes = (x.numel() + w.numel() + E * C * f) * x.element_size()
             ops = 2 * E * C * d * f
             b_ms, b_by = bound(nbytes, ops, dtype)
             row.update(
-                ms=cuda_ms(torch, lambda: mg.moe_gemm(x, w, block_c=bc, block_f=bf, block_d=bd)),
+                **timed(torch, lambda: mg.moe_gemm(x, w, block_c=bc, block_f=bf, block_d=bd),
+                        lambda: torch.bmm(x, w), ops),
                 plain_ms=cuda_ms(torch, lambda: mg.moe_gemm_plain(x, w)),
-                library_ms=cuda_ms(torch, lambda: torch.bmm(x, w)),
                 bound_ms=b_ms, bound_by=b_by, ops=ops, bytes=nbytes,
             )
         rows.append(row)
@@ -395,9 +430,9 @@ def phase_kernels_scan(torch, F, ss):
             exps = B * L * Di * N
             b_ms, b_by = bound(nbytes, ops, "float32")
             row.update(
-                ms=cuda_ms(torch, lambda: ss.selective_scan(*args, chunk=ch, d_block=db), iters=10),
+                **timed(torch, lambda: ss.selective_scan(*args, chunk=ch, d_block=db), None, ops, iters=10),
                 plain_ms=cuda_ms(torch, lambda: ss.selective_scan_plain(*args), iters=2, warmup=1),
-                library_ms=None, bound_ms=b_ms, bound_by=b_by, ops=ops, bytes=nbytes,
+                bound_ms=b_ms, bound_by=b_by, ops=ops, bytes=nbytes,
                 exps=exps, exp_bound_ms=exps / (SM_COUNT * SFU_EXP_PER_SM_CLOCK * clock_hz) * 1e3,
             )
         rows.append(row)
@@ -486,13 +521,13 @@ def phase_kernels_quantize(torch, qt):
             dq_bytes = R * C + 4 * R + R * C * 4  # q and the scales read, f32 written
             qb, qby = bound(q_bytes, 4 * R * C, "float32")
             db, dby = bound(dq_bytes, R * C, "float32")
+            dq = timed(torch, lambda: qt.dequantize_int8(q, s), lambda: torch.mul(q, s), R * C)
             row.update(
-                ms=cuda_ms(torch, lambda: qt.quantize_int8(x)),
+                **timed(torch, lambda: qt.quantize_int8(x), None, 4 * R * C),
                 plain_ms=cuda_ms(torch, lambda: qt.quantize_int8_plain(x)),
-                library_ms=None, bound_ms=qb, bound_by=qby, bytes=q_bytes,
-                dequant_ms=cuda_ms(torch, lambda: qt.dequantize_int8(q, s)),
+                bound_ms=qb, bound_by=qby, bytes=q_bytes,
+                **{f"dequant_{k}": v for k, v in dq.items()},
                 dequant_plain_ms=cuda_ms(torch, lambda: qt.dequantize_int8_plain(q, s)),
-                dequant_library_ms=cuda_ms(torch, lambda: torch.mul(q, s)),
                 dequant_bound_ms=db, dequant_bound_by=dby, dequant_bytes=dq_bytes,
             )
         rows.append(row)
@@ -580,19 +615,23 @@ def phase_grad(torch, rn, fa, mg, ss):
         tiles = sorted(mg.LAUNCHES.tiles)
         row = {"kernel": "moe_gemm", "shape": [E, C, d, f], "dtype": dtype, "tiles": tiles, **stats}
         if dtype == "bfloat16":
-            xt = x.transpose(1, 2).contiguous()
-            wt = w.transpose(1, 2).contiguous()
+            # as the backward launches them: dx = dy . w^T with w as stored
+            # (w_t), dw = x^T . dy with x as stored (x_t); the library call
+            # on the same transposed views
             gyc = gy.contiguous()
-            for name, a, b in (("dx", gyc, wt), ("dw", xt, gyc)):
-                e_, c_, k_ = a.shape
-                f_ = b.shape[2]
+            for name, a, b, a_t, b_t in (("dx", gyc, w, False, True), ("dw", x, gyc, True, False)):
+                av, bv = (a.transpose(1, 2) if a_t else a), (b.transpose(1, 2) if b_t else b)
+                e_, c_, k_ = av.shape
+                f_ = bv.shape[2]
                 nbytes = (a.numel() + b.numel() + e_ * c_ * f_) * a.element_size()
-                b_ms, b_by = bound(nbytes, 2 * e_ * c_ * k_ * f_, dtype)
+                ops = 2 * e_ * c_ * k_ * f_
+                b_ms, b_by = bound(nbytes, ops, dtype)
                 row[name] = {
-                    "shape": [e_, c_, k_, f_], "bound_ms": b_ms, "bound_by": b_by,
-                    "ms": cuda_ms(torch, lambda: mg.moe_gemm(a, b, block_c=128, block_f=256, block_d=256)),
-                    "plain_ms": cuda_ms(torch, lambda: mg.moe_gemm_plain(a, b)),
-                    "library_ms": cuda_ms(torch, lambda: torch.bmm(a, b)),
+                    "shape": [e_, c_, k_, f_], "x_t": a_t, "w_t": b_t, "bound_ms": b_ms, "bound_by": b_by,
+                    **timed(torch, lambda: mg.moe_gemm(a, b, block_c=128, block_f=256, block_d=256,
+                                                       x_t=a_t, w_t=b_t),
+                            lambda: torch.bmm(av, bv), ops),
+                    "plain_ms": cuda_ms(torch, lambda: mg.moe_gemm_plain(a, b, x_t=a_t, w_t=b_t)),
                 }
         rows.append(row)
         del x, w, xs, gy
@@ -607,7 +646,8 @@ def phase_grad(torch, rn, fa, mg, ss):
     else:
         raise AssertionError("selective_scan returned an output for an input that requires grad")
     emit("grad", cases=rows, scan_refuses=scan,
-         note="rmsnorm/flash backward: plain recompute; moe_gemm backward: 2 kernel launches")
+         note="rmsnorm/flash backward: plain recompute; moe_gemm backward: 2 kernel launches "
+              "on the saved operands as stored (dx reads w transposed, dw reads x transposed)")
     return rows
 
 
@@ -703,9 +743,9 @@ def phase_prefill(torch, np, cfg, params, plans, ops, make_prefill_step, make_po
             "launches": counts, "median_step_ms": med * 1e3, "step_ms": [t * 1e3 for t in times],
             "tokens_per_s": SEQ / med, "peak_memory_gib": peak / 2**30,
         })
-    # flash's softmax steps over 64 keys whatever the tile and a warp's rows
-    # do not depend on block_q; the scan's chunk only sets how many steps are
-    # staged at a time: so the plans' tiles give the same bits
+    # flash's softmax steps over 64 keys whatever the tile and a warpgroup's
+    # 64 rows do not depend on block_q; the scan's chunk only sets how many
+    # steps are staged at a time: so the plans' tiles give the same bits
     for other in logits_by_plan[1:]:
         if not torch.equal(logits_by_plan[0], other):
             raise AssertionError(f"{cfg.name}: the plan tiles' logits differ: max abs "
@@ -1120,7 +1160,7 @@ SOURCES = {
                         "src/repro/kernels/quantize.py:65"),
 }
 _SUMMARY_KEYS = ("shape", "dtype", "role", "max_abs_err", "rel_err", "ms", "plain_ms", "bound_ms",
-                 "bound_by", "library_ms")
+                 "bound_by", "library_ms", "vs_library", "achieved_tflops")
 
 
 def _summary_row(n: str, rows: list, launches: int) -> dict:
@@ -1128,7 +1168,7 @@ def _summary_row(n: str, rows: list, launches: int) -> dict:
     quantize phase's rows (``dequant_*`` fields for the dequantize)."""
     src, replaces = SOURCES[n]
     head = {"name": n, "route": "cuda", "source": src, "replaces": replaces, "launches": launches}
-    timed = [r for r in rows if "ms" in r]
+    timed_rows = [r for r in rows if "ms" in r]
     if n in ("quantize_int8", "dequantize_int8"):
         pre = "" if n == "quantize_int8" else "dequant_"
         err = (lambda r: 0.0) if n == "quantize_int8" else (  # q and scale bit-equal
@@ -1136,15 +1176,15 @@ def _summary_row(n: str, rows: list, launches: int) -> dict:
         main_shapes = [{"shape": r["shape"], "dtype": r["dtype"], "role": r["role"],
                         "max_abs_err": err(r), **{k: r[pre + k] for k in (
                             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
-                       for r in timed]
+                       for r in timed_rows]
         return {**head, **main_shapes[0], "max_abs_err": max(err(r) for r in rows),
                 "main_path_shapes": main_shapes}
-    row = timed[0]  # the main path's first shape
+    row = timed_rows[0]  # the main path's first shape
     return {
         **head, "max_abs_err": max(r["max_abs_err"] for r in rows),
         "main_max_abs_err": row["max_abs_err"], "main_mean_abs_exp": row["mean_abs_exp"],
-        "main_rel_err": row["rel_err"], **{k: row[k] for k in _SUMMARY_KEYS if k != "max_abs_err"},
-        "main_path_shapes": [{k: r[k] for k in _SUMMARY_KEYS} for r in timed],
+        "main_rel_err": row["rel_err"], **{k: row.get(k) for k in _SUMMARY_KEYS if k != "max_abs_err"},
+        "main_path_shapes": [{k: r.get(k) for k in _SUMMARY_KEYS} for r in timed_rows],
     }
 
 
@@ -1190,8 +1230,15 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.build(LIBRARIES)
-    emit("build", seconds=time.perf_counter() - t0, flags=" ".join(_build.NVCC_FLAGS),
-         ptxas={n: ptxas_lines(_build.ptxas_report(n)) for n in LIBRARIES})
+    ptxas = {n: ptxas_lines(_build.ptxas_report(n)) for n in LIBRARIES}
+    # the TMA -> wgmma kernels: registers and spill bytes of every instantiation
+    bf16 = [k for n in ("flash_attention", "moe_gemm") for k in ptxas[n] if "bf16" in k["kernel"]]
+    emit("build", seconds=time.perf_counter() - t0, flags=" ".join(_build.NVCC_FLAGS), ptxas=ptxas,
+         bf16_registers={k["kernel"]: k.get("registers") for k in bf16},
+         bf16_spill_bytes={k["kernel"]: k.get("spill_stores", 0) + k.get("spill_loads", 0) for k in bf16})
+    spilled = [k["kernel"] for k in bf16 if k.get("spill_stores", 0) + k.get("spill_loads", 0)]
+    if not bf16 or spilled:
+        raise AssertionError(f"bf16 wgmma kernels spill registers: {spilled or 'none found in ptxas'}")
 
     rows = {
         "rmsnorm": phase_kernels_rmsnorm(torch, F, rn),

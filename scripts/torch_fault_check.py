@@ -8,7 +8,8 @@ that the kernel and gradient phases of ``chip_smoke.py`` catch every one.
 ``chip_smoke.py`` in ``DIR/<case>`` with one fault planted in one file under
 ``src/repro_torch/kernels/`` (a CUDA source or a wrapper); the copy builds its
 own kernels and runs, in a fresh process, the ``chip_smoke`` phase that must
-catch it (the unedited control runs every phase named below).  The control
+catch it: the file's phase, or the case's own where it names one (the
+unedited control runs every phase named below).  The control
 must pass and every mutant must fail.  Prints one JSON line per case (with
 the failing check's numbers) and exits 1 if any case went the other way.
 """
@@ -40,9 +41,9 @@ PHASE_OF = {
     "rmsnorm.py": "phase_grad",
 }
 
-# case -> (file under src/repro_torch/kernels, [(text, replacement), ...]);
-# each text's first occurrence is replaced, which is the bf16 kernel's where a
-# .cu file has two
+# case -> (file under src/repro_torch/kernels, [(text, replacement), ...][,
+# phase]); each text's first occurrence is replaced, which is the bf16
+# kernel's where a .cu file has two
 CASES = {
     "control": None,
     # query tiles from row 2048 on never visit their last kv tile: only the
@@ -51,17 +52,30 @@ CASES = {
         "const int n_tiles = kv_tiles(Skv, block_kv, causal, q_off + q_end - 1);",
         "const int n_tiles = kv_tiles(Skv, block_kv, causal, q_off + q_end - 1) - (q0 >= 2048);",
     )]),
-    # the accumulator of the first 8 rows of each warp is not rescaled when
-    # the running max grows
+    # the accumulator of the first 8 rows of each warp (rows 0-7, 16-23, ...
+    # of a warpgroup) is not rescaled when the running max grows
     "flash_alpha_not_applied_to_rows_g": ("csrc/flash_attention.cu", [(
-        "        acc[n][0] *= alpha_a;\n        acc[n][1] *= alpha_a;\n",
+        "          acc[4 * j + 0] *= alpha_a;\n          acc[4 * j + 1] *= alpha_a;\n",
         "",
     )]),
-    # the bf16 grouped GEMM never runs its last block_d step
+    # the bf16 grouped GEMM never streams the slices of its last block_d step
     "moe_gemm_skip_last_block_d_step": ("csrc/moe_gemm.cu", [(
-        "for (int d0 = 0; d0 < d; d0 += block_d) {",
-        "for (int d0 = 0; d0 < d - block_d; d0 += block_d) {",
+        "const int n_slices = cdiv(d, kSlice);",
+        "const int n_slices = cdiv(d - block_d, kSlice);",
     )]),
+    # the forward's w, stored (E,d,f) and so MN-major, is read without the
+    # wgmma transpose bit (and its descriptor): as if it were K-major
+    "moe_gemm_forward_w_transpose_bit_dropped": ("csrc/moe_gemm.cu", [(
+        "constexpr int kTnspB = TB ? 0 : 1;",
+        "constexpr int kTnspB = 0;",
+    )]),
+    # the backward's dw = x^T . dy reads x as stored (E,C,d) without the
+    # transpose bit (and its descriptor): only dw, which the gradient phase
+    # checks
+    "moe_gemm_dw_reads_x_untransposed": ("csrc/moe_gemm.cu", [(
+        "constexpr int kTnspA = TA;",
+        "constexpr int kTnspA = 0;",
+    )], "phase_grad"),
     # the scan's state is zeroed at every chunk boundary instead of once per
     # (batch, d-block): right within a chunk, wrong from the second one on
     "scan_zero_state_every_chunk": ("csrc/selective_scan.cu", [(
@@ -103,14 +117,18 @@ torch.backends.cuda.matmul.allow_tf32 = False
 """
 
 
+def _phase(edit) -> str:
+    return edit[2] if len(edit) > 2 else PHASE_OF[edit[0]]
+
+
 def run_case(base: Path, name: str, edit) -> dict:
     work = base / name
     shutil.rmtree(work, ignore_errors=True)
     shutil.copytree(ROOT / "src", work / "src", ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy2(ROOT / "chip_smoke.py", work / "chip_smoke.py")
-    phases = sorted({PHASE_OF[c[0]] for c in CASES.values() if c is not None})
+    phases = sorted({_phase(c) for c in CASES.values() if c is not None})
     if edit is not None:
-        rel, pairs = edit
+        rel, pairs = edit[:2]
         path = work / KERNELS / rel
         text = path.read_text()
         for old, new in pairs:
@@ -118,7 +136,7 @@ def run_case(base: Path, name: str, edit) -> dict:
                 raise RuntimeError(f"{name}: the text to edit is not in {path.name}")
             text = text.replace(old, new, 1)
         path.write_text(text)
-        phases = [PHASE_OF[rel]]
+        phases = [_phase(edit)]
     failure, passed = [], True
     for phase in phases:
         proc = subprocess.run([sys.executable, "-c", RUN.format(call=PHASES[phase])],

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and becomes its own shared
 library, compiled for ``sm_90a`` at first use into ``build/repro_torch/`` at
 the root of the checkout (listed in ``.gitignore``).  A library's file name
-carries a hash of its source and the flags, so an edited source is rebuilt
-and an unchanged one is loaded as it is.  ``build`` starts one ``nvcc`` per
+carries a hash of its source, of every shared header ``csrc/*.cuh`` and of
+the flags, so an edited source or header is rebuilt and an unchanged one is
+loaded as it is.  ``build`` starts one ``nvcc`` per
 missing library, all at once.  A failed compile raises with ``nvcc``'s
 stderr; there is no other path to the kernel.
 """
@@ -41,9 +42,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def ptxas_report(name: str) -> str:

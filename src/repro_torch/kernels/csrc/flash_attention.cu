@@ -9,57 +9,87 @@
 // Bound: operations at the main path's shapes (a causal 4096-token prefill
 // does ~2.2 k operations per byte of q, k, v and o).  Design: one block per
 // (query tile, head, batch); the TPU's sequential kv grid axis becomes a
-// loop inside the block, bounded by the causal diagonal; each kv tile of
-// `block_kv` keys is staged in shared memory and every query row keeps its
-// running max, sum and f32 accumulator in registers (online softmax).
+// loop inside the block, bounded by the causal diagonal, and every query row
+// keeps its running max, sum and f32 accumulator in registers (online
+// softmax).
 //
-//  * bf16: one warp per 16 query rows; both products on the tensor cores with
-//    mma.sync m16n8k16 (bf16 in, f32 accumulate), 64 keys per softmax step.
-//    K is staged row-major and V transposed, rows padded by 16 bytes, so the
-//    fragment loads are free of bank conflicts.  P is rounded to bf16 for the
-//    second product (the TPU kernel kept it in f32); chip_smoke.py holds it to
-//    5e-2 per element and 1e-2 in norm relative to the plain version's output.
+//  * bf16: a TMA -> wgmma pipeline (csrc/sm90.cuh).  One thread of a
+//    producer warpgroup loads the block's Q once, then K and V 64 keys at a
+//    time into a ring of stages (block_kv / 64 of them, at least 2: one kv
+//    tile in flight) under a "full" mbarrier per stage; it stops at the
+//    causal diagonal of the block's last row and at the end of the keys.
+//    block_q / 64 consumer warpgroups own 64 query rows each: S = Q.K^T is
+//    wgmma m64n64k16 with both operands in shared memory (K as stored,
+//    [keys][D], is the K-major B operand); the online softmax runs on the
+//    accumulator fragment with quad shuffles, the scale folded into one FMA
+//    before each exp2 (ex2.approx.ftz on the SFU); P is rounded to bf16 in
+//    registers, where the accumulator fragment is the A fragment, and
+//    O += P.V is wgmma m64nDk16 with A from registers and V read [keys][D]
+//    as stored through the descriptor's transpose bit.  A warpgroup masks
+//    only the 64-key steps that cross its rows' diagonal or the end of the
+//    keys, skips the steps right of its last row, and frees each stage on
+//    its "empty" mbarrier.  Tiles are TMA's swizzled rows of min(2D, 128)
+//    bytes; 3D tensor maps over (D, S, B*H) zero-fill rows past the
+//    sequence without crossing into the next head.  setmaxnreg moves the
+//    producer's registers to the consumers (24 -> 112 at head_dim <= 64,
+//    block_q <= 256; 40 -> 232 at head_dim 128, block_q <= 128).  P is
+//    rounded to bf16 for the second product (the TPU kernel kept it in
+//    f32); chip_smoke.py holds it to 5e-2 per element and 1e-2 in norm
+//    relative to the plain version's output.
 //  * f32: one thread per query row in true f32 on the CUDA cores (no TF32),
 //    16 keys per softmax step, for the 2e-5 tolerance of the f32 tests.
 //
 // The tile is the caller's (the plan's): the wrapper passes block_q,
-// block_kv, the padded key rows, the thread count and the shared-memory size
-// (kernels/geometry.py); a ragged sequence is masked here, never padded in
-// device memory.  wgmma/TMA and a producer warp are later work.
+// block_kv, the key rows the ring holds, the thread count and the
+// shared-memory size (kernels/geometry.py), and the launcher checks them
+// against its own arithmetic; a ragged sequence is masked here, never
+// padded in device memory.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kPad = 8;         // bf16 elements of padding per staged row
-constexpr int kStepBf16 = 64;   // keys per online-softmax step (bf16)
-constexpr int kStepF32 = 16;    // keys per online-softmax step (f32)
+constexpr int kSub = 64;        // bf16: keys per ring stage and online-softmax step
+constexpr int kWgRows = 64;     // bf16: query rows of one consumer warpgroup
+constexpr int kStepF32 = 16;    // f32: keys per online-softmax step
 constexpr float kLog2e = 1.4426950408889634f;
-
-template <int D> struct Bf16Bounds { static constexpr int kThreads = D > 64 ? 256 : 512; };
 constexpr int kThreadsF32 = 256;
+constexpr int kSmemPerBlock = 232448;
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+// The bf16 kernel's shape at head_dim D.
+template <int D>
+struct Bf16 {
+  static constexpr int kMaxConsumers = D > 64 ? 2 : 4;   // block_q <= 128 or 256
+  static constexpr int kThreads = 128 * (kMaxConsumers + 1);
+  static constexpr int kRegs = D > 64 ? 168 : 96;        // 65,536 / kThreads, rounded down to 8
+  static constexpr int kProducerRegs = D > 64 ? 40 : 24;
+  static constexpr int kConsumerRegs = D > 64 ? 232 : 112;
+  static constexpr int kSpan = D >= 64 ? 128 : 2 * D;    // bytes of a swizzled row chunk
+  static constexpr int kW = kSpan / 2;                   // head-dim elements of a row chunk
+  static constexpr int kTile = kSub * D * 2;             // bytes of 64 rows of Q, K or V
+  static_assert(kProducerRegs * 128 + kConsumerRegs * 128 * kMaxConsumers <= kRegs * kThreads,
+                "setmaxnreg asks for more registers than the block holds");
+};
+
+__host__ __device__ __forceinline__ int cdiv(int x, int m) { return (x + m - 1) / m; }
+__host__ __device__ __forceinline__ int round_up(int x, int m) { return cdiv(x, m) * m; }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// c += a * b, a 16x16 (row), b 16x8 (col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// 2^x on the SFU, flushing subnormal results to 0 (2^-inf = 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -80,170 +110,205 @@ __device__ __forceinline__ int kv_tiles(int Skv, int block_kv, int causal, int l
   return last_qpos < 0 ? 0 : min(n, last_qpos / block_kv + 1);
 }
 
+// The blocks' threads, ring and shared memory, as kernels/geometry.py
+// computes them.
+int bf16_consumers(int block_q) { return cdiv(block_q, kWgRows); }
+int bf16_threads(int block_q) { return 128 * (bf16_consumers(block_q) + 1); }
+int bf16_kv_pad(int block_kv) { return kSub * (block_kv > kSub ? cdiv(block_kv, kSub) : 2); }
+int bf16_smem(int block_q, int block_kv, int D) {
+  const int tile = kSub * D * 2, stages = bf16_kv_pad(block_kv) / kSub;
+  // alignment slack, Q, the ring of K and V, the Q barrier and two a stage
+  return 1024 + bf16_consumers(block_q) * tile + stages * 2 * tile + 8 * (1 + 2 * stages);
+}
+int f32_kv_pad(int block_kv) { return round_up(block_kv, kStepF32); }
+int f32_smem(int block_kv, int D) { return 2 * f32_kv_pad(block_kv) * D * 4; }
+
 // ---------------------------------------------------------------------------
-// bf16: tensor cores.  Fragment layouts of mma.m16n8k16 (g = lane/4, t = lane%4):
-//   A regs: (g, 2t..2t+1), (g+8, 2t..), (g, 2t+8..), (g+8, 2t+8..)
-//   B regs: (k = 2t..2t+1, n = g), (k = 2t+8.., n = g)
-//   C: (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)
+// bf16: warp-specialised TMA -> wgmma.  Shared memory: Q of every consumer
+// warpgroup, then the ring (each stage K then V, 64 keys), then barriers.
 // ---------------------------------------------------------------------------
 template <int D>
-__global__ void __launch_bounds__(Bf16Bounds<D>::kThreads)
-flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, bf16* __restrict__ o, int Hq, int Hkv, int Sq,
-               int Skv, int block_q, int block_kv, int kv_pad, int causal, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int ks_stride = D + kPad;
-  const int vt_stride = kv_pad + kPad;
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [kv_pad][D + kPad]
-  bf16* Vt = Ks + kv_pad * ks_stride;             // [D][kv_pad + kPad]
+__global__ void __launch_bounds__(Bf16<D>::kThreads, 1)
+flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+               const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ o, int Hq, int Hkv,
+               int Sq, int Skv, int block_q, int block_kv, int kv_pad, int causal, float scale) {
+  using K = Bf16<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = sm90::align1024(smem_raw);
+  const int consumers = blockDim.x / 128 - 1;
+  const int stages = kv_pad / kSub;
+  unsigned char* ring = qs + consumers * K::kTile;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(ring + stages * 2 * K::kTile);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + stages;
 
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
   const int q_off = Skv - Sq;
   const int q0 = blockIdx.x * block_q;
   const int q_end = min(q0 + block_q, Sq);
-  const int r0 = q0 + warp * 16;  // first query row of this warp
-  const int ra = r0 + g, rb = r0 + g + 8;
-  const bool va = ra < q_end, vb = rb < q_end;
-  const bool warp_live = r0 < q_end;
-
-  const bf16* qb = q + static_cast<long long>(b * Hq + h) * Sq * D;
-  const bf16* kb = k + static_cast<long long>(b * Hkv + hk) * Skv * D;
-  const bf16* vbase = v + static_cast<long long>(b * Hkv + hk) * Skv * D;
-  bf16* ob = o + static_cast<long long>(b * Hq + h) * Sq * D;
-
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + 2 * t4;
-    qf[kk][0] = va ? ld32(qb + static_cast<long long>(ra) * D + c) : 0u;
-    qf[kk][1] = vb ? ld32(qb + static_cast<long long>(rb) * D + c) : 0u;
-    qf[kk][2] = va ? ld32(qb + static_cast<long long>(ra) * D + c + 8) : 0u;
-    qf[kk][3] = vb ? ld32(qb + static_cast<long long>(rb) * D + c + 8) : 0u;
-  }
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;  // log2 domain
-  const float sl2 = scale * kLog2e;
-
   const int n_tiles = kv_tiles(Skv, block_kv, causal, q_off + q_end - 1);
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int kv0 = tile * block_kv;
-    const int kv_n = min(block_kv, Skv - kv0);  // keys of this tile that exist
-    __syncthreads();                           // the previous tile is consumed
-    constexpr int VPR = D / 8;                 // 16-byte vectors per row
-    for (int idx = threadIdx.x; idx < kv_pad * VPR; idx += blockDim.x) {
-      const int j = idx / VPR, c = (idx % VPR) * 8;
-      uint4 kvec = make_uint4(0u, 0u, 0u, 0u), vvec = kvec;
-      if (j < kv_n) {
-        const long long off = static_cast<long long>(kv0 + j) * D + c;
-        kvec = *reinterpret_cast<const uint4*>(kb + off);
-        vvec = *reinterpret_cast<const uint4*>(vbase + off);
-      }
-      *reinterpret_cast<uint4*>(Ks + j * ks_stride + c) = kvec;
-      const bf16* ve = reinterpret_cast<const bf16*>(&vvec);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) Vt[(c + e) * vt_stride + j] = ve[e];
+  // keys the block reads: its kv tiles, up to the last row's diagonal
+  const int kv_end = min(min(Skv, n_tiles * block_kv), causal ? max(q_off + q_end, 0) : Skv);
+  const int n_sub = cdiv(kv_end, kSub);
+
+  if (threadIdx.x == 0) {
+    sm90::tma_prefetch_map(&qmap);
+    sm90::tma_prefetch_map(&kmap);
+    sm90::tma_prefetch_map(&vmap);
+    sm90::mbar_init(q_full, 1);
+    for (int s = 0; s < stages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 4 * consumers);  // one arrival per consumer warp
     }
-    __syncthreads();
-    if (!warp_live) continue;
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
 
-    for (int c0 = 0; c0 < kv_n; c0 += kStepBf16) {
-      const int key0 = kv0 + c0;
-      if (causal && key0 > q_off + r0 + 15) break;  // every key right of every row
+  if (threadIdx.x < 128) {  // producer warpgroup: one thread issues every load
+    sm90::setmaxnreg_dec<K::kProducerRegs>();
+    if (threadIdx.x == 0) {
+      sm90::mbar_arrive_expect_tx(q_full, consumers * K::kTile);
+      for (int w = 0; w < consumers; ++w)
+        for (int c = 0; c < D / K::kW; ++c)
+          sm90::tma_load_3d(qs + w * K::kTile + c * kSub * K::kSpan, &qmap, q_full, c * K::kW,
+                            q0 + w * kWgRows, b * Hq + h);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int s = 0; s < n_sub; ++s) {
+        sm90::mbar_wait(&empty[stage], phase ^ 1);
+        unsigned char* ks = ring + stage * 2 * K::kTile;
+        sm90::mbar_arrive_expect_tx(&full[stage], 2 * K::kTile);
+        for (int c = 0; c < D / K::kW; ++c) {
+          sm90::tma_load_3d(ks + c * kSub * K::kSpan, &kmap, &full[stage], c * K::kW, s * kSub,
+                            b * Hkv + hk);
+          sm90::tma_load_3d(ks + K::kTile + c * kSub * K::kSpan, &vmap, &full[stage], c * K::kW,
+                            s * kSub, b * Hkv + hk);
+        }
+        if (++stage == stages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {  // consumer warpgroups: 64 query rows each
+    sm90::setmaxnreg_inc<K::kConsumerRegs>();
+    const int cw = threadIdx.x / 128 - 1;
+    const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+    const int w0 = q0 + cw * kWgRows;  // first query row of this warpgroup
+    const int ra = w0 + (threadIdx.x / 32) % 4 * 16 + g, rb = ra + 8;
+    const int w_last = min(w0 + kWgRows, q_end) - 1;  // its last row that is the block's
+    const int w_kv_end = w_last < w0 ? 0 : causal ? min(kv_end, q_off + w_last + 1) : kv_end;
+    const unsigned char* qw = qs + cw * K::kTile;
+    constexpr uint32_t swz = sm90::swizzle_code(K::kSpan);
 
-      float s[kStepBf16 / 8][4];
+    float acc[D / 2];
 #pragma unroll
-      for (int n = 0; n < kStepBf16 / 8; ++n) {
-        s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    // running max (of the scaled scores, log2 domain) and sum of rows ra and rb
+    float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+    const float sl2 = scale * kLog2e;
+
+    sm90::mbar_wait(q_full, 0);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int s = 0; s < n_sub; ++s) {
+      sm90::mbar_wait(&full[stage], phase);
+      const int key0 = s * kSub;
+      if (key0 < w_kv_end) {  // steps right of this warpgroup's rows are skipped
+        const unsigned char* ks = ring + stage * 2 * K::kTile;
+        const unsigned char* vs = ks + K::kTile;
+        float sc[kSub / 2];  // S: 64 rows x 64 keys
+        sm90::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
-          const bf16* kr = Ks + (c0 + n * 8 + g) * ks_stride + kk * 16 + 2 * t4;
-          mma_bf16(s[n], qf[kk], ld32(kr), ld32(kr + 8));
+          const int off = kk * 16 / K::kW * kSub * K::kSpan + kk * 16 % K::kW * 2;
+          sm90::wgmma_ss<0, 0>(sc, sm90::make_desc(qw + off, 16, 8 * K::kSpan, swz),
+                               sm90::make_desc(ks + off, 16, 8 * K::kSpan, swz), kk > 0);
         }
-      }
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(sc);
 
-      const bool masked = (c0 + kStepBf16 > kv_n) ||
-                          (causal && key0 + kStepBf16 - 1 > q_off + r0);
+        const bool masked = key0 + kSub > Skv || (causal && key0 + kSub - 1 > q_off + w0);
+        if (masked) {
 #pragma unroll
-      for (int n = 0; n < kStepBf16 / 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = s[n][e] * sl2;
-          if (masked) {
-            const int j = c0 + n * 8 + 2 * t4 + (e & 1);  // key within the tile
-            const int row = e < 2 ? ra : rb;
-            if (j >= kv_n || (causal && kv0 + j > q_off + row)) x = -INFINITY;
+          for (int i = 0; i < kSub / 2; ++i) {
+            const int key = key0 + i / 4 * 8 + 2 * t4 + (i & 1);
+            const int row = (i & 2) ? rb : ra;
+            if (key >= Skv || (causal && key > q_off + row)) sc[i] = -INFINITY;
           }
-          s[n][e] = x;
         }
-      }
-
-      float mx_a = m_a, mx_b = m_b;
+        float mx_a = -INFINITY, mx_b = -INFINITY;
 #pragma unroll
-      for (int n = 0; n < kStepBf16 / 8; ++n) {
-        mx_a = fmaxf(mx_a, fmaxf(s[n][0], s[n][1]));
-        mx_b = fmaxf(mx_b, fmaxf(s[n][2], s[n][3]));
-      }
-      mx_a = quad_max(mx_a);
-      mx_b = quad_max(mx_b);
-      // a row that has seen no key yet keeps max -inf: exponentiate against 0
-      const float base_a = mx_a == -INFINITY ? 0.f : mx_a;
-      const float base_b = mx_b == -INFINITY ? 0.f : mx_b;
-      const float alpha_a = exp2f(m_a - base_a), alpha_b = exp2f(m_b - base_b);
-      m_a = mx_a;
-      m_b = mx_b;
-      l_a *= alpha_a;
-      l_b *= alpha_b;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        acc[n][0] *= alpha_a;
-        acc[n][1] *= alpha_a;
-        acc[n][2] *= alpha_b;
-        acc[n][3] *= alpha_b;
-      }
-
-      uint32_t pf[kStepBf16 / 16][4];
-#pragma unroll
-      for (int n = 0; n < kStepBf16 / 8; ++n) {
-        const float p0 = exp2f(s[n][0] - base_a), p1 = exp2f(s[n][1] - base_a);
-        const float p2 = exp2f(s[n][2] - base_b), p3 = exp2f(s[n][3] - base_b);
-        l_a += p0 + p1;
-        l_b += p2 + p3;
-        // the C layout of key columns 8n..8n+7 is half of the A layout of
-        // the 16-key step n/2
-        pf[n / 2][(n & 1) * 2 + 0] = pack_bf16(p0, p1);
-        pf[n / 2][(n & 1) * 2 + 1] = pack_bf16(p2, p3);
-      }
-
-#pragma unroll
-      for (int kk = 0; kk < kStepBf16 / 16; ++kk) {
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
-          const bf16* vr = Vt + (n * 8 + g) * vt_stride + c0 + kk * 16 + 2 * t4;
-          mma_bf16(acc[n], pf[kk], ld32(vr), ld32(vr + 8));
+        for (int j = 0; j < kSub / 8; ++j) {
+          mx_a = fmaxf(mx_a, fmaxf(sc[4 * j], sc[4 * j + 1]));
+          mx_b = fmaxf(mx_b, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
         }
+        mx_a = fmaxf(m_a, quad_max(mx_a) * sl2);
+        mx_b = fmaxf(m_b, quad_max(mx_b) * sl2);
+        // a row that has seen no key yet keeps max -inf: exponentiate against 0
+        const float base_a = mx_a == -INFINITY ? 0.f : mx_a;
+        const float base_b = mx_b == -INFINITY ? 0.f : mx_b;
+        const float alpha_a = fast_exp2(m_a - base_a), alpha_b = fast_exp2(m_b - base_b);
+        m_a = mx_a;
+        m_b = mx_b;
+        l_a *= alpha_a;
+        l_b *= alpha_b;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          acc[4 * j + 0] *= alpha_a;
+          acc[4 * j + 1] *= alpha_a;
+          acc[4 * j + 2] *= alpha_b;
+          acc[4 * j + 3] *= alpha_b;
+        }
+
+        // P in bf16: the accumulator fragment of keys 16kk..16kk+15 is the
+        // A fragment of k-step kk
+        uint32_t pa[kSub / 16][4];
+#pragma unroll
+        for (int i = 0; i < kSub / 2; i += 2) {
+          const float nb = (i & 2) ? -base_b : -base_a;
+          const float p0 = fast_exp2(fmaf(sc[i], sl2, nb)), p1 = fast_exp2(fmaf(sc[i + 1], sl2, nb));
+          if (i & 2) l_b += p0 + p1;
+          else l_a += p0 + p1;
+          pa[i / 8][i % 8 / 2] = pack_bf16(p0, p1);
+        }
+
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kSub / 16; ++kk)  // V is MN-major: a k-step is 16 rows
+          sm90::wgmma_rs<1>(acc, pa[kk],
+                            sm90::make_desc(vs + kk * 16 * K::kSpan, kSub * K::kSpan,
+                                            8 * K::kSpan, swz),
+                            1);
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(acc);
+      }
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(&empty[stage]);
+      if (++stage == stages) {
+        stage = 0;
+        phase ^= 1;
       }
     }
-  }
 
-  l_a = quad_sum(l_a);
-  l_b = quad_sum(l_b);
-  const float inv_a = 1.f / (l_a == 0.f ? 1.f : l_a);  // a row that saw no key -> 0
-  const float inv_b = 1.f / (l_b == 0.f ? 1.f : l_b);
+    l_a = quad_sum(l_a);
+    l_b = quad_sum(l_b);
+    const float inv_a = 1.f / (l_a == 0.f ? 1.f : l_a);  // a row that saw no key -> 0
+    const float inv_b = 1.f / (l_b == 0.f ? 1.f : l_b);
+    bf16* ob = o + static_cast<long long>(b * Hq + h) * Sq * D;
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int c = n * 8 + 2 * t4;
-    if (va)
-      *reinterpret_cast<uint32_t*>(ob + static_cast<long long>(ra) * D + c) =
-          pack_bf16(acc[n][0] * inv_a, acc[n][1] * inv_a);
-    if (vb)
-      *reinterpret_cast<uint32_t*>(ob + static_cast<long long>(rb) * D + c) =
-          pack_bf16(acc[n][2] * inv_b, acc[n][3] * inv_b);
+    for (int j = 0; j < D / 8; ++j) {
+      const int c = j * 8 + 2 * t4;
+      if (ra < q_end)
+        *reinterpret_cast<uint32_t*>(ob + static_cast<long long>(ra) * D + c) =
+            pack_bf16(acc[4 * j] * inv_a, acc[4 * j + 1] * inv_a);
+      if (rb < q_end)
+        *reinterpret_cast<uint32_t*>(ob + static_cast<long long>(rb) * D + c) =
+            pack_bf16(acc[4 * j + 2] * inv_b, acc[4 * j + 3] * inv_b);
+    }
   }
 }
 
@@ -361,54 +426,81 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
         make_float4(acc[d] / lv, acc[d + 1] / lv, acc[d + 2] / lv, acc[d + 3] / lv);
 }
 
-template <typename T, typename Kernel>
-cudaError_t launch(Kernel kernel, dim3 grid, int threads, int smem, cudaStream_t stream,
-                   const void* q, const void* k, const void* v, void* o, int Hq, int Hkv,
-                   int Sq, int Skv, int block_q, int block_kv, int kv_pad, int causal,
-                   float scale) {
-  cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+template <int D>
+cudaError_t launch_f32(dim3 grid, int threads, int smem, cudaStream_t stream, const void* q,
+                       const void* k, const void* v, void* o, int Hq, int Hkv, int Sq, int Skv,
+                       int block_q, int block_kv, int kv_pad, int causal, float scale) {
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_f32<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  kernel<<<grid, threads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Hq, Hkv, Sq, Skv, block_q, block_kv, kv_pad, causal, scale);
+  flash_fwd_f32<D><<<grid, threads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), Hq, Hkv, Sq, Skv, block_q, block_kv, kv_pad, causal, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_bf16(dim3 grid, int threads, int smem, cudaStream_t stream, const void* q,
+                        const void* k, const void* v, void* o, int B, int Hq, int Hkv, int Sq,
+                        int Skv, int block_q, int block_kv, int kv_pad, int causal, float scale) {
+  using K = Bf16<D>;
+  if (bf16_consumers(block_q) > K::kMaxConsumers) return cudaErrorInvalidValue;
+  CUtensorMap qmap, kmap, vmap;  // boxes of 64 rows x one swizzled row chunk
+  cudaError_t e = sm90::encode_bf16_3d(&qmap, q, D, Sq, static_cast<uint64_t>(B) * Hq, K::kW, kSub);
+  if (e == cudaSuccess)
+    e = sm90::encode_bf16_3d(&kmap, k, D, Skv, static_cast<uint64_t>(B) * Hkv, K::kW, kSub);
+  if (e == cudaSuccess)
+    e = sm90::encode_bf16_3d(&vmap, v, D, Skv, static_cast<uint64_t>(B) * Hkv, K::kW, kSub);
+  if (e != cudaSuccess) return e;
+  static const cudaError_t ready = [] {  // once per head_dim
+    const cudaError_t r = sm90::check_registers(flash_fwd_bf16<D>, K::kRegs);
+    if (r != cudaSuccess) return r;
+    return cudaFuncSetAttribute(flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                kSmemPerBlock);
+  }();
+  if (ready != cudaSuccess) return ready;
+  flash_fwd_bf16<D><<<grid, threads, smem, stream>>>(qmap, kmap, vmap, static_cast<bf16*>(o), Hq,
+                                                     Hkv, Sq, Skv, block_q, block_kv, kv_pad,
+                                                     causal, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  block_q/block_kv are the tile, kv_pad
-// the staged key rows, threads and smem_bytes the block's size: all from
-// kernels/geometry.py.  Returns cudaGetLastError() after the launch.
+// the key rows staged at a time, threads and smem_bytes the block's size:
+// all from kernels/geometry.py; a size that disagrees with this file's
+// arithmetic is refused.  Returns cudaGetLastError() after the launch.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       int B, int Hq, int Hkv, int Sq, int Skv, int D,
                                       int block_q, int block_kv, int kv_pad, int threads,
                                       int smem_bytes, int causal, float scale, int dtype,
                                       void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || Sq <= 0 || Skv <= 0 || block_q <= 0 ||
-      block_kv <= 0)
+      block_kv <= 0 || smem_bytes > kSmemPerBlock)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 1 ? (threads != bf16_threads(block_q) || kv_pad != bf16_kv_pad(block_kv) ||
+                    smem_bytes != bf16_smem(block_q, block_kv, D))
+                 : (dtype != 0 || threads != block_q || threads > kThreadsF32 ||
+                    kv_pad != f32_kv_pad(block_kv) || smem_bytes != f32_smem(block_kv, D)))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((Sq + block_q - 1) / block_q, Hq, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaErrorInvalidValue;
 #define REPRO_FLASH_CASE(DIM)                                                               \
   case DIM:                                                                                 \
-    e = dtype == 1 ? launch<bf16>(flash_fwd_bf16<DIM>, grid, threads, smem_bytes, s, q, k, \
-                                  v, o, Hq, Hkv, Sq, Skv, block_q, block_kv, kv_pad,        \
-                                  causal, scale)                                            \
-                   : launch<float>(flash_fwd_f32<DIM>, grid, threads, smem_bytes, s, q, k, \
-                                   v, o, Hq, Hkv, Sq, Skv, block_q, block_kv, kv_pad,       \
-                                   causal, scale);                                          \
+    e = dtype == 1 ? launch_bf16<DIM>(grid, threads, smem_bytes, s, q, k, v, o, B, Hq, Hkv, \
+                                      Sq, Skv, block_q, block_kv, kv_pad, causal, scale)    \
+                   : launch_f32<DIM>(grid, threads, smem_bytes, s, q, k, v, o, Hq, Hkv, Sq, \
+                                     Skv, block_q, block_kv, kv_pad, causal, scale);        \
     break;
-  if (dtype == 0 || dtype == 1) {
-    switch (D) {
-      REPRO_FLASH_CASE(16)
-      REPRO_FLASH_CASE(32)
-      REPRO_FLASH_CASE(64)
-      REPRO_FLASH_CASE(128)
-      default:
-        break;
-    }
+  switch (D) {
+    REPRO_FLASH_CASE(16)
+    REPRO_FLASH_CASE(32)
+    REPRO_FLASH_CASE(64)
+    REPRO_FLASH_CASE(128)
+    default:
+      break;
   }
 #undef REPRO_FLASH_CASE
   return static_cast<int>(e);

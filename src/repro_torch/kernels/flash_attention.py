@@ -6,10 +6,12 @@ Replaces the Pallas TPU kernel ``flash_attention`` of
 queries at the last ``Sq`` of ``Skv`` keys, kv tiles above the diagonal
 skipped, rows that see no key giving 0.  The kernel is
 ``csrc/flash_attention.cu``: bound by operations at prefill shapes, so bf16
-runs both products on the tensor cores (``mma.sync``, f32 accumulate) and
-keeps scores and the running state in registers; f32 runs in true f32 (no
+is a TMA -> wgmma pipeline (a producer warpgroup streams K and V 64 keys at
+a time into a ring of shared-memory stages; consumer warpgroups of 64 query
+rows run both products on the tensor cores with f32 accumulators and keep
+scores and the running state in registers); f32 runs in true f32 (no
 TF32).  One block serves one ``block_q`` query tile and loops over the keys
-one ``block_kv`` tile at a time in shared memory.
+up to the causal diagonal; ``block_kv`` sets how many keys the ring holds.
 
 The tile is the caller's: ``kernels/geometry.flash_launch`` applies the JAX
 kernel's clamp to the sequence length and raises ``ValueError`` for a tile
@@ -27,6 +29,7 @@ holds one layer's f32 scores, about 1 GiB, at a time.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -39,6 +42,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 
 
+@functools.lru_cache(maxsize=None)
 def _launcher():
     lib = _build.load("flash_attention")
     fn = lib.flash_attention_launch

@@ -11,36 +11,47 @@ Hopper kernel cannot launch.
 
 **flash_attention** (``csrc/flash_attention.cu``).  One block serves one
 query tile of ``block_q`` rows for one ``(batch, head)`` and loops over the
-key axis one ``block_kv`` tile at a time, staging that tile of K and V in
-shared memory:
+key axis, the causal diagonal bounding it:
 
-* bf16 kernel: one warp per 16 query rows, so ``32 * ceil(block_q / 16)``
-  threads; K is staged row-major and V transposed, each row padded by 8
-  elements, and the key tile is padded up to a multiple of 64 keys (the
-  online-softmax step).  The kernel is compiled for at most 512 threads at
-  head_dim <= 64 (128 registers each) and 256 at head_dim 128.
+* bf16 kernel (TMA -> wgmma): ``ceil(block_q / 64)`` consumer warpgroups of
+  64 query rows each plus one producer warpgroup, so ``128 * (ceil(block_q /
+  64) + 1)`` threads.  The kernel is compiled for at most 640 threads (four
+  consumers, 96 registers each at launch) at head_dim <= 64 and 384 (two
+  consumers, 168 registers) at head_dim 128; no block holds more than 1,024.
+  Shared memory: 1,024 bytes of alignment slack, Q (``64 * head_dim * 2``
+  bytes a consumer), a ring of ``max(2, ceil(block_kv / 64))`` stages of K
+  and V 64 keys each (``2 * 64 * head_dim * 2`` bytes a stage: one kv tile
+  in flight) and 8-byte mbarriers (one for Q, two a stage).  ``kv_pad`` is
+  the ring's keys, ``64 * stages``.
 * f32 kernel: one thread per query row, so ``block_q`` threads (at most
   256), K and V staged row-major, the key tile padded to a multiple of 16.
 
 Of the JAX schedule space's nine ``attn_block`` options, ``(128|256|512)²``,
 at head_dim 64 in bf16 the six with ``block_q`` in (128, 256) are
-launchable; ``block_q = 512`` would need 1,024 threads and raises.
+launchable; ``block_q = 512`` would need 1,152 threads and raises.
 
 **moe_gemm** (``csrc/moe_gemm.cu``).  Grid ``(E, C/block_c, f/block_f)``;
-one block owns a ``block_c x block_f`` output tile and loops over ``d`` in
-``block_d`` steps (the TPU's sequential fourth grid axis):
+one block owns a ``block_c x block_f`` output tile and loops over ``d``
+(the TPU's sequential fourth grid axis):
 
-* bf16 kernel: one warp per 32 x 64 piece of the tile, so
-  ``32 * ceil(block_c/32) * ceil(block_f/64)`` threads (at most 512); each
-  ``block_d`` step stages the x tile ``[block_c][block_d]`` and the w tile
-  ``[block_d][block_f]`` whole, rows padded by 8 elements, rows and columns
-  padded up to the warp tile and zero-filled.  It stages 16-byte vectors, so
-  ``d``, ``f``, ``block_d`` and ``block_f`` must be multiples of 8.  The
-  default plan tile (128, 256, 256) takes 512 threads and 202,752 bytes.
+* bf16 kernel (TMA -> wgmma): ``ceil(block_c / 64)`` consumer warpgroups of
+  64 rows (at most 2, so ``block_c <= 128``) plus one producer warpgroup:
+  ``128 * (ceil(block_c / 64) + 1)`` threads, at most 384.  ``d`` streams 64
+  deep through a ring of ``max(2, ceil(block_d / 64))`` stages (one
+  ``block_d`` step in flight), a stage holding 64 x 64 of x per consumer
+  and 64 x BN of w, ``BN = 128`` for ``block_f <= 128`` else 256 (wider
+  tiles are walked in BN-wide column chunks): ``(64 * consumers + BN) *
+  128`` bytes; plus 1,024 bytes of alignment slack, two 8-byte mbarriers a
+  stage and one for the output, which is staged through the ring on its
+  way out.  The default plan tile (128, 256, 256) takes 384 threads and
+  197,704 bytes.  TMA reads rows of 16-byte multiples, so the stored inner
+  dimensions (``d`` and ``f``, and ``C`` when x is given transposed) and
+  ``block_d``, ``block_f`` must be multiples of 8.  ``x_t`` / ``w_t``: the
+  operand is stored transposed, ``(E,d,C)`` / ``(E,f,d)``, and read so.
 * f32 kernel: one thread per 8 x 8 outputs (``ceil(block_c/8) *
   ceil(block_f/8)`` threads, at most 512); each ``block_d`` step is staged
   16 rows of ``d`` at a time (a whole f32 step of the default tile would
-  need 393,216 bytes).
+  need 393,216 bytes).  It takes contiguous operands only.
 
 **selective_scan** (``csrc/selective_scan.cu``).  Grid ``(B, Di/d_block)``,
 one thread per channel (``d_block`` threads, at most 512) holding its ``N``
@@ -52,6 +63,7 @@ the JAX space's ``scan_chunk`` options (64, 128, 256) bf16 launches 64 and
 """
 from __future__ import annotations
 
+import functools
 import itertools
 from dataclasses import dataclass
 from typing import List, Tuple
@@ -68,9 +80,13 @@ ATTN_BLOCK_OPTIONS: Tuple[Tuple[int, int], ...] = tuple(
 
 SCAN_CHUNK_OPTIONS: Tuple[int, ...] = (64, 128, 256)
 
-_BF16_KEY_STEP = 64  # keys per online-softmax step, bf16 kernel
+MAX_BLOCK_THREADS = 1024  # threads one CUDA block may hold
+_BF16_KEY_STEP = 64  # keys per ring stage and online-softmax step, bf16 kernel
 _F32_KEY_STEP = 16   # keys per online-softmax step, f32 kernel
-_PAD = 8             # bf16 elements of padding per staged row
+_WG = 128            # threads of a warpgroup
+_WG_ROWS = 64        # rows of one consumer warpgroup (the wgmma M)
+_ALIGN_SLACK = 1024  # bytes: a 128-byte-swizzled TMA tile starts on a 1,024-byte boundary
+_MBARRIER = 8        # bytes of one mbarrier
 
 
 def _round_up(x: int, m: int) -> int:
@@ -81,7 +97,16 @@ def max_threads(head_dim: int, dtype: str) -> int:
     """The ``__launch_bounds__`` the kernel is compiled with."""
     if dtype == "float32":
         return 256
-    return 256 if head_dim > 64 else 512
+    return 384 if head_dim > 64 else 640
+
+
+def _consumers(rows: int) -> int:
+    return -(-rows // _WG_ROWS)
+
+
+def _ring_stages(block: int) -> int:
+    """Stages of 64 (keys or depth) that hold one ``block``, at least 2."""
+    return max(2, -(-block // _BF16_KEY_STEP))
 
 
 @dataclass(frozen=True)
@@ -89,26 +114,30 @@ class FlashLaunch:
     block_q: int
     block_kv: int
     threads: int
-    kv_pad: int  # key rows staged per tile (block_kv padded up)
+    kv_pad: int  # key rows staged at a time (bf16: the ring's 64 * stages)
     smem_bytes: int
     grid: Tuple[int, int, int]  # (query tiles, q heads, batch)
 
 
-def flash_smem_bytes(block_kv: int, head_dim: int, dtype: str) -> Tuple[int, int]:
+def flash_smem_bytes(block_kv: int, head_dim: int, dtype: str, block_q: int) -> Tuple[int, int]:
     """(staged key rows, shared-memory bytes) of one block."""
     if dtype == "float32":
         kv_pad = _round_up(block_kv, _F32_KEY_STEP)
         return kv_pad, 2 * kv_pad * head_dim * 4
-    kv_pad = _round_up(block_kv, _BF16_KEY_STEP)
-    return kv_pad, (kv_pad * (head_dim + _PAD) + head_dim * (kv_pad + _PAD)) * 2
+    stages = _ring_stages(block_kv)
+    tile = _BF16_KEY_STEP * head_dim * 2  # 64 rows of Q, K or V
+    smem = (_ALIGN_SLACK + _consumers(block_q) * tile + stages * 2 * tile
+            + _MBARRIER * (1 + 2 * stages))
+    return stages * _BF16_KEY_STEP, smem
 
 
 def flash_threads(block_q: int, dtype: str) -> int:
     if dtype == "float32":
         return block_q
-    return 32 * ((block_q + 15) // 16)
+    return _WG * (_consumers(block_q) + 1)
 
 
+@functools.lru_cache(maxsize=1024)  # called on every launch: pure in its arguments
 def flash_launch(
     batch: int, q_heads: int, seq_q: int, seq_kv: int, head_dim: int,
     dtype: str, block_q: int, block_kv: int,
@@ -121,7 +150,7 @@ def flash_launch(
     if block_q < 1 or block_kv < 1:
         raise ValueError(f"tile ({block_q}, {block_kv}) must be positive")
     bq, bkv = min(block_q, seq_q), min(block_kv, seq_kv)  # JAX's clamp, nothing else
-    kv_pad, smem = flash_smem_bytes(bkv, head_dim, dtype)
+    kv_pad, smem = flash_smem_bytes(bkv, head_dim, dtype, bq)
     threads = flash_threads(bq, dtype)
     limit = max_threads(head_dim, dtype)
     if smem > SMEM_PER_BLOCK:
@@ -130,12 +159,18 @@ def flash_launch(
             f"in {dtype} needs {smem} bytes of shared memory; a Hopper block has "
             f"{SMEM_PER_BLOCK}"
         )
+    if threads > MAX_BLOCK_THREADS:
+        raise ValueError(
+            f"attention tile (block_q={bq}, block_kv={bkv}) at head_dim {head_dim} "
+            f"in {dtype} needs {threads} threads; a CUDA block holds at most "
+            f"{MAX_BLOCK_THREADS} threads"
+        )
     if threads > limit:
         raise ValueError(
             f"attention tile (block_q={bq}, block_kv={bkv}) at head_dim {head_dim} "
             f"in {dtype} needs {threads} threads (and {smem} bytes of shared memory); "
             f"the kernel is compiled for at most {limit} threads "
-            f"({REGISTERS_PER_SM // limit} registers each)"
+            f"({REGISTERS_PER_SM // limit // 8 * 8} registers each)"
         )
     grid = ((seq_q + bq - 1) // bq, q_heads, batch)
     return FlashLaunch(bq, bkv, threads, kv_pad, smem, grid)
@@ -156,8 +191,8 @@ def launchable_attn_blocks(head_dim: int = 64, dtype: str = "bfloat16") -> List[
 # ---------------------------------------------------------------------------
 # moe_gemm
 # ---------------------------------------------------------------------------
-MOE_MAX_THREADS = 512  # the __launch_bounds__ of both moe_gemm kernels
-_MOE_WARP_ROWS, _MOE_WARP_COLS = 32, 64  # bf16: the output piece of one warp
+MOE_MAX_THREADS = {"bfloat16": 384, "float32": 512}  # the kernels' __launch_bounds__
+_MOE_BN_CHOICES = (128, 256)  # bf16: the wgmma N widths the kernel is built for
 _MOE_F32_MICRO = 8  # f32: each thread owns 8 x 8 outputs
 _MOE_F32_SLAB = 16  # f32: rows of d staged at a time
 
@@ -170,12 +205,24 @@ class MoeLaunch:
     threads: int
     smem_bytes: int
     grid: Tuple[int, int, int]  # (experts, row tiles, column tiles)
+    x_t: bool = False  # x is stored (E, d, C)
+    w_t: bool = False  # w is stored (E, f, d)
 
 
+def moe_bn(block_f: int) -> int:
+    """The bf16 kernel's wgmma N: the column chunk a consumer computes at a time."""
+    return next((n for n in _MOE_BN_CHOICES if block_f <= n), _MOE_BN_CHOICES[-1])
+
+
+@functools.lru_cache(maxsize=1024)  # called on every launch: pure in its arguments
 def moe_gemm_launch(
-    E: int, C: int, d: int, f: int, dtype: str, block_c: int, block_f: int, block_d: int
+    E: int, C: int, d: int, f: int, dtype: str, block_c: int, block_f: int, block_d: int,
+    x_t: bool = False, w_t: bool = False,
 ) -> MoeLaunch:
-    """The launch of one ``moe_gemm`` call ``(E,C,d) x (E,d,f)``, or ``ValueError``."""
+    """The launch of one ``moe_gemm`` call ``(E,C,d) x (E,d,f)``, or ``ValueError``.
+
+    ``x_t`` / ``w_t``: the operand is stored transposed, ``(E,d,C)`` /
+    ``(E,f,d)`` (bf16 only: the f32 kernel takes contiguous operands)."""
     if dtype not in ("float32", "bfloat16"):
         raise ValueError(f"moe_gemm kernel takes float32 or bfloat16, not {dtype}")
     if min(block_c, block_f, block_d) < 1:
@@ -185,31 +232,33 @@ def moe_gemm_launch(
     if C % bc or f % bf or d % bd:
         raise ValueError(f"{tile} does not divide (C={C}, f={f}, d={d})")
     if dtype == "bfloat16":
-        if d % 8 or f % 8 or bd % 8 or bf % 8:
+        if d % 8 or f % 8 or (x_t and C % 8) or bd % 8 or bf % 8:
             raise ValueError(
-                f"{tile} in bfloat16: the kernel stages 16-byte rows, so d={d}, f={f}, "
-                "block_d and block_f must be multiples of 8"
+                f"{tile} in bfloat16: TMA reads 16-byte rows, so d={d}, f={f} (and C={C} "
+                "for a transposed x), block_d and block_f must be multiples of 8"
             )
-        bc_pad = _round_up(bc, _MOE_WARP_ROWS)
-        bf_pad = _round_up(bf, _MOE_WARP_COLS)
-        bd_pad = _round_up(bd, 16)
-        threads = 32 * (bc_pad // _MOE_WARP_ROWS) * (bf_pad // _MOE_WARP_COLS)
-        smem = (bc_pad * (bd_pad + _PAD) + bd_pad * (bf_pad + _PAD)) * 2
+        consumers = -(-bc // _WG_ROWS)
+        threads = _WG * (consumers + 1)
+        stage = (consumers * _WG_ROWS + moe_bn(bf)) * _BF16_KEY_STEP * 2
+        stages = _ring_stages(bd)
+        smem = _ALIGN_SLACK + stages * (stage + 2 * _MBARRIER) + _MBARRIER
     else:
+        if x_t or w_t:
+            raise ValueError(f"{tile} in float32: the kernel takes contiguous operands only")
         ny, nx = -(-bc // _MOE_F32_MICRO), -(-bf // _MOE_F32_MICRO)
         threads = ny * nx
         smem = (ny * _MOE_F32_MICRO * (_MOE_F32_SLAB + 1) + _MOE_F32_SLAB * nx * _MOE_F32_MICRO) * 4
-    if threads > MOE_MAX_THREADS:
+    if threads > MOE_MAX_THREADS[dtype]:
         raise ValueError(
             f"{tile} in {dtype} needs {threads} threads; the kernel is compiled for "
-            f"at most {MOE_MAX_THREADS}"
+            f"at most {MOE_MAX_THREADS[dtype]}"
         )
     if smem > SMEM_PER_BLOCK:
         raise ValueError(
             f"{tile} in {dtype} needs {smem} bytes of shared memory; a Hopper block "
             f"has {SMEM_PER_BLOCK}"
         )
-    return MoeLaunch(bc, bf, bd, threads, smem, (E, C // bc, f // bf))
+    return MoeLaunch(bc, bf, bd, threads, smem, (E, C // bc, f // bf), bool(x_t), bool(w_t))
 
 
 # ---------------------------------------------------------------------------

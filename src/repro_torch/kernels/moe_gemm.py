@@ -2,12 +2,18 @@
 
 Replaces the Pallas TPU kernel ``moe_gemm`` of ``src/repro/kernels/moe_gemm.py``
 (``pallas_call`` at line 69, body ``_kernel`` at line 30): ``x (E,C,d) .
-w (E,d,f) -> (E,C,f)``, f32 accumulation over ``d`` in ``block_d`` steps,
-output in ``x.dtype``.  The kernel is ``csrc/moe_gemm.cu``: about as bound
-by bytes as by operations at the prefill shapes and by the weights' bytes at
-decode; bf16 runs on the tensor cores (``mma.sync``, f32 accumulate) with
-the f32 accumulator in registers across the ``block_d`` loop; f32 runs in
-true f32 (no TF32).
+w (E,d,f) -> (E,C,f)``, f32 accumulation over ``d``, output in ``x.dtype``.
+The kernel is ``csrc/moe_gemm.cu``: about as bound by bytes as by
+operations at the prefill shapes and by the weights' bytes at decode; bf16
+is a TMA -> wgmma pipeline (a producer warpgroup streams ``d`` 64 deep into
+a ring of shared-memory stages, consumer warpgroups multiply on the tensor
+cores with f32 accumulators in registers); f32 runs in true f32 (no TF32).
+
+Either operand may be given as stored transposed: ``x_t`` means ``x`` is
+``(E, d, C)`` and the product uses ``x^T``, ``w_t`` means ``w`` is ``(E, f,
+d)``.  The bf16 kernel reads a transposed operand as it lies in memory; the
+f32 kernel takes contiguous operands, so the wrapper copies a transposed
+one for it.
 
 The tile is the caller's: ``kernels/geometry.moe_gemm_launch`` applies the
 JAX kernel's clamp (``min(block, dim)``), raises ``ValueError`` where the JAX
@@ -15,17 +21,18 @@ kernel asserts divisibility or the tile does not fit a Hopper block, and
 changes nothing else.  ``LAUNCHES.tiles`` records every tile launched since
 the last reset.
 
-A CPU tensor takes the plain version (``ref.moe_gemm``); a CUDA tensor
-launches the kernel or raises.  Where autograd records (grad enabled and an
-input that requires grad), the launch goes through ``MoeGemmFn``, whose
-backward is two more grouped GEMMs of the same form, each a launch of the
-same kernel with the same tile: ``dx = dy . w^T`` as ``(E,C,f) . (E,f,d)``
-and ``dw = x^T . dy`` as ``(E,d,C) . (E,C,f)``, on transposed copies made
-contiguous first.
+A CPU tensor takes the plain version (``ref.moe_gemm``, with the same
+layout flags); a CUDA tensor launches the kernel or raises.  Where autograd
+records (grad enabled and an input that requires grad), the launch goes
+through ``MoeGemmFn``, whose backward is two more grouped GEMMs of the same
+form, each a launch of the same kernel with the same tile, on the saved
+operands as they are stored: ``dx = dy . w^T`` with ``w`` read transposed
+and ``dw = x^T . dy`` with ``x`` read transposed; nothing is copied.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -38,65 +45,85 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 
 
+@functools.lru_cache(maxsize=None)
 def _launcher():
     lib = _build.load("moe_gemm")
     fn = lib.moe_gemm_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
 
 
 def moe_gemm(
-    x: torch.Tensor,  # (E, C, d)
-    w: torch.Tensor,  # (E, d, f)
+    x: torch.Tensor,  # (E, C, d), or (E, d, C) with x_t
+    w: torch.Tensor,  # (E, d, f), or (E, f, d) with w_t
     *,
     block_c: int = 128,
     block_f: int = 128,
     block_d: int = 256,
+    x_t: bool = False,
+    w_t: bool = False,
 ) -> torch.Tensor:
     if x.device.type == "cpu":
-        return moe_gemm_plain(x, w)
+        return moe_gemm_plain(x, w, x_t=x_t, w_t=w_t)
     if x.device.type != "cuda":
         raise ValueError(f"moe_gemm runs on cuda or cpu tensors, not {x.device}")
     if x.dtype not in _DTYPE_CODES:
         raise ValueError(f"moe_gemm kernel takes float32 or bfloat16, not {x.dtype}")
-    E, C, d = x.shape
-    if w.dtype != x.dtype or w.device != x.device or w.ndim != 3 or tuple(w.shape[:2]) != (E, d):
+    E = x.shape[0]
+    d = x.shape[1] if x_t else x.shape[2]
+    want = (E, None, d) if w_t else (E, d, None)
+    if (w.dtype != x.dtype or w.device != x.device or w.ndim != 3
+            or any(a is not None and a != b for a, b in zip(want, w.shape))):
         raise ValueError(
-            f"w must be ({E}, {d}, f) {x.dtype} on {x.device}; got "
-            f"{tuple(w.shape)} {w.dtype} on {w.device}"
+            f"w must be {'(E, f, d)' if w_t else '(E, d, f)'} with E={E}, d={d}, {x.dtype} on "
+            f"{x.device}; got {tuple(w.shape)} {w.dtype} on {w.device}"
         )
+    tile = (block_c, block_f, block_d)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        return MoeGemmFn.apply(x, w, lambda a, b: _launch(a, b, block_c, block_f, block_d))
-    return _launch(x, w, block_c, block_f, block_d)
+        return MoeGemmFn.apply(x, w, x_t, w_t, lambda a, b, at, bt: _launch(a, b, tile, at, bt))
+    return _launch(x, w, tile, x_t, w_t)
 
 
 class MoeGemmFn(torch.autograd.Function):
     """``gemm(x, w)`` forward; backward ``dx = gemm(dy, w^T)``, ``dw = gemm(x^T, dy)``.
 
-    ``gemm`` is the kernel on the card, so the backward launches it twice
-    (the tests pass the plain version to check the formulas on the CPU).
+    ``gemm(a, b, a_t, b_t)`` multiplies ``a`` and ``b`` as stored, each read
+    transposed where its flag is set, so the backward hands the kernel the
+    saved operands and their layouts, never a transposed copy.  A forward
+    on a transposed operand takes the transposed form of its gradient.
+    ``gemm`` is the kernel on the card (the tests pass the plain version to
+    check the formulas on the CPU).
     """
 
     @staticmethod
-    def forward(ctx, x, w, gemm):
+    def forward(ctx, x, w, x_t, w_t, gemm):
         ctx.save_for_backward(x, w)
-        ctx.gemm = gemm
-        return gemm(x, w)
+        ctx.x_t, ctx.w_t, ctx.gemm = x_t, w_t, gemm
+        return gemm(x, w, x_t, w_t)
 
     @staticmethod
     def backward(ctx, gy):
         x, w = ctx.saved_tensors
+        x_t, w_t, gemm = ctx.x_t, ctx.w_t, ctx.gemm
         gy = gy.contiguous()
-        gx = ctx.gemm(gy, w.transpose(1, 2).contiguous()) if ctx.needs_input_grad[0] else None
-        gw = ctx.gemm(x.transpose(1, 2).contiguous(), gy) if ctx.needs_input_grad[1] else None
-        return gx, gw, None
+        gx = gw = None
+        if ctx.needs_input_grad[0]:  # dX = dY.W^T, or dX^T = W.dY^T for an x stored (E,d,C)
+            gx = gemm(w, gy, w_t, True) if x_t else gemm(gy, w, False, not w_t)
+        if ctx.needs_input_grad[1]:  # dW = X^T.dY, or dW^T = dY^T.X for a w stored (E,f,d)
+            gw = gemm(gy, x, True, x_t) if w_t else gemm(x, gy, not x_t, False)
+        return gx, gw, None, None, None
 
 
-def _launch(x, w, block_c: int, block_f: int, block_d: int) -> torch.Tensor:
-    E, C, d = x.shape
-    f = w.shape[2]
-    launch = moe_gemm_launch(E, C, d, f, _DTYPE_NAMES[x.dtype], block_c, block_f, block_d)
+def _launch(x, w, tile, x_t: bool, w_t: bool) -> torch.Tensor:
+    if x.dtype == torch.float32 and (x_t or w_t):  # the f32 kernel takes contiguous operands
+        x = x.transpose(1, 2).contiguous() if x_t else x
+        w = w.transpose(1, 2).contiguous() if w_t else w
+        x_t = w_t = False
+    E = x.shape[0]
+    C, d = (x.shape[2], x.shape[1]) if x_t else (x.shape[1], x.shape[2])
+    f = w.shape[1] if w_t else w.shape[2]
+    launch = moe_gemm_launch(E, C, d, f, _DTYPE_NAMES[x.dtype], *tile, x_t=x_t, w_t=w_t)
     out = torch.empty((E, C, f), dtype=x.dtype, device=x.device)
     for name, t in (("x", x), ("w", w), ("out", out)):
         if not t.is_contiguous() or t.data_ptr() % 16:
@@ -105,7 +132,8 @@ def _launch(x, w, block_c: int, block_f: int, block_d: int) -> torch.Tensor:
     err = fn(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), E, C, d, f,
         launch.block_c, launch.block_f, launch.block_d, launch.threads, launch.smem_bytes,
-        _DTYPE_CODES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
+        _DTYPE_CODES[x.dtype], int(x_t), int(w_t),
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(lib, "moe_gemm", err)
     LAUNCHES.add(tile=(launch.block_c, launch.block_f, launch.block_d))

@@ -91,9 +91,13 @@ def selective_scan_step(
     return xf.to(x.dtype), y.to(u.dtype)
 
 
-def moe_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x: (E, C, d), w: (E, d, f) -> (E, C, f); f32 accumulation, output in x.dtype."""
-    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+def moe_gemm(x: torch.Tensor, w: torch.Tensor, *, x_t: bool = False, w_t: bool = False) -> torch.Tensor:
+    """x: (E, C, d), w: (E, d, f) -> (E, C, f); f32 accumulation, output in x.dtype.
+
+    ``x_t`` / ``w_t``: that operand is given as stored transposed, x as
+    ``(E, d, C)`` and w as ``(E, f, d)``; the product is the same."""
+    spec = f"{'edc' if x_t else 'ecd'},{'efd' if w_t else 'edf'}->ecf"
+    return torch.einsum(spec, x.float(), w.float()).to(x.dtype)
 
 
 def quantize_int8(x: torch.Tensor):

@@ -6,6 +6,8 @@ CPU tensor takes a wrapper's plain version and never counts as a launch.
 The CUDA kernels themselves are held against these plain versions on the
 card by ``chip_smoke.py``.
 """
+import shutil
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -115,7 +117,7 @@ def test_attention_plain_matches_jnp_oracle_with_fewer_queries():
     [
         ("bfloat16", 64, (512, 512), "1024 threads"),
         ("bfloat16", 64, (512, 128), "1024 threads"),
-        ("bfloat16", 128, (128, 512), "272384 bytes"),
+        ("bfloat16", 128, (128, 512), "296072 bytes"),
         ("float32", 64, (256, 512), "262144 bytes"),
         ("float32", 64, (512, 128), "512 threads"),
     ],
@@ -130,7 +132,7 @@ def test_oversize_tile_raises_naming_it(dtype, D, tile, needs):
 def test_tile_is_only_clamped_to_the_sequence():
     launch = geometry.flash_launch(1, 32, 4096, 4096, 64, "bfloat16", 256, 128)
     assert (launch.block_q, launch.block_kv) == (256, 128)
-    assert launch.threads == 512 and launch.grid == (16, 32, 1)
+    assert launch.threads == 640 and launch.grid == (16, 32, 1)  # 4 consumer warpgroups + producer
     launch = geometry.flash_launch(2, 4, 100, 300, 64, "bfloat16", 256, 256)
     assert (launch.block_q, launch.block_kv) == (100, 256)  # JAX's min(block, S)
     assert launch.kv_pad == 256 and launch.grid == (1, 4, 2)
@@ -146,11 +148,13 @@ def test_launchable_attn_blocks_at_granite_head_dim():
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_smem_formula_matches_kernel_layout(dtype):
-    # bf16: K rows (D + 8) and V transposed (kv_pad + 8) columns, 2 bytes;
+    # bf16: 1,024 bytes of alignment slack, Q of two consumer warpgroups (64
+    # rows of D each), a ring of 4 stages of K and V (64 keys of D each), and
+    # 8-byte mbarriers (Q's and two a stage), 2-byte elements;
     # f32: K and V rows of D, 4 bytes
-    kv_pad, smem = geometry.flash_smem_bytes(200, 64, dtype)
+    kv_pad, smem = geometry.flash_smem_bytes(200, 64, dtype, 128)
     if dtype == "bfloat16":
-        assert kv_pad == 256 and smem == (256 * 72 + 64 * 264) * 2
+        assert kv_pad == 256 and smem == 1024 + 2 * 64 * 64 * 2 + 4 * 2 * 64 * 64 * 2 + 8 * 9
     else:
         assert kv_pad == 208 and smem == 2 * 208 * 64 * 4
 
@@ -186,9 +190,9 @@ def test_kernel_tiles_are_the_jax_defaults():
     "E,C,d,f,dtype,tile,launched,threads",
     [
         # granite-moe prefill up/gate and down, decode at 4 slots (C = 8)
-        (32, 1280, 1024, 512, "bfloat16", (128, 256, 256), (128, 256, 256), 512),
-        (32, 1280, 512, 1024, "bfloat16", (128, 256, 256), (128, 256, 256), 512),
-        (32, 8, 1024, 512, "bfloat16", (128, 256, 256), (8, 256, 256), 128),
+        (32, 1280, 1024, 512, "bfloat16", (128, 256, 256), (128, 256, 256), 384),
+        (32, 1280, 512, 1024, "bfloat16", (128, 256, 256), (128, 256, 256), 384),
+        (32, 8, 1024, 512, "bfloat16", (128, 256, 256), (8, 256, 256), 256),
         # test_kernels.py's f32 tiles, f = 48 with block_f = 16 included
         (4, 32, 64, 48, "float32", (16, 16, 32), (16, 16, 32), 4),
         (2, 16, 32, 32, "float32", (16, 32, 16), (16, 32, 16), 8),
@@ -204,12 +208,40 @@ def test_moe_tile_is_only_clamped(E, C, d, f, dtype, tile, launched, threads):
 
 
 def test_moe_default_tile_smem_matches_kernel_layout():
-    # x tile [128][256 + 8] and w tile [256][256 + 8], bf16
+    # 1,024 bytes of alignment slack, a ring of block_d / 64 = 4 stages, each
+    # x [128][64] and w [64][256] in bf16 plus two 8-byte mbarriers, and the
+    # output's mbarrier
     launch = geometry.moe_gemm_launch(32, 1280, 1024, 512, "bfloat16", 128, 256, 256)
-    assert launch.smem_bytes == (128 * 264 + 256 * 264) * 2 == 202_752
-    # decode: the 8-row tile is padded to one warp's 32 rows inside the kernel
+    assert launch.smem_bytes == 1024 + 4 * ((128 * 64 + 64 * 256) * 2 + 16) + 8 == 197_704
+    # decode: the 8-row tile is padded to one consumer warpgroup's 64 rows
     launch = geometry.moe_gemm_launch(32, 8, 1024, 512, "bfloat16", 128, 256, 256)
-    assert launch.smem_bytes == (32 * 264 + 256 * 264) * 2
+    assert launch.smem_bytes == 1024 + 4 * ((64 * 64 + 64 * 256) * 2 + 16) + 8
+
+
+@pytest.mark.parametrize(
+    "x_t,w_t", [(False, False), (False, True), (True, False), (True, True)]
+)
+def test_moe_launch_layouts_keep_the_geometry(x_t, w_t):
+    # the backward's shapes: dx = dy . w^T reads w (E,d,f) as stored, dw =
+    # x^T . dy reads x (E,C,d) as stored; a layout changes no tile or size
+    plain = geometry.moe_gemm_launch(32, 1024, 1280, 512, "bfloat16", 128, 256, 256)
+    launch = geometry.moe_gemm_launch(32, 1024, 1280, 512, "bfloat16", 128, 256, 256, x_t=x_t, w_t=w_t)
+    assert (launch.x_t, launch.w_t) == (x_t, w_t)
+    assert (launch.block_c, launch.block_f, launch.block_d) == (128, 256, 256)
+    assert (launch.threads, launch.smem_bytes, launch.grid) == (384, 197_704, (32, 8, 2))
+    assert (plain.threads, plain.smem_bytes, plain.grid) == (launch.threads, launch.smem_bytes, launch.grid)
+    # a column tile of 96 runs one 128-wide wgmma chunk; block_c 64 one consumer
+    small = geometry.moe_gemm_launch(5, 48, 320, 96, "bfloat16", 64, 96, 40, x_t=x_t, w_t=w_t)
+    assert geometry.moe_bn(96) == 128 and small.threads == 256
+    assert small.smem_bytes == 1024 + 2 * ((64 * 64 + 64 * 128) * 2 + 16) + 8
+    if x_t:  # a transposed x is read in rows of C: 16 bytes a multiple
+        with pytest.raises(ValueError, match="multiples of 8"):
+            geometry.moe_gemm_launch(2, 12, 32, 32, "bfloat16", 12, 32, 32, x_t=x_t, w_t=w_t)
+    else:
+        assert geometry.moe_gemm_launch(2, 12, 32, 32, "bfloat16", 12, 32, 32, w_t=w_t).grid == (2, 1, 1)
+    if x_t or w_t:  # the f32 kernel takes contiguous operands
+        with pytest.raises(ValueError, match="contiguous"):
+            geometry.moe_gemm_launch(2, 16, 32, 32, "float32", 16, 32, 16, x_t=x_t, w_t=w_t)
 
 
 @pytest.mark.parametrize(
@@ -218,7 +250,7 @@ def test_moe_default_tile_smem_matches_kernel_layout():
         (4, 40, 64, 48, "float32", (16, 16, 32), "does not divide"),    # C % block_c
         (4, 32, 64, 48, "float32", (16, 32, 32), "does not divide"),    # f % block_f
         (4, 32, 64, 48, "float32", (16, 16, 48), "does not divide"),    # d % block_d
-        (32, 1280, 1024, 512, "bfloat16", (256, 256, 256), "1024 threads"),
+        (32, 1280, 1024, 512, "bfloat16", (256, 256, 256), "640 threads"),
         (32, 1280, 1024, 512, "bfloat16", (128, 256, 512), "bytes of shared memory"),
         (32, 1280, 1024, 512, "float32", (256, 256, 256), "1024 threads"),
         (2, 16, 36, 32, "bfloat16", (16, 32, 36), "multiples of 8"),
@@ -298,6 +330,15 @@ def test_build_compiles_once_per_source_hash(tmp_path, monkeypatch):
     assert _build.build(["rmsnorm", "flash_attention"]) == paths  # cached: no second compile
     assert log.read_text().count("x") == 2
     assert not list((tmp_path / "build").glob("*.tmp"))
+    # every digest covers the shared headers csrc/*.cuh: editing one rebuilds
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    assert _build.build(["rmsnorm", "flash_attention"]) == paths  # the same bytes: no compile
+    (csrc / "sm90.cuh").write_text((csrc / "sm90.cuh").read_text() + "\n// edited\n")
+    rebuilt = _build.build(["rmsnorm", "flash_attention"])
+    assert all(rebuilt[n] != paths[n] and rebuilt[n].exists() for n in paths)
+    assert log.read_text().count("x") == 4
 
 
 def test_build_failure_raises_with_nvcc_stderr(tmp_path, monkeypatch):

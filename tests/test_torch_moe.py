@@ -68,6 +68,38 @@ def test_moe_gemm_plain_bf16_accumulates_in_f32_and_returns_x_dtype():
     np.testing.assert_array_equal(got.float().numpy(), np.asarray(exp, np.float32))
 
 
+@pytest.mark.parametrize("x_t,w_t", [(False, False), (False, True), (True, False), (True, True)])
+def test_moe_gemm_function_gradients_in_every_layout(x_t, w_t):
+    # ragged E and C; each operand given as stored, transposed where its flag
+    # is set; the Function's dx and dw against autograd through ref.moe_gemm
+    rng = np.random.default_rng(12)
+    E, C, d, f = 3, 40, 24, 16
+    x = _t(rng.standard_normal((E, d, C) if x_t else (E, C, d)).astype(np.float32))
+    w = _t(rng.standard_normal((E, f, d) if w_t else (E, d, f)).astype(np.float32))
+    gy = _t(rng.standard_normal((E, C, f)).astype(np.float32))
+    calls = []
+
+    def gemm(a, b, a_t, b_t):
+        calls.append((a.data_ptr(), b.data_ptr(), a.is_contiguous() and b.is_contiguous()))
+        return ref.moe_gemm(a, b, x_t=a_t, w_t=b_t)
+
+    xs, ws = x.clone().requires_grad_(), w.clone().requires_grad_()
+    y = mg.MoeGemmFn.apply(xs, ws, x_t, w_t, gemm)
+    gx, gw = torch.autograd.grad(y, (xs, ws), gy)
+    xp, wp = x.clone().requires_grad_(), w.clone().requires_grad_()
+    yp = ref.moe_gemm(xp, wp, x_t=x_t, w_t=w_t)
+    ex, ew = torch.autograd.grad(yp, (xp, wp), gy)
+    assert y.shape == (E, C, f) and gx.shape == x.shape and gw.shape == w.shape
+    for got, exp in ((y, yp), (gx, ex), (gw, ew)):
+        np.testing.assert_allclose(got.detach().numpy(), exp.detach().numpy(), atol=1e-5, rtol=1e-5)
+    # three products, each on the saved operands and the incoming gradient as stored
+    stored = {xs.data_ptr(), ws.data_ptr(), gy.data_ptr()}
+    assert len(calls) == 3 and all(a in stored and b in stored and c for a, b, c in calls)
+    # the wrapper hands a CPU tensor and its layout to the plain version
+    np.testing.assert_allclose(mg.moe_gemm(x, w, x_t=x_t, w_t=w_t).numpy(), yp.detach().numpy(),
+                               atol=1e-6, rtol=1e-6)
+
+
 # ---------------------------------------------------------------------------
 @pytest.fixture(scope="module")
 def cfgs():

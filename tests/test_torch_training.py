@@ -252,14 +252,16 @@ def test_moe_gemm_function_backward_matches_jax_vjp():
     w = rng.standard_normal((4, 32, 24)).astype(np.float32)
     calls = []
 
-    def gemm(a, b):
-        calls.append((tuple(a.shape), tuple(b.shape), a.is_contiguous() and b.is_contiguous()))
-        return ref.moe_gemm(a, b)
+    def gemm(a, b, a_t, b_t):
+        calls.append((tuple(a.shape), tuple(b.shape), a_t, b_t, a.is_contiguous() and b.is_contiguous()))
+        return ref.moe_gemm(a, b, x_t=a_t, w_t=b_t)
 
-    _vjp_check(lambda a, b: mg.MoeGemmFn.apply(a, b, gemm), jref.moe_gemm, [x, w], 9)
-    # forward, then dx = dy . w^T and dw = x^T . dy through the same GEMM
-    assert calls == [((4, 16, 32), (4, 32, 24), True), ((4, 16, 24), (4, 24, 32), True),
-                     ((4, 32, 16), (4, 16, 24), True)]
+    _vjp_check(lambda a, b: mg.MoeGemmFn.apply(a, b, False, False, gemm), jref.moe_gemm, [x, w], 9)
+    # forward, then dx = dy . w^T and dw = x^T . dy through the same GEMM, on
+    # w and x as stored (read transposed), never on a transposed copy
+    assert calls == [((4, 16, 32), (4, 32, 24), False, False, True),
+                     ((4, 16, 24), (4, 32, 24), False, True, True),
+                     ((4, 16, 32), (4, 16, 24), True, False, True)]
 
 
 def test_scan_wrapper_raises_for_a_card_input_that_requires_grad():
