@@ -19,10 +19,15 @@ limit as ``nvidia-smi`` reports them):
    also zero rows and exact .5 ties, held bit for bit; for moe_gemm every
    operand layout); error and tolerance, kernel / plain / library ms (CUDA
    events; kernel, library, kernel in turns), ``vs_library``,
-   ``achieved_tflops`` and the bound.
+   ``achieved_tflops`` and the bound.  rmsnorm's rows and their
+   ``F.rms_norm`` yardstick also carry ``device_ms``: the same calls
+   captured 20 to a CUDA graph and timed by replaying it, so the host's
+   time a launch drops out.
 4. ``grad``: the autograd Function of rmsnorm, flash attention and moe_gemm
    at the training shapes against autograd through the plain version, on
-   the card; the scan must refuse an input that requires grad.
+   the card (rmsnorm's backward is a kernel of its own, ``rmsnorm_backward``,
+   also held alone at more widths and timed); the scan must refuse an input
+   that requires grad.
 5. Per serving arch -- granite-3-2b, granite-moe-1b-a400m, falcon-mamba-7b,
    each at full width and depth, bf16, random weights from seed 0, freed
    before the next is made:
@@ -41,7 +46,8 @@ limit as ``nvidia-smi`` reports them):
    (kernels) against the port's CPU path (plain versions); for the MoE arch
    the routing must agree too.  ``train_parity``: the same for granite-moe's
    loss, every gradient and one int8-moment optimizer step.
-8. ``kernels``: one summary entry per ported kernel (all six).
+8. ``kernels``: one summary entry per kernel (the six ported ones and the
+   rmsnorm backward).
 
 Every launch counter is set to 0 just before a path is driven and read just
 after it.  Any failure raises and exits non-zero.  The last line is the
@@ -69,21 +75,22 @@ SM_COUNT = 132
 SFU_EXP_PER_SM_CLOCK = 16  # exp2 results a clock per SM: NVIDIA throughput table, compute capability 9.0
 SEQ = 4096
 SEED = 0
-KERNELS = ("rmsnorm", "flash_attention", "moe_gemm", "selective_scan",
+KERNELS = ("rmsnorm", "rmsnorm_backward", "flash_attention", "moe_gemm", "selective_scan",
            "quantize_int8", "dequantize_int8")
 LIBRARIES = ("rmsnorm", "flash_attention", "moe_gemm", "selective_scan", "quantize")  # csrc/*.cu
 ARCHS = ("granite-3-2b", "granite-moe-1b-a400m", "falcon-mamba-7b")
 
 # launches of one 1x4096 prefill by arch: the one cross-check of
 # _expected_counts, which gives every other expected count
-NO_QUANT = {"quantize_int8": 0, "dequantize_int8": 0}  # inference quantizes nothing
+NOT_IN_INFERENCE = {"quantize_int8": 0, "dequantize_int8": 0,  # inference quantizes nothing
+                    "rmsnorm_backward": 0}  # and takes no gradient
 EXPECTED_PREFILL = {
     "granite-3-2b": {"rmsnorm": 81, "flash_attention": 40, "moe_gemm": 0, "selective_scan": 0,
-                     **NO_QUANT},
+                     **NOT_IN_INFERENCE},
     "granite-moe-1b-a400m": {"rmsnorm": 49, "flash_attention": 24, "moe_gemm": 72,
-                             "selective_scan": 0, **NO_QUANT},
+                             "selective_scan": 0, **NOT_IN_INFERENCE},
     "falcon-mamba-7b": {"rmsnorm": 65, "flash_attention": 0, "moe_gemm": 0, "selective_scan": 64,
-                        **NO_QUANT},
+                        **NOT_IN_INFERENCE},
 }
 TRAIN_ARCH = "granite-moe-1b-a400m"
 TRAIN_STEPS = 3  # a plan's steps on the card: the first is timed apart (warm-up)
@@ -124,6 +131,34 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, iters: int = 20, replays: int = 10) -> float:
+    """Device time of one call of ``fn``: ``iters`` calls captured in a CUDA
+    graph, the graph replayed ``replays`` times between CUDA events.  Replay
+    issues the captured launches without running the host code around them,
+    so the host's time a launch drops out (L2 warm, as in ``cuda_ms``)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture: first-call set-up
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (iters * replays)
 
 
 def timed(torch, kernel, library, ops: float, iters: int = 20, warmup: int = 3) -> dict:
@@ -181,16 +216,17 @@ def ptxas_lines(text: str) -> list:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = m.group(1)
-            base = re.search(r"(flash_fwd_bf16|flash_fwd_f32|rmsnorm_kernel|moe_gemm_bf16|"
-                             r"moe_gemm_f32|selective_scan_kernel|dequantize_kernel|"
-                             r"quantize_kernel)", name)
-            ints = re.findall(r"Li(\d+)E", name)
-            arg = re.search(r"I(f|13__nv_bfloat16)E", name)
+            base = re.search(r"(flash_fwd_bf16|flash_fwd_f32|rmsnorm_kernel|rmsnorm_backward_kernel|"
+                             r"rmsnorm_dw_kernel|moe_gemm_bf16|moe_gemm_f32|selective_scan_kernel|"
+                             r"selective_scan_carry_kernel|dequantize_kernel|quantize_kernel)", name)
             label = base.group(1) if base else name
-            if ints:
-                label += f"<{','.join(ints)}>"
-            elif arg:
-                label += f"<{'float' if arg.group(1) == 'f' else 'bf16'}>"
+            # the template arguments: types, then integer and bool literals
+            arg = r"f|13__nv_bfloat16|L[ib]\d+E"
+            targs = re.match(rf"I((?:{arg})+)E", name[base.end():]) if base else None
+            if targs:
+                names = {"f": "float", "13__nv_bfloat16": "bf16"}
+                label += "<" + ",".join(names.get(t) or t[2:-1]
+                                        for t in re.findall(arg, targs.group(1))) + ">"
             cur = {"kernel": label}
             out.append(cur)
             continue
@@ -209,6 +245,13 @@ def ptxas_lines(text: str) -> list:
 
 # ---------------------------------------------------------------------------
 def phase_kernels_rmsnorm(torch, F, rn):
+    """The forward kernel against its plain version at every main-path width
+    (granite-3-2b 2048, granite-moe 1024, falcon-mamba 4096; prefill and
+    decode rows), ``test_kernels.py``'s shapes, ragged widths and the widest
+    rows a group of warps holds.  Timed rows carry the kernel's and
+    ``F.rms_norm``'s ``ms`` (CUDA events over back-to-back calls: the host's
+    time a launch included where it is the slower side) and ``device_ms``
+    (CUDA-graph replay: the device alone)."""
     cases = [
         ((SEQ, 2048), "bfloat16", "prefill"),
         ((4, 2048), "bfloat16", "decode"),
@@ -219,6 +262,7 @@ def phase_kernels_rmsnorm(torch, F, rn):
         ((3, 7, 64), "float32", "test"), ((16, 128), "float32", "test"), ((5, 96), "float32", "test"),
         ((3, 7, 64), "bfloat16", "test"), ((16, 128), "bfloat16", "test"), ((5, 96), "bfloat16", "test"),
         ((7, 2050), "bfloat16", "ragged width"), ((9, 1000), "float32", "ragged width"),
+        ((64, 8192), "float32", "widest f32 row"), ((16, 16384), "bfloat16", "widest bf16 row"),
     ]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
@@ -238,7 +282,11 @@ def phase_kernels_rmsnorm(torch, F, rn):
                 **timed(torch, lambda: rn.rmsnorm(x, w), lambda: F.rms_norm(x, (d,), w, 1e-6), 4 * n),
                 plain_ms=cuda_ms(torch, lambda: rn.rmsnorm_plain(x, w)),
                 bound_ms=b_ms, bound_by=b_by,
+                device_ms=graph_ms(torch, lambda: rn.rmsnorm(x, w)),
+                library_device_ms=graph_ms(torch, lambda: F.rms_norm(x, (d,), w, 1e-6)),
             )
+            row["vs_library_device"] = row["device_ms"] / row["library_device_ms"]
+            row["bound_share_device"] = b_ms / row["device_ms"]
         rows.append(row)
     emit("kernels.rmsnorm", cases=rows)
     return rows
@@ -371,10 +419,14 @@ def phase_kernels_moe(torch, F, mg):
     return rows
 
 
-def _scan_inputs(torch, gen, B, L, Di, N, dtype):
+def _scan_inputs(torch, gen, B, L, Di, N, dtype, dt_shift=0.0):
+    """``dt = softplus(N(0,1) + dt_shift)``: at 0 (dt ~ 0.7) a state forgets
+    within a few steps; at -4 (dt ~ 0.02, as Mamba's initialisation gives)
+    it carries across whole chunks, so the carry pass is exercised."""
     dt = getattr(torch, dtype)
     u = torch.randn((B, L, Di), generator=gen, device="cuda").to(dt)
-    delta = torch.nn.functional.softplus(torch.randn((B, L, Di), generator=gen, device="cuda")).to(dt)
+    delta = torch.nn.functional.softplus(
+        torch.randn((B, L, Di), generator=gen, device="cuda") + dt_shift).to(dt)
     A = -torch.exp(0.5 * torch.randn((Di, N), generator=gen, device="cuda"))
     Bm = torch.randn((B, L, N), generator=gen, device="cuda").to(dt)
     Cm = torch.randn((B, L, N), generator=gen, device="cuda").to(dt)
@@ -385,8 +437,11 @@ def _scan_inputs(torch, gen, B, L, Di, N, dtype):
 def phase_kernels_scan(torch, F, ss):
     # (B, L, Di, N, chunk, d_block, dtype, role): falcon-mamba's prefill at
     # 1x4096 at every scan_chunk option that launches, test_kernels.py's f32
-    # shapes, and 32 chunks in f32 (a state not carried across chunks shows)
+    # shapes, one chunk (the output pass alone), two chunks at B = 2, 5 and
+    # 32 chunks in f32, and slow decay (dt ~ 0.02), where a state lives
+    # across chunks and a carry folded wrongly shows
     from repro_torch.kernels import geometry
+    from repro_torch.kernels.ops import KernelTiles
 
     launchable = geometry.launchable_scan_chunks(256, 16, "bfloat16")
     refused = {}
@@ -398,8 +453,9 @@ def phase_kernels_scan(torch, F, ss):
                 refused[chunk] = str(e)
             else:
                 raise AssertionError(f"scan_chunk {chunk} launches but is not listed")
+    main = KernelTiles().scan_chunk  # the main path's chunk first: the summary line's row
     cases = [(1, SEQ, 8192, 16, ch, 256, "bfloat16", f"prefill, plan chunk {ch}")
-             for ch in sorted(launchable, reverse=True)]
+             for ch in sorted(launchable, key=lambda c: (c != main, -c))]
     cases += [
         (2, 64, 32, 8, 16, 16, "float32", "test"),
         (1, 128, 64, 16, 64, 32, "float32", "test"),
@@ -407,12 +463,18 @@ def phase_kernels_scan(torch, F, ss):
         (1, 96, 48, 8, 32, 48, "float32", "test d_block == Di"),
         (1, 2048, 512, 16, 64, 256, "float32", "32 chunks"),
         (2, 320, 8192, 16, 64, 256, "float32", "parity tile"),
+        (1, 512, 8192, 16, 512, 256, "bfloat16", "chunk == L: the output pass alone"),
+        (2, 256, 1024, 16, 128, 256, "bfloat16", "two chunks, B = 2"),
+        (1, 1280, 512, 16, 256, 256, "float32", "chunk 256, 5 chunks"),
+        (2, 192, 96, 8, 64, 32, "bfloat16", "N = 8, 3 chunks"),
+        (1, SEQ, 8192, 16, 128, 256, "bfloat16", "prefill shape, slow decay"),
+        (1, 2048, 512, 16, 64, 256, "float32", "32 chunks, slow decay"),
     ]
     clock_hz = max_sm_clock_mhz() * 1e6
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     rows = []
     for B, L, Di, N, ch, db, dtype, role in cases:
-        args = _scan_inputs(torch, gen, B, L, Di, N, dtype)
+        args = _scan_inputs(torch, gen, B, L, Di, N, dtype, -4.0 if "slow decay" in role else 0.0)
         tol = TOL_BF16 if dtype == "bfloat16" else dict(atol=1e-4, rtol=1e-3)
         ss.LAUNCHES.reset()
         got = ss.selective_scan(*args, chunk=ch, d_block=db)
@@ -421,7 +483,10 @@ def phase_kernels_scan(torch, F, ss):
         if sorted(ss.LAUNCHES.tiles) != [want]:
             raise AssertionError(f"scan tile {sorted(ss.LAUNCHES.tiles)} launched for requested {(ch, db)}")
         stats = check_close(got, ss.selective_scan_plain(*args), f"selective_scan {role} {dtype}", **tol)
+        launch = geometry.scan_launch(B, L, Di, N, dtype, ch, db)
         row = {"shape": [B, L, Di, N], "dtype": dtype, "role": role, "chunks": L // want[0],
+               "kernel_launches_per_call": launch.kernels,
+               "scratch_mib": launch.scratch_floats * 4 / 2**20,
                "tile_requested": [ch, db], "tile_launched": list(want), **stats}
         if role.startswith("prefill"):
             esz = args[0].element_size()
@@ -537,19 +602,22 @@ def phase_kernels_quantize(torch, qt):
     return rows
 
 
-def _grad_case(torch, what, fn_kernel, fn_plain, inputs, gen, tol, counter, launches):
+def _grad_case(torch, what, fn_kernel, fn_plain, inputs, gen, tol, launches):
     """Forward and gradients of ``fn_kernel`` (the wrapper, through its
-    autograd Function) against autograd through ``fn_plain``, on the card."""
+    autograd Function) against autograd through ``fn_plain``, on the card;
+    ``launches``: each counter's launches in the forward and backward."""
     xs = [t.detach().clone().requires_grad_() for t in inputs]
-    counter.reset()
+    for counter in launches:
+        counter.reset()
     y = fn_kernel(*xs)
     if not y.requires_grad or y.grad_fn is None:
         raise AssertionError(f"grad {what}: the kernel's output is detached from the graph")
     gy = torch.randn(y.shape, generator=gen, device="cuda").to(y.dtype)
     got = torch.autograd.grad(y, xs, gy)
     torch.cuda.synchronize()
-    if counter.count != launches:
-        raise AssertionError(f"grad {what}: {counter.count} launches, expected {launches}")
+    for counter, n in launches.items():
+        if counter.count != n:
+            raise AssertionError(f"grad {what}: {counter.count} {counter.name} launches, expected {n}")
     ps = [t.detach().clone().requires_grad_() for t in inputs]
     yp = fn_plain(*ps)
     exp = torch.autograd.grad(yp, ps, gy)
@@ -569,19 +637,67 @@ def phase_grad(torch, rn, fa, mg, ss):
     def randn(shape, dtype, scale=1.0):
         return (torch.randn(shape, generator=gen, device="cuda") * scale).to(getattr(torch, dtype))
 
+    # rmsnorm: the Function (forward and backward kernels) at granite-moe's
+    # training shape, then the backward kernel alone at every width it
+    # takes a path for: one warp a row, groups of 2, 4 and 8 warps, ragged
+    # widths, fewer rows than a block's row groups
+    bwd_rows = []
     for dtype, tol in (("bfloat16", TOL_BF16), ("float32", f32)):
         x, w = randn((SEQ, 1024), dtype), (1 + randn((1024,), "float32", 0.1)).to(getattr(torch, dtype))
         stats, xs, gy = _grad_case(torch, f"rmsnorm {dtype}", lambda a, b: rn.rmsnorm(a, b),
                                    lambda a, b: rn.rmsnorm_plain(a, b), [x, w], gen, tol,
-                                   rn.LAUNCHES, 1)
-        row = {"kernel": "rmsnorm", "shape": [SEQ, 1024], "dtype": dtype, **stats}
+                                   {rn.LAUNCHES: 1, rn.BWD_LAUNCHES: 1})
+        row = {"kernel": "rmsnorm", "shape": [SEQ, 1024], "dtype": dtype, **stats,
+               "launches": {"rmsnorm": 1, "rmsnorm_backward": 1}}
         if dtype == "bfloat16":
+            fwd_bwd = lambda: torch.autograd.grad(rn.rmsnorm(*xs), xs, gy)  # noqa: E731
+            plain = lambda: torch.autograd.grad(rn.rmsnorm_plain(*xs), xs, gy)  # noqa: E731
             row.update(
-                fwd_bwd_ms=cuda_ms(torch, lambda: torch.autograd.grad(rn.rmsnorm(*xs), xs, gy)),
-                plain_fwd_bwd_ms=cuda_ms(torch, lambda: torch.autograd.grad(
-                    rn.rmsnorm_plain(*xs), xs, gy)),
-                note="backward is the plain version's, recomputed")
+                fwd_bwd_ms=cuda_ms(torch, fwd_bwd), plain_fwd_bwd_ms=cuda_ms(torch, plain),
+                fwd_bwd_device_ms=graph_ms(torch, fwd_bwd),
+                plain_fwd_bwd_device_ms=graph_ms(torch, plain),
+                note="backward: the rmsnorm_backward kernel (dx and partial dw rows, then "
+                     "their column sum); *_ms by CUDA events, *_device_ms by CUDA-graph replay")
         rows.append(row)
+    bwd_cases = [
+        ((SEQ, 1024), "bfloat16", "train granite-moe"), ((SEQ, 1024), "float32", "train, f32"),
+        ((SEQ, 2048), "bfloat16", "granite-3-2b width"), ((SEQ, 4096), "bfloat16", "falcon-mamba width"),
+        ((4, 1024), "bfloat16", "4 rows"), ((1024, 8192), "float32", "widest f32 row"),
+        ((3, 7, 64), "float32", "test"), ((5, 96), "bfloat16", "test"),
+        ((7, 2050), "bfloat16", "ragged width"), ((9, 1000), "float32", "ragged width"),
+    ]
+    for shape, dtype, role in bwd_cases:
+        tol = TOL_BF16 if dtype == "bfloat16" else f32
+        d = shape[-1]
+        x, gy = randn(shape, dtype), randn(shape, dtype)
+        w = (1 + randn((d,), "float32", 0.1)).to(getattr(torch, dtype))
+        rn.BWD_LAUNCHES.reset()
+        dx, dw = rn.rmsnorm_backward(x, w, gy)
+        torch.cuda.synchronize()
+        if rn.BWD_LAUNCHES.count != 1:
+            raise AssertionError(f"rmsnorm_backward {shape}: {rn.BWD_LAUNCHES.count} launches")
+        xp, wp = x.clone().requires_grad_(), w.clone().requires_grad_()
+        edx, edw = torch.autograd.grad(rn.rmsnorm_plain(xp, wp), (xp, wp), gy)
+        sx = check_close(dx, edx, f"rmsnorm_backward {shape} {dtype} dx", **tol)
+        sw = check_close(dw, edw, f"rmsnorm_backward {shape} {dtype} dw", **tol)
+        row = {"shape": list(shape), "dtype": dtype, "role": role, "dx": sx, "dw": sw,
+               "max_abs_err": max(sx["max_abs_err"], sw["max_abs_err"]),
+               "rel_err": max(sx["rel_err"], sw["rel_err"]), "mean_abs_exp": sx["mean_abs_exp"]}
+        if role.startswith("train granite-moe"):
+            n = x.numel()
+            esz = x.element_size()
+            # x and gy read, dx written, w read and dw written once; about 10
+            # operations an element (two sums, dx, dw)
+            b_ms, b_by = bound(3 * n * esz + 2 * d * esz, 10 * n, "float32")
+            row.update(
+                **timed(torch, lambda: rn.rmsnorm_backward(x, w, gy), None, 10 * n),
+                device_ms=graph_ms(torch, lambda: rn.rmsnorm_backward(x, w, gy)),
+                plain_ms=cuda_ms(torch, lambda: rn.rmsnorm_backward_plain(x, w, gy)),
+                bound_ms=b_ms, bound_by=b_by,
+                library="none: no one PyTorch call takes (x, w, gy) to (dx, dw)")
+            row["bound_share_device"] = b_ms / row["device_ms"]
+        bwd_rows.append(row)
+        del x, gy, w, dx, dw, xp, wp, edx, edw
 
     for dtype, shape, tol in (("bfloat16", (1, 16, 8, SEQ, SEQ, 64), TOL_BF16),
                               ("float32", (1, 4, 2, 512, 512, 64), f32)):
@@ -591,7 +707,7 @@ def phase_grad(torch, rn, fa, mg, ss):
             torch, f"flash {dtype}",
             lambda a, b, c: fa.flash_attention(a, b, c, causal=True, block_q=256, block_kv=256),
             lambda a, b, c: fa.attention_plain(a, b, c, causal=True), [q, k, v], gen, tol,
-            fa.LAUNCHES, 1)
+            {fa.LAUNCHES: 1})
         row = {"kernel": "flash_attention", "shape": list(shape), "dtype": dtype, **stats}
         if dtype == "bfloat16":
             row.update(
@@ -611,7 +727,7 @@ def phase_grad(torch, rn, fa, mg, ss):
         stats, xs, gy = _grad_case(
             torch, f"moe_gemm {dtype} {(E, C, d, f)}",
             lambda a, b: mg.moe_gemm(a, b, block_c=128, block_f=256, block_d=256),
-            mg.moe_gemm_plain, [x, w], gen, tol, mg.LAUNCHES, 3)
+            mg.moe_gemm_plain, [x, w], gen, tol, {mg.LAUNCHES: 3})
         tiles = sorted(mg.LAUNCHES.tiles)
         row = {"kernel": "moe_gemm", "shape": [E, C, d, f], "dtype": dtype, "tiles": tiles, **stats}
         if dtype == "bfloat16":
@@ -645,10 +761,11 @@ def phase_grad(torch, rn, fa, mg, ss):
         scan = str(e)
     else:
         raise AssertionError("selective_scan returned an output for an input that requires grad")
-    emit("grad", cases=rows, scan_refuses=scan,
-         note="rmsnorm/flash backward: plain recompute; moe_gemm backward: 2 kernel launches "
-              "on the saved operands as stored (dx reads w transposed, dw reads x transposed)")
-    return rows
+    emit("grad", cases=rows, rmsnorm_backward=bwd_rows, scan_refuses=scan,
+         note="rmsnorm backward: its own kernel; flash backward: plain recompute; moe_gemm "
+              "backward: 2 kernel launches on the saved operands as stored (dx reads w "
+              "transposed, dw reads x transposed)")
+    return bwd_rows
 
 
 # ---------------------------------------------------------------------------
@@ -708,10 +825,22 @@ def phase_prefill(torch, np, cfg, params, plans, ops, make_prefill_step, make_po
     expected = EXPECTED_PREFILL[cfg.name]
     if expected != _expected_counts(cfg):
         raise AssertionError(f"{cfg.name}: {expected} != the layer plan's {_expected_counts(cfg)}")
-    results, logits_by_plan, launches = [], [], None
+    results, logits_by_plan, launches, first_scan = [], [], None, []
+    real_scan = ops.selective_scan
+
+    def recording_scan(*args, **kw):  # the first Mamba layer's scan: inputs and output
+        y = real_scan(*args, **kw)
+        if len(first_scan) < len(logits_by_plan) + 1:
+            first_scan.append((args, y))
+        return y
+
     for plan in plans:
         step = make_prefill_step(cfg, None, plan, device="cuda")
-        step(params, batch)  # warm-up: cuBLAS heuristics, allocator
+        ops.selective_scan = recording_scan
+        try:
+            step(params, batch)  # warm-up: cuBLAS heuristics, allocator
+        finally:
+            ops.selective_scan = real_scan
         torch.cuda.synchronize()
         ops.reset_counters()
         torch.cuda.reset_peak_memory_stats()
@@ -744,14 +873,33 @@ def phase_prefill(torch, np, cfg, params, plans, ops, make_prefill_step, make_po
             "tokens_per_s": SEQ / med, "peak_memory_gib": peak / 2**30,
         })
     # flash's softmax steps over 64 keys whatever the tile and a warpgroup's
-    # 64 rows do not depend on block_q; the scan's chunk only sets how many
-    # steps are staged at a time: so the plans' tiles give the same bits
-    for other in logits_by_plan[1:]:
-        if not torch.equal(logits_by_plan[0], other):
+    # 64 rows do not depend on block_q, so its plans' tiles give the same
+    # bits.  The scan's chunk is its split of L (the carries are folded at
+    # the chunk ends), so two chunks round apart in f32; a bf16 output that
+    # rounds the other way then moves every later layer's input, and over 64
+    # layers of random weights the logits drift apart (reported, not held).
+    # What is held: the first Mamba layer sees the same inputs under both
+    # plans and its scan outputs agree at the bf16 kernel tolerance.
+    tiles_agree = None
+    for i, other in enumerate(logits_by_plan[1:], 1):
+        if cfg.is_ssm:
+            (args0, y0), (args1, y1) = first_scan[0], first_scan[i]
+            if not all(torch.equal(a, b) for a, b in zip(args0, args1)):
+                raise AssertionError(f"{cfg.name}: the first scan's inputs differ between plans")
+            diff = (other.float() - logits_by_plan[0].float())
+            tiles_agree = {
+                "first_scan_output": check_close(y1, y0, f"{cfg.name}: the plan tiles' first scan",
+                                                 **TOL_BF16),
+                "logits_max_abs_diff": diff.abs().max().item(),
+                "logits_rel_diff": (diff.norm() / logits_by_plan[0].float().norm()).item(),
+            }
+        elif not torch.equal(logits_by_plan[0], other):
             raise AssertionError(f"{cfg.name}: the plan tiles' logits differ: max abs "
                                  f"{(logits_by_plan[0].float() - other.float()).abs().max().item()}")
-    emit("prefill", arch=cfg.name, tokens=SEQ, runs=results,
-         tiles_logits_identical=len(plans) > 1 or None)
+        else:
+            tiles_agree = "identical"
+    del first_scan
+    emit("prefill", arch=cfg.name, tokens=SEQ, runs=results, tiles_logits=tiles_agree)
     return launches, step, batch
 
 
@@ -826,7 +974,7 @@ def phase_slot_reuse(np, cfg, params, ServingEngine):
 
 
 def _kernel_group(name: str) -> str:
-    if re.search(r"rmsnorm_kernel|flash_fwd|moe_gemm_(bf16|f32)|selective_scan_kernel|"
+    if re.search(r"rmsnorm_\w*kernel|flash_fwd|moe_gemm_(bf16|f32)|selective_scan_\w*kernel|"
                  r"quantize_kernel", name):
         return "kernels"
     if re.search(r"gemm|cutlass|nvjet|xmma|sm90_|cublas|matmul", name, re.I):
@@ -934,14 +1082,15 @@ def _expected_train_counts(cfg, plan, params, moment_dtype: str, optim) -> dict:
     """Launches of one train step of ``cfg`` under ``plan``, per microbatch:
     the forward's; with remat (``dots`` or ``full``) the period's kernels
     again in the backward (the final norm lies outside the remat period);
-    two more grouped GEMMs for each one's backward (rmsnorm's and flash's
-    backward are plain recomputes: no launch).  Then per quantizable leaf two
-    quantizes and two dequantizes for int8 moments, one each for int8
-    ``grad_comm``."""
+    one rmsnorm backward for each norm of the forward and two more grouped
+    GEMMs for each one's backward (flash's backward is a plain recompute: no
+    launch).  Then per quantizable leaf two quantizes and two dequantizes for
+    int8 moments, one each for int8 ``grad_comm``."""
     fwd = _expected_counts(cfg)
     rerun = int(plan.remat != "none")
     counts = {
         "rmsnorm": fwd["rmsnorm"] + rerun * (fwd["rmsnorm"] - 1),
+        "rmsnorm_backward": fwd["rmsnorm"],
         "flash_attention": fwd["flash_attention"] * (1 + rerun),
         "moe_gemm": fwd["moe_gemm"] * (1 + rerun) + 2 * fwd["moe_gemm"],
         "selective_scan": 0,
@@ -1064,7 +1213,7 @@ def phase_train_parity(torch, np, mods):
     finally:
         moe.route = real_route
     fwd = _expected_counts(cfg)
-    want = {**fwd, "moe_gemm": 3 * fwd["moe_gemm"]}
+    want = {**fwd, "moe_gemm": 3 * fwd["moe_gemm"], "rmsnorm_backward": fwd["rmsnorm"]}
     if counts != want:
         raise AssertionError(f"train_parity: launches {counts}, expected {want}")
     loss_stats = check_close(out["cuda"][0][None], out["cpu"][0][None], "train_parity loss",
@@ -1150,6 +1299,9 @@ def run_path(torch, np, arch, plans, mods) -> tuple:
 # ---------------------------------------------------------------------------
 SOURCES = {
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:45"),
+    # the gradient of that kernel, which the JAX package takes with jax.vjp
+    # of its oracle (src/repro/kernels/ref.py:108); the TPU has no kernel of it
+    "rmsnorm_backward": ("src/repro_torch/kernels/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:45"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:129"),
     "moe_gemm": ("src/repro_torch/kernels/csrc/moe_gemm.cu", "src/repro/kernels/moe_gemm.py:69"),
@@ -1160,7 +1312,8 @@ SOURCES = {
                         "src/repro/kernels/quantize.py:65"),
 }
 _SUMMARY_KEYS = ("shape", "dtype", "role", "max_abs_err", "rel_err", "ms", "plain_ms", "bound_ms",
-                 "bound_by", "library_ms", "vs_library", "achieved_tflops")
+                 "bound_by", "library_ms", "vs_library", "achieved_tflops", "device_ms",
+                 "library_device_ms", "exp_bound_ms", "kernel_launches_per_call")
 
 
 def _summary_row(n: str, rows: list, launches: int) -> dict:
@@ -1247,7 +1400,7 @@ def main() -> int:
         "selective_scan": phase_kernels_scan(torch, F, ss),
     }
     rows["quantize_int8"] = rows["dequantize_int8"] = phase_kernels_quantize(torch, qt)
-    phase_grad(torch, rn, fa, mg, ss)
+    rows["rmsnorm_backward"] = phase_grad(torch, rn, fa, mg, ss)
 
     mods = types.SimpleNamespace(
         get_config=get_config, ops=ops, transformer=transformer, ServingEngine=ServingEngine,
@@ -1283,7 +1436,7 @@ def main() -> int:
         if launches[n] == 0:
             raise AssertionError(f"the main paths launched no {n} kernel")
 
-    # f32 at d_block 256 the scan launches chunk 64 only (kernels/geometry.py)
+    # 320 tokens: scan_chunk 64 divides them (JAX's divisibility)
     parity_plans = {"granite-3-2b": SchedulePlan(), "granite-moe-1b-a400m": SchedulePlan(),
                     "falcon-mamba-7b": SchedulePlan(scan_chunk=64)}
     for arch in ARCHS:

@@ -9,9 +9,10 @@ that the kernel and gradient phases of ``chip_smoke.py`` catch every one.
 ``src/repro_torch/kernels/`` (a CUDA source or a wrapper); the copy builds its
 own kernels and runs, in a fresh process, the ``chip_smoke`` phase that must
 catch it: the file's phase, or the case's own where it names one (the
-unedited control runs every phase named below).  The control
-must pass and every mutant must fail.  Prints one JSON line per case (with
-the failing check's numbers) and exits 1 if any case went the other way.
+unedited control runs every phase named below).  The control must pass
+and every mutant (twelve of them) must fail.  Prints one JSON line per
+case (with the failing check's numbers) and exits 1 if any case went the
+other way.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ KERNELS = Path("src/repro_torch/kernels")
 
 # chip_smoke phase -> its call, with the kernel modules imported by RUN
 PHASES = {
+    "phase_kernels_rmsnorm": "chip_smoke.phase_kernels_rmsnorm(torch, F, rn)",
     "phase_kernels_flash": "chip_smoke.phase_kernels_flash(torch, F, fa)",
     "phase_kernels_moe": "chip_smoke.phase_kernels_moe(torch, F, mg)",
     "phase_kernels_scan": "chip_smoke.phase_kernels_scan(torch, F, ss)",
@@ -34,6 +36,7 @@ PHASES = {
 }
 # the phase that must catch a fault in each file
 PHASE_OF = {
+    "csrc/rmsnorm.cu": "phase_kernels_rmsnorm",
     "csrc/flash_attention.cu": "phase_kernels_flash",
     "csrc/moe_gemm.cu": "phase_kernels_moe",
     "csrc/selective_scan.cu": "phase_kernels_scan",
@@ -76,13 +79,31 @@ CASES = {
         "constexpr int kTnspA = TA;",
         "constexpr int kTnspA = 0;",
     )], "phase_grad"),
-    # the scan's state is zeroed at every chunk boundary instead of once per
-    # (batch, d-block): right within a chunk, wrong from the second one on
-    "scan_zero_state_every_chunk": ("csrc/selective_scan.cu", [(
-        "    __syncthreads();  // the previous chunk is consumed\n",
-        "    for (int n = 0; n < kMaxN; ++n) x[n] = 0.f;\n"
-        "    __syncthreads();  // the previous chunk is consumed\n",
+    # the scan's carry pass leaves chunk 0's end state out of the carry: the
+    # second chunk starts from zero, the later ones from carries short of it
+    "scan_carry_skips_chunk0_h": ("csrc/selective_scan.cu", [(
+        "carry = fmaf(ex2(a2 * dtsum[(static_cast<long long>(b) * nC + c) * Di + d]), carry, states[at]);",
+        "carry = fmaf(ex2(a2 * dtsum[(static_cast<long long>(b) * nC + c) * Di + d]), carry,"
+        " c ? states[at] : 0.f);",
     )]),
+    # the carry pass decays the carry by the previous chunk's sum(dt) (one
+    # chunk late; the first chunk's by its own)
+    "scan_carry_decay_one_chunk_late": ("csrc/selective_scan.cu", [(
+        "carry = fmaf(ex2(a2 * dtsum[(static_cast<long long>(b) * nC + c) * Di + d]), carry, states[at]);",
+        "carry = fmaf(ex2(a2 * dtsum[(static_cast<long long>(b) * nC + (c ? c - 1 : 0)) * Di + d]),"
+        " carry, states[at]);",
+    )]),
+    # a row spread over a group of warps (d >= 4096 in bf16) normalises by
+    # its own warp's sum of squares, not the group's
+    "rmsnorm_group_sum_own_warp_only": ("csrc/rmsnorm.cu", [(
+        "    for (int g = 0; g < G; ++g) v += s[group * G + g];\n",
+        "    v = s[warp];\n",
+    )]),
+    # the backward's dw leaves out the last block's partial row
+    "rmsnorm_backward_dw_drops_last_block": ("csrc/rmsnorm.cu", [(
+        "    for (int b = sy; b < blocks; b += kDwSlices)",
+        "    for (int b = sy; b < blocks - 1; b += kDwSlices)",
+    )], "phase_grad"),
     # quantize rounds half away from zero (roundf) instead of half to even
     "quantize_round_half_away_from_zero": ("csrc/quantize.cu", [(
         "const float r = rintf(__fdiv_rn(x, scale));",
@@ -100,8 +121,9 @@ CASES = {
     # the rmsnorm wrapper launches without its autograd Function: the output
     # is cut from the graph and every gradient below it is lost
     "rmsnorm_output_detached": ("rmsnorm.py", [(
-        "        return RMSNormFn.apply(x, w, eps, lambda a, b: _launch(a, b, eps))\n",
-        "        return _launch(x, w, eps)\n",
+        "        return RMSNormFn.apply(x, w, lambda a, b: _launch(a, b, eps, vec),\n"
+        "                               lambda a, b, g: rmsnorm_backward(a, b, g, eps=eps))\n",
+        "        return _launch(x, w, eps, vec)\n",
     )]),
 }
 

@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
-"""Time text-replaced variants of the bf16 flash and moe_gemm kernels against
-the kernels as they are, in one call on one card.
+"""Time variants of the port's kernels against the kernels as they are, in
+one call on one card.
 
-    python3 scripts/torch_kernel_variants.py DIR     # on a machine with a CUDA card
+    python3 scripts/torch_kernel_variants.py DIR [--parent TREE] [--only a,b]
 
-``DIR`` must lie outside the checkout.  Each variant is a copy of ``src/`` and
-``chip_smoke.py`` in ``DIR/<variant>`` with one design choice of a kernel
-undone by text replacement; the copy builds its own kernel and, in a fresh
-process, times it at the main path's shapes with ``chip_smoke.timed`` (the
-kernel, the library call, the kernel again, CUDA events) after holding its
-output against the plain version.  ``control`` is the unedited source.  The
-variants, each the earlier form of one part of the design:
+on a machine with a CUDA card.  ``DIR`` must lie outside the checkout.  Each
+variant is a copy of ``src/`` and ``chip_smoke.py`` in ``DIR/<variant>``
+with one design choice of a kernel undone by text replacement; the copy
+builds its own kernels and, in a fresh process, times them at the main
+path's shapes with ``chip_smoke.timed`` (the kernel, the library call, the
+kernel again, CUDA events) and ``chip_smoke.graph_ms`` (CUDA-graph replay:
+device time alone) after holding each output against its plain version.
+``control`` is the unedited source; ``parent`` (with ``--parent TREE``,
+an unpacked earlier tree of the repository) is that tree's ``src/`` timed
+by this tree's script, so an earlier body of every kernel runs beside the
+current one; ``--only`` picks variants by name.  The variants, each the
+earlier form of one part of the design:
 
 * ``flash_exact_exp2``: the softmax's ``ex2.approx.ftz`` replaced by the
   exact ``exp2f``;
@@ -18,14 +23,28 @@ variants, each the earlier form of one part of the design:
   fragment (4 bytes a thread, 8 rows a warp instruction) instead of being
   staged through the freed ring and written in 16-byte pieces;
 * ``moe_encode_x10``: the launcher encodes its two TMA tensor maps ten
-  times a launch instead of once, to show what encoding costs the host.
+  times a launch instead of once, to show what encoding costs the host;
+* ``rmsnorm_one_warp_to_2048``: a row stays with one warp up to 8 vectors
+  a thread (d = 2048 in bf16) instead of 4;
+* ``scan_one_chain_68_registers``: the scan's ``<h, C>`` summed in one
+  chain of dependent FMAs, and no bound of 64 registers (68 then, three
+  blocks an SM);
+* ``scan_exact_exp2``: the scan's ``ex2.approx.ftz`` replaced by the exact
+  ``exp2f``.
 
 Prints one JSON line per variant and shape: ms, library ms, ``vs_library``,
-the plain-version error, and the host's microseconds a launch
-(``host_us``: 200 launches without a synchronisation, over their count).
+``device_ms`` where taken, the plain-version error, and the host's
+microseconds a launch (``host_us``: 200 launches without a
+synchronisation, over their count; the least of five such runs, since
+the host is shared).  Rows: flash and moe_gemm (prefill and
+decode), rmsnorm forward at the three prefill widths and decode, rmsnorm
+forward + backward at granite-moe's training shape, the backward alone
+where the tree has it, and the scan at falcon-mamba's prefill shape at
+each ``scan_chunk`` option (a chunk the tree refuses is reported so).
 """
 from __future__ import annotations
 
+import argparse
 import json
 import shutil
 import subprocess
@@ -68,6 +87,18 @@ VARIANTS = {
         "      sm90::encode_bf16_3d(&xmap, x, d, C, E, 64, 64);\n"
         "      sm90::encode_bf16_3d(&wmap, w, f, d, E, 64, 64);\n"
         "    }\n")]),
+    "rmsnorm_one_warp_to_2048": ("csrc/rmsnorm.cu", [
+        ("constexpr int kVecTarget = 4;", "constexpr int kVecTarget = 8;"),
+        ("      if (sh.NV == 4) return CALL(T, 4, true, false);                                     \\\n",
+         "      if (sh.NV == 4) return CALL(T, 4, true, false);                                     \\\n"
+         "      if (sh.NV == 8) return CALL(T, 8, true, false);                                     \\\n"),
+    ]),
+    "scan_one_chain_68_registers": ("csrc/selective_scan.cu", [
+        ("__launch_bounds__(kMaxThreads, 2)", "__launch_bounds__(kMaxThreads)"),
+        ("acc[n & 3] = fmaf(h[n], Cs[t * N + n], acc[n & 3]);", "acc[0] = fmaf(h[n], Cs[t * N + n], acc[0]);"),
+    ]),
+    "scan_exact_exp2": ("csrc/selective_scan.cu", [(
+        '  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));\n', "  y = exp2f(x);\n")]),
 }
 
 RUN = """
@@ -76,17 +107,21 @@ sys.path.insert(0, "src")
 import torch, torch.nn.functional as F
 import chip_smoke as cs
 from repro_torch.kernels import flash_attention as fa, moe_gemm as mg
+from repro_torch.kernels import rmsnorm as rn, selective_scan as ss
+torch.backends.cuda.matmul.allow_tf32 = False
 gen = torch.Generator(device="cuda").manual_seed(0)
 out = []
-def host_us(fn, n=200):
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
+def host_us(fn, n=200, reps=5):
+    best = float("inf")
+    for _ in range(reps):
         fn()
-    t1 = time.perf_counter()
-    torch.cuda.synchronize()
-    return (t1 - t0) / n * 1e6
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        best = min(best, time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    return best / n * 1e6
 for B, Hq, Hkv, S, D, bq, bkv in ((1, 32, 8, 4096, 64, 256, 256), (1, 16, 8, 4096, 64, 256, 256)):
     q, k, v = (torch.randn((B, h, S, D), generator=gen, device="cuda").bfloat16() for h in (Hq, Hkv, Hkv))
     got = fa.flash_attention(q, k, v, block_q=bq, block_kv=bkv)
@@ -108,14 +143,59 @@ for E, C, d, f in ((32, 1280, 1024, 512), (32, 1280, 512, 1024), (32, 8, 1024, 5
                 "rel_err": ((got.float() - exp.float()).norm() / exp.float().norm()).item(), **t,
                 "host_us": host_us(lambda: mg.moe_gemm(x, w, block_c=128, block_f=256, block_d=256)),
                 "library_host_us": host_us(lambda: torch.bmm(x, w))})
+def rel(got, exp):
+    return ((got.float() - exp.float()).norm() / exp.float().norm()).item()
+for R, d in ((4096, 2048), (4096, 1024), (4096, 4096), (4, 2048)):
+    x = torch.randn((R, d), generator=gen, device="cuda").bfloat16()
+    w = torch.randn((d,), generator=gen, device="cuda").bfloat16()
+    lib = lambda: F.rms_norm(x, (d,), w, 1e-6)
+    t = cs.timed(torch, lambda: rn.rmsnorm(x, w), lib, 4 * R * d)
+    out.append({"kernel": "rmsnorm", "shape": [R, d], "rel_err": rel(rn.rmsnorm(x, w), rn.rmsnorm_plain(x, w)),
+                **t, "device_ms": cs.graph_ms(torch, lambda: rn.rmsnorm(x, w)),
+                "library_device_ms": cs.graph_ms(torch, lib),
+                "host_us": host_us(lambda: rn.rmsnorm(x, w)), "library_host_us": host_us(lib)})
+x = torch.randn((4096, 1024), generator=gen, device="cuda").bfloat16().requires_grad_()
+w = (1 + 0.1 * torch.randn((1024,), generator=gen, device="cuda")).bfloat16().requires_grad_()
+gy = torch.randn((4096, 1024), generator=gen, device="cuda").bfloat16()
+fb = lambda: torch.autograd.grad(rn.rmsnorm(x, w), (x, w), gy)
+row = {"kernel": "rmsnorm fwd+bwd", "shape": [4096, 1024], "fwd_bwd_ms": cs.cuda_ms(torch, fb),
+       "plain_fwd_bwd_ms": cs.cuda_ms(torch, lambda: torch.autograd.grad(rn.rmsnorm_plain(x, w), (x, w), gy))}
+try:
+    row["fwd_bwd_device_ms"] = cs.graph_ms(torch, fb)
+except Exception as e:  # a measurement this tree's code may not allow under capture
+    row["fwd_bwd_device_ms"] = f"not measured: {type(e).__name__}: {str(e)[:200]}"
+if hasattr(rn, "rmsnorm_backward"):
+    xd, wd = x.detach(), w.detach()
+    row.update(bwd_ms=cs.cuda_ms(torch, lambda: rn.rmsnorm_backward(xd, wd, gy)),
+               bwd_device_ms=cs.graph_ms(torch, lambda: rn.rmsnorm_backward(xd, wd, gy)),
+               bwd_host_us=host_us(lambda: rn.rmsnorm_backward(xd, wd, gy)))
+out.append(row)
+B, L, Di, N = 1, 4096, 8192, 16
+u = torch.randn((B, L, Di), generator=gen, device="cuda").bfloat16()
+delta = torch.nn.functional.softplus(torch.randn((B, L, Di), generator=gen, device="cuda")).bfloat16()
+A = -torch.exp(0.5 * torch.randn((Di, N), generator=gen, device="cuda"))
+Bm = torch.randn((B, L, N), generator=gen, device="cuda").bfloat16()
+Cm = torch.randn((B, L, N), generator=gen, device="cuda").bfloat16()
+D = torch.linspace(0.1, 1.0, Di, device="cuda")
+exp = ss.selective_scan_plain(u, delta, A, Bm, Cm, D)
+for ch in (64, 128, 256):
+    run = lambda: ss.selective_scan(u, delta, A, Bm, Cm, D, chunk=ch, d_block=256)
+    try:
+        got = run()
+    except ValueError as e:
+        out.append({"kernel": "selective_scan", "shape": [B, L, Di, N], "chunk": ch, "refused": str(e)})
+        continue
+    out.append({"kernel": "selective_scan", "shape": [B, L, Di, N], "chunk": ch, "rel_err": rel(got, exp),
+                **cs.timed(torch, run, None, B * L * Di * (7 * N + 3), iters=10),
+                "host_us": host_us(run, n=20)})
 print(json.dumps(out))
 """
 
 
-def run_variant(base: Path, name: str, edit) -> list:
+def run_variant(base: Path, name: str, edit, src: Path = ROOT / "src") -> list:
     work = base / name
     shutil.rmtree(work, ignore_errors=True)
-    shutil.copytree(ROOT / "src", work / "src", ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copytree(src, work / "src", ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy2(ROOT / "chip_smoke.py", work / "chip_smoke.py")
     if edit is not None:
         rel, pairs = edit
@@ -134,15 +214,23 @@ def run_variant(base: Path, name: str, edit) -> list:
 
 
 def main() -> int:
-    if len(sys.argv) != 2:
-        print(__doc__, file=sys.stderr)
-        return 2
-    base = Path(sys.argv[1]).resolve()
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("dir")
+    ap.add_argument("--parent", help="an unpacked earlier tree of the repository")
+    ap.add_argument("--only", help="comma-separated variant names")
+    args = ap.parse_args()
+    base = Path(args.dir).resolve()
     if base == ROOT or ROOT in base.parents:
         print(f"{base} lies inside the checkout; give a directory outside it", file=sys.stderr)
         return 2
-    for name, edit in VARIANTS.items():
-        for row in run_variant(base, name, edit):
+    runs = [(name, edit, ROOT / "src") for name, edit in VARIANTS.items()]
+    if args.parent:
+        runs.insert(1, ("parent", None, Path(args.parent).resolve() / "src"))
+    if args.only:
+        keep = args.only.split(",")
+        runs = [r for r in runs if r[0] in keep]
+    for name, edit, src in runs:
+        for row in run_variant(base, name, edit, src):
             print(json.dumps({"variant": name, **row}), flush=True)
     return 0
 

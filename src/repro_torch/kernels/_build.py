@@ -7,7 +7,9 @@ carries a hash of its source, of every shared header ``csrc/*.cuh`` and of
 the flags, so an edited source or header is rebuilt and an unchanged one is
 loaded as it is.  ``build`` starts one ``nvcc`` per
 missing library, all at once.  A failed compile raises with ``nvcc``'s
-stderr; there is no other path to the kernel.
+stderr; there is no other path to the kernel.  ``launcher`` resolves a
+library's launch function once, with its ``argtypes`` and ``restype`` set,
+so that a wrapper's launch costs a dictionary lookup and the ctypes call.
 """
 from __future__ import annotations
 
@@ -17,7 +19,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Any, Dict, Sequence, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -28,6 +32,7 @@ NVCC_FLAGS = (
 NVCC_TIMEOUT_S = 600
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_launchers: Dict[str, Tuple[ctypes.CDLL, Any]] = {}
 
 
 def nvcc_path() -> str:
@@ -124,3 +129,23 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build([name])[name]))
         _loaded[name] = lib
     return lib
+
+
+def launcher(name: str, symbol: str, argtypes: Sequence[Any], restype: Any = ctypes.c_int):
+    """``(library, function)`` for ``symbol`` of ``csrc/<name>.cu``, built and
+    loaded at the first call, its ``argtypes`` and ``restype`` set then and
+    cached: later calls only look it up."""
+    hit = _launchers.get(symbol)
+    if hit is None:
+        lib = load(name)
+        fn = getattr(lib, symbol)
+        fn.argtypes, fn.restype = list(argtypes), restype
+        hit = _launchers[symbol] = (lib, fn)
+    return hit
+
+
+def stream(t: torch.Tensor) -> int:
+    """The handle of the current CUDA stream on ``t``'s device: what
+    ``torch.cuda.current_stream(t.device).cuda_stream`` gives, without
+    building a ``Stream`` object on every launch."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)

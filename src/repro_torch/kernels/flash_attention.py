@@ -29,7 +29,6 @@ holds one layer's f32 scores, about 1 GiB, at a time.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -42,15 +41,8 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 
 
-@functools.lru_cache(maxsize=None)
-def _launcher():
-    lib = _build.load("flash_attention")
-    fn = lib.flash_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    return lib, fn
+_ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 12 + (
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
 
 
 def flash_attention(
@@ -116,13 +108,14 @@ def _launch(q, k, v, causal: bool, launch) -> torch.Tensor:
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"flash_attention kernel takes contiguous, 16-byte aligned {name}")
-    lib, fn = _launcher()
+    lib, fn = _build.launcher("flash_attention", "flash_attention_launch", _ARGS)
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         B, Hq, Hkv, Sq, Skv, D, launch.block_q, launch.block_kv, launch.kv_pad,
         launch.threads, launch.smem_bytes, int(causal), float(D ** -0.5),
-        _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+        _DTYPE_CODES[q.dtype], _build.stream(q),
     )
-    _build.check(lib, "flash_attention", err)
+    if err:
+        _build.check(lib, "flash_attention", err)
     LAUNCHES.add(tile=(launch.block_q, launch.block_kv))
     return o

@@ -53,13 +53,19 @@ one block owns a ``block_c x block_f`` output tile and loops over ``d``
   16 rows of ``d`` at a time (a whole f32 step of the default tile would
   need 393,216 bytes).  It takes contiguous operands only.
 
-**selective_scan** (``csrc/selective_scan.cu``).  Grid ``(B, Di/d_block)``,
-one thread per channel (``d_block`` threads, at most 512) holding its ``N``
-(at most 16) f32 states in registers for all of ``L``; each ``chunk`` of
-time steps stages ``u`` and ``dt`` (``chunk x d_block``) and ``B``, ``C``
-(``chunk x N``) in the input dtype.  At ``d_block = 256``, ``N = 16``, of
-the JAX space's ``scan_chunk`` options (64, 128, 256) bf16 launches 64 and
-128 (256 needs 278,528 bytes) and f32 launches 64 only (128 needs 278,528).
+**selective_scan** (``csrc/selective_scan.cu``).  A chunk-parallel scan:
+``chunk`` is the split of ``L``.  The chunk pass (grid ``(B, Di/d_block,
+L/chunk - 1)``) and the output pass (grid ``(B, Di/d_block, L/chunk)``)
+run one thread per channel (``d_block`` threads, at most 512) holding its
+``N`` (at most 16) f32 states in registers for one chunk, with the
+chunk's ``B`` and ``C`` staged in shared memory as f32 (``2 * chunk * N *
+4`` bytes, whatever the input dtype); the carry pass between them runs one
+thread per ``(batch, state, channel)``.  Three launches a call, one when
+``chunk == L``.  The wrapper allocates the f32 scratch, ``B * (L/chunk) *
+Di * (N + 1)`` floats (the chunks' end states and their sums of ``dt``).
+At ``N = 16`` every ``scan_chunk`` option of the JAX space (64, 128, 256)
+launches in both dtypes (256 takes 32,768 bytes); a chunk above 1,816
+steps would not fit a block.
 """
 from __future__ import annotations
 
@@ -274,15 +280,22 @@ class ScanLaunch:
     d_block: int
     threads: int
     smem_bytes: int
-    grid: Tuple[int, int]  # (batch, channel blocks)
+    grid: Tuple[int, int, int]  # the output pass's (batch, channel blocks, chunks)
+    scratch_floats: int  # f32 scratch the wrapper allocates (0 for one chunk)
+
+    @property
+    def kernels(self) -> int:
+        """Kernel launches a call: chunk, carry and output passes, or the
+        output pass alone for one chunk."""
+        return 3 if self.grid[2] > 1 else 1
 
 
-def scan_smem_bytes(chunk: int, d_block: int, n_state: int, dtype: str) -> int:
-    """u and dt (chunk x d_block) and B, C (chunk x N), staged in the input dtype."""
-    esize = 2 if dtype == "bfloat16" else 4
-    return (2 * chunk * d_block + 2 * chunk * n_state) * esize
+def scan_smem_bytes(chunk: int, n_state: int) -> int:
+    """B and C of one chunk (chunk x N each), staged in f32."""
+    return 2 * chunk * n_state * 4
 
 
+@functools.lru_cache(maxsize=1024)  # called on every launch: pure in its arguments
 def scan_launch(
     B: int, L: int, Di: int, N: int, dtype: str, chunk: int, d_block: int
 ) -> ScanLaunch:
@@ -302,13 +315,15 @@ def scan_launch(
             f"{tile} needs {db} threads (one per channel); the kernel is compiled for "
             f"at most {SCAN_MAX_THREADS}"
         )
-    smem = scan_smem_bytes(ch, db, N, dtype)
+    smem = scan_smem_bytes(ch, N)
     if smem > SMEM_PER_BLOCK:
         raise ValueError(
             f"{tile} at N={N} in {dtype} needs {smem} bytes of shared memory; a Hopper "
             f"block has {SMEM_PER_BLOCK}"
         )
-    return ScanLaunch(ch, db, db, smem, (B, Di // db))
+    chunks = L // ch
+    scratch = B * chunks * Di * (N + 1) if chunks > 1 else 0
+    return ScanLaunch(ch, db, db, smem, (B, Di // db, chunks), scratch)
 
 
 def launchable_scan_chunks(d_block: int = 256, n_state: int = 16, dtype: str = "bfloat16") -> List[int]:

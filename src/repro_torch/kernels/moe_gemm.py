@@ -32,7 +32,6 @@ and ``dw = x^T . dy`` with ``x`` read transposed; nothing is copied.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -45,13 +44,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 
 
-@functools.lru_cache(maxsize=None)
-def _launcher():
-    lib = _build.load("moe_gemm")
-    fn = lib.moe_gemm_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib, fn
+_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 12 + (ctypes.c_void_p,)
 
 
 def moe_gemm(
@@ -128,13 +121,14 @@ def _launch(x, w, tile, x_t: bool, w_t: bool) -> torch.Tensor:
     for name, t in (("x", x), ("w", w), ("out", out)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"moe_gemm kernel takes contiguous, 16-byte aligned {name}")
-    lib, fn = _launcher()
+    lib, fn = _build.launcher("moe_gemm", "moe_gemm_launch", _ARGS)
     err = fn(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), E, C, d, f,
         launch.block_c, launch.block_f, launch.block_d, launch.threads, launch.smem_bytes,
         _DTYPE_CODES[x.dtype], int(x_t), int(w_t),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        _build.stream(x),
     )
-    _build.check(lib, "moe_gemm", err)
+    if err:
+        _build.check(lib, "moe_gemm", err)
     LAUNCHES.add(tile=(launch.block_c, launch.block_f, launch.block_d))
     return out

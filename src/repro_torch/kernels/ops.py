@@ -38,6 +38,7 @@ DEFAULT_TILES = KernelTiles()
 # every kernel of the port, by name, with its launch counter
 COUNTERS = {
     "rmsnorm": _rn.LAUNCHES,
+    "rmsnorm_backward": _rn.BWD_LAUNCHES,
     "flash_attention": _fa.LAUNCHES,
     "moe_gemm": _mg.LAUNCHES,
     "selective_scan": _ss.LAUNCHES,

@@ -30,13 +30,8 @@ DEQUANT_LAUNCHES = _build.LaunchCounter("dequantize_int8")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _launcher(name: str):
-    lib = _build.load("quantize")
-    fn = getattr(lib, f"{name}_launch")
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib, fn
+_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_void_p)
 
 
 def _aligned(*ts: torch.Tensor) -> bool:
@@ -63,10 +58,11 @@ def quantize_int8(x: torch.Tensor):
     if R == 0 or C == 0:
         return q, scale.fill_(1.0)
     vec = int(C % (16 // x.element_size()) == 0 and _aligned(x, q))
-    lib, fn = _launcher("quantize_int8")
+    lib, fn = _build.launcher("quantize", "quantize_int8_launch", _ARGS)
     err = fn(x.data_ptr(), q.data_ptr(), scale.data_ptr(), R, C, _DTYPE_CODES[x.dtype], vec,
-             torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, "quantize", err)
+             _build.stream(x))
+    if err:
+        _build.check(lib, "quantize", err)
     QUANT_LAUNCHES.add()
     return q, scale
 
@@ -88,9 +84,10 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor, dtype=torch.float32) -
     if R == 0 or C == 0:
         return out
     vec = int(C % 4 == 0 and _aligned(q, out))
-    lib, fn = _launcher("dequantize_int8")
+    lib, fn = _build.launcher("quantize", "dequantize_int8_launch", _ARGS)
     err = fn(q.data_ptr(), scale.data_ptr(), out.data_ptr(), R, C, _DTYPE_CODES[dtype], vec,
-             torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, "quantize", err)
+             _build.stream(q))
+    if err:
+        _build.check(lib, "quantize", err)
     DEQUANT_LAUNCHES.add()
     return out

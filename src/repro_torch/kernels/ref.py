@@ -46,6 +46,21 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
     return y.to(x.dtype)
 
 
+def rmsnorm_backward(x: torch.Tensor, w: torch.Tensor, gy: torch.Tensor, eps: float = 1e-6):
+    """``(dx, dw)`` of ``rmsnorm`` in closed form, in f32 and cast at the end
+    (dx to x.dtype, dw to w.dtype): with ``inv = rsqrt(mean(x^2) + eps)``
+    and ``g = gy * w``, ``dx = inv * g - x * inv^3 * mean(x * g)`` and ``dw``
+    the sum over rows of ``gy * x * inv`` -- what ``jax.vjp`` of the JAX
+    package's ``ref.rmsnorm`` gives."""
+    d = x.shape[-1]
+    xf, gf = x.float(), gy.float()
+    inv = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    g = gf * w.float()
+    dx = inv * g - xf * (inv * inv * inv) * torch.mean(xf * g, dim=-1, keepdim=True)
+    dw = (xf * inv * gf).reshape(-1, d).sum(dim=0)
+    return dx.to(x.dtype), dw.to(w.dtype)
+
+
 def selective_scan(
     u: torch.Tensor,  # (B, L, Di)
     dt: torch.Tensor,  # (B, L, Di)   (already softplus'd)
@@ -67,6 +82,51 @@ def selective_scan(
         dBu = (dtf[:, t] * uf[:, t])[..., None] * Bf[:, t, None, :]
         x = dA * x + dBu
         ys.append(torch.einsum("bdn,bn->bd", x, Cf[:, t]))
+    y = torch.stack(ys, dim=1) + uf * D.float()[None, None]
+    return y.to(u.dtype)
+
+
+def selective_scan_chunked(
+    u: torch.Tensor,  # (B, L, Di)
+    dt: torch.Tensor,  # (B, L, Di)
+    A: torch.Tensor,  # (Di, N)
+    Bm: torch.Tensor,  # (B, L, N)
+    Cm: torch.Tensor,  # (B, L, N)
+    D: torch.Tensor,  # (Di,)
+    chunk: int,
+) -> torch.Tensor:
+    """``selective_scan`` in the CUDA kernel's three passes over chunks of
+    ``chunk`` steps (``chunk`` divides ``L``): (1) each chunk but the last
+    scanned from a zero state, keeping its end state ``h_c`` and ``sum(dt)``
+    over the chunk; (2) the carry folded over the chunks in order,
+    ``carry_{c+1} = exp(A * sum(dt)_c) * carry_c + h_c``; (3) each chunk
+    scanned again from its carry-in, giving ``y``.  The same function as
+    ``selective_scan`` up to f32 rounding."""
+    Bsz, L, Di = u.shape
+    if L % chunk:
+        raise ValueError(f"chunk {chunk} does not divide L={L}")
+    nc = L // chunk
+    uf, dtf = u.float(), dt.float()
+    Af, Bf, Cf = A.float(), Bm.float(), Cm.float()
+
+    def scan(c, h, out):
+        for t in range(c * chunk, (c + 1) * chunk):
+            dBu = (dtf[:, t] * uf[:, t])[..., None] * Bf[:, t, None, :]
+            h = torch.exp(dtf[:, t, :, None] * Af[None]) * h + dBu
+            if out is not None:
+                out.append(torch.einsum("bdn,bn->bd", h, Cf[:, t]))
+        return h
+
+    zero = torch.zeros((Bsz, Di, A.shape[1]), dtype=torch.float32, device=u.device)
+    ends = [scan(c, zero, None) for c in range(nc - 1)]  # pass 1
+    dtsum = dtf.reshape(Bsz, nc, chunk, Di).sum(dim=2)  # (B, nc, Di)
+    carry, carries = zero, [zero]  # pass 2: carry-in of each chunk
+    for c in range(nc - 1):
+        carry = torch.exp(Af[None] * dtsum[:, c, :, None]) * carry + ends[c]
+        carries.append(carry)
+    ys = []
+    for c in range(nc):  # pass 3
+        scan(c, carries[c], ys)
     y = torch.stack(ys, dim=1) + uf * D.float()[None, None]
     return y.to(u.dtype)
 

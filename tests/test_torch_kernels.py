@@ -6,8 +6,10 @@ CPU tensor takes a wrapper's plain version and never counts as a launch.
 The CUDA kernels themselves are held against these plain versions on the
 card by ``chip_smoke.py``.
 """
+import ctypes
 import shutil
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -56,6 +58,27 @@ def test_rmsnorm_plain_matches_pallas(shape, block, dtype):
     assert got.dtype == xt.dtype and got.shape == xt.shape
     np.testing.assert_allclose(_np(got), np.asarray(exp, np.float32), **_tol(dtype))
     np.testing.assert_array_equal(_np(got), _np(ref.rmsnorm(xt, wt)))
+
+
+@pytest.mark.parametrize("d", [64, 96, 1024])  # 96: a ragged width for the bf16 vector
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_backward_plain_matches_jax_vjp(d, dtype):
+    # the closed form the backward kernel computes, against jax.vjp of the
+    # JAX oracle; f32 to 1e-5, bf16 at this file's bf16 tolerance
+    rng = np.random.default_rng(30)
+    x = rng.standard_normal((3, 5, d)).astype(np.float32)
+    w = (1 + 0.1 * rng.standard_normal(d)).astype(np.float32)
+    gy = rng.standard_normal((3, 5, d)).astype(np.float32)
+    (xj, xt), (wj, wt), (gj, gt) = (_pair(a, dtype) for a in (x, w, gy))
+    _, vjp = jax.vjp(lambda a, b: jref.rmsnorm(a, b), xj, wj)
+    edx, edw = vjp(gj)
+    rn.BWD_LAUNCHES.reset()
+    dx, dw = rn.rmsnorm_backward(xt, wt, gt)  # a CPU tensor: the plain version
+    assert rn.BWD_LAUNCHES.count == 0
+    assert (dx.dtype, dw.dtype) == (xt.dtype, wt.dtype) and dx.shape == xt.shape and dw.shape == (d,)
+    tol = dict(atol=1e-5, rtol=1e-5) if dtype == "float32" else _tol(dtype)
+    np.testing.assert_allclose(_np(dx), np.asarray(edx, np.float32), **tol)
+    np.testing.assert_allclose(_np(dw), np.asarray(edw, np.float32), **tol)
 
 
 # ---------------------------------------------------------------------------
@@ -174,6 +197,9 @@ def test_wrappers_refuse_other_devices():
     b = torch.empty((1, 8, 4), device="meta")
     with pytest.raises(ValueError):
         ss.selective_scan(u, u, a, b, b, torch.empty((16,), device="meta"))
+    x = torch.empty((4, 64), device="meta")
+    with pytest.raises(ValueError):
+        rn.rmsnorm_backward(x, torch.empty((64,), device="meta"), x)
 
 
 # ---------------------------------------------------------------------------
@@ -182,8 +208,8 @@ def test_kernel_tiles_are_the_jax_defaults():
     t = ops.DEFAULT_TILES
     assert (t.attn_block_q, t.attn_block_kv, t.scan_chunk, t.scan_d_block) == (256, 256, 128, 256)
     assert (t.moe_block_c, t.moe_block_f, t.moe_block_d) == (128, 256, 256)
-    assert set(ops.COUNTERS) == {"rmsnorm", "flash_attention", "moe_gemm", "selective_scan",
-                                 "quantize_int8", "dequantize_int8"}
+    assert set(ops.COUNTERS) == {"rmsnorm", "rmsnorm_backward", "flash_attention", "moe_gemm",
+                                 "selective_scan", "quantize_int8", "dequantize_int8"}
 
 
 @pytest.mark.parametrize(
@@ -267,6 +293,8 @@ def test_moe_tile_that_cannot_launch_raises_naming_it(E, C, d, f, dtype, tile, n
     [
         (1, 4096, 8192, 16, "bfloat16", (128, 256), (128, 256)),
         (1, 4096, 8192, 16, "bfloat16", (64, 256), (64, 256)),
+        (1, 4096, 8192, 16, "bfloat16", (256, 256), (256, 256)),  # launches now
+        (1, 4096, 8192, 16, "float32", (256, 256), (256, 256)),
         (1, 320, 8192, 16, "float32", (64, 256), (64, 256)),
         (2, 64, 32, 8, "float32", (16, 16), (16, 16)),
         (1, 128, 64, 16, "float32", (64, 32), (64, 32)),
@@ -278,15 +306,43 @@ def test_moe_tile_that_cannot_launch_raises_naming_it(E, C, d, f, dtype, tile, n
 def test_scan_tile_is_only_clamped(B, L, Di, N, dtype, tile, launched):
     launch = geometry.scan_launch(B, L, Di, N, dtype, *tile)
     assert (launch.chunk, launch.d_block) == launched
-    assert launch.threads == launched[1] and launch.grid == (B, Di // launched[1])
-    assert launch.smem_bytes == geometry.scan_smem_bytes(*launched, N, dtype) <= geometry.SMEM_PER_BLOCK
+    chunks = L // launched[0]
+    assert launch.threads == launched[1] and launch.grid == (B, Di // launched[1], chunks)
+    assert launch.smem_bytes == geometry.scan_smem_bytes(launched[0], N) <= geometry.SMEM_PER_BLOCK
+    # the chunk, carry and output passes, or the output pass alone
+    assert launch.kernels == (3 if chunks > 1 else 1)
+    assert launch.scratch_floats == (B * chunks * Di * (N + 1) if chunks > 1 else 0)
+
+
+@pytest.mark.parametrize(
+    "chunk,N,smem",
+    [
+        (128, 16, 16_384),   # falcon-mamba's default: B and C of 128 steps, f32
+        (64, 16, 8_192),
+        (256, 16, 32_768),
+        (32, 8, 2_048),
+    ],
+)
+def test_scan_smem_formula_matches_kernel_layout(chunk, N, smem):
+    # csrc/selective_scan.cu stages a chunk's B and C ([chunk][N] each) in
+    # f32, whatever the input dtype; u and dt are read from device memory
+    assert geometry.scan_smem_bytes(chunk, N) == 2 * chunk * N * 4 == smem
+    for dtype in ("float32", "bfloat16"):
+        assert geometry.scan_launch(1, 4 * chunk, 256, N, dtype, chunk, 256).smem_bytes == smem
+
+
+def test_scan_scratch_at_falcon_mamba_prefill():
+    # chunk 128: 32 chunks' end states (N = 16) and sums of dt, f32, ~17 MB
+    launch = geometry.scan_launch(1, 4096, 8192, 16, "bfloat16", 128, 256)
+    assert launch.scratch_floats * 4 == 32 * 8192 * 17 * 4 == 17_825_792
+    assert launch.grid == (1, 32, 32) and launch.kernels == 3
 
 
 @pytest.mark.parametrize(
     "L,Di,N,dtype,tile,needs",
     [
-        (4096, 8192, 16, "bfloat16", (256, 256), "278528 bytes"),
-        (4096, 8192, 16, "float32", (128, 256), "278528 bytes"),
+        (4096, 8192, 16, "bfloat16", (2048, 256), "262144 bytes"),
+        (4096, 8192, 16, "float32", (4096, 256), "524288 bytes"),
         (96, 64, 8, "float32", (64, 32), "does not divide"),
         (64, 48, 8, "float32", (16, 32), "does not divide"),
         (64, 1024, 8, "float32", (16, 1024), "1024 threads"),
@@ -299,8 +355,8 @@ def test_scan_tile_that_cannot_launch_raises_naming_it(L, Di, N, dtype, tile, ne
 
 
 def test_launchable_scan_chunks_at_falcon_mamba_widths():
-    assert geometry.launchable_scan_chunks(256, 16, "bfloat16") == [64, 128]
-    assert geometry.launchable_scan_chunks(256, 16, "float32") == [64]
+    assert geometry.launchable_scan_chunks(256, 16, "bfloat16") == [64, 128, 256]
+    assert geometry.launchable_scan_chunks(256, 16, "float32") == [64, 128, 256]
     assert geometry.SCAN_CHUNK_OPTIONS == (64, 128, 256)
 
 
@@ -339,6 +395,23 @@ def test_build_compiles_once_per_source_hash(tmp_path, monkeypatch):
     rebuilt = _build.build(["rmsnorm", "flash_attention"])
     assert all(rebuilt[n] != paths[n] and rebuilt[n].exists() for n in paths)
     assert log.read_text().count("x") == 4
+
+
+def test_launcher_sets_argtypes_once_and_caches(monkeypatch):
+    # a stand-in library (libc) for a built one: the first call loads it and
+    # sets the function's argtypes and restype, later calls only look it up
+    loads = []
+
+    def fake_load(name):
+        loads.append(name)
+        return ctypes.CDLL(None)
+
+    monkeypatch.setattr(_build, "load", fake_load)
+    monkeypatch.setattr(_build, "_launchers", {})
+    lib, fn = _build.launcher("quantize", "abs", (ctypes.c_int,))
+    assert fn.argtypes == [ctypes.c_int] and fn.restype is ctypes.c_int and fn(-3) == 3
+    assert _build.launcher("quantize", "abs", (ctypes.c_int,)) == (lib, fn)
+    assert loads == ["quantize"]
 
 
 def test_build_failure_raises_with_nvcc_stderr(tmp_path, monkeypatch):

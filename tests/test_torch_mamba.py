@@ -35,10 +35,11 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
-def _scan_inputs(B, L, Di, N, seed=20):
+def _scan_inputs(B, L, Di, N, seed=20, dt_shift=0.0):
     rng = np.random.default_rng(seed)
     u = rng.standard_normal((B, L, Di)).astype(np.float32)
-    dt = np.logaddexp(rng.standard_normal((B, L, Di)), 0).astype(np.float32)  # softplus
+    # softplus; dt_shift -4 gives dt ~ 0.02, a state that lives across chunks
+    dt = np.logaddexp(rng.standard_normal((B, L, Di)) + dt_shift, 0).astype(np.float32)
     A = -np.exp(rng.standard_normal((Di, N)) * 0.5).astype(np.float32)
     Bm = rng.standard_normal((B, L, N)).astype(np.float32)
     Cm = rng.standard_normal((B, L, N)).astype(np.float32)
@@ -66,6 +67,34 @@ def test_selective_scan_plain_matches_pallas(B, L, Di, N, chunk, dblk):
     assert ss.LAUNCHES.count == 0 and ss.LAUNCHES.tiles == set()
     assert got.shape == (B, L, Di) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(exp), **SCAN_TOL)
+
+
+@pytest.mark.parametrize(
+    "B,L,Di,N,chunk,dt_shift",
+    [
+        (2, 64, 32, 8, 64, 0.0),    # 1 chunk: chunk == L, the output pass alone
+        (1, 64, 16, 16, 32, 0.0),   # 2 chunks
+        (2, 80, 16, 4, 16, 0.0),    # 5 chunks
+        (1, 128, 16, 8, 4, 0.0),    # 32 chunks
+        (1, 160, 16, 16, 32, -4.0),  # 5 chunks, slow decay: states cross chunks
+    ],
+)
+def test_selective_scan_chunked_matches_plain_and_pallas(B, L, Di, N, chunk, dt_shift):
+    # the CUDA kernel's three passes (chunk states from zero, carries folded
+    # in order, each chunk rerun from its carry-in) give the scan
+    args = _scan_inputs(B, L, Di, N, seed=24, dt_shift=dt_shift)
+    ts = [_t(a) for a in args]
+    got = ref.selective_scan_chunked(*ts, chunk)
+    assert got.shape == (B, L, Di) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref.selective_scan(*ts).numpy(), **SCAN_TOL)
+    exp = jax_selective_scan(*(jnp.asarray(a) for a in args), chunk=chunk, d_block=Di,
+                             interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(exp), **SCAN_TOL)
+
+
+def test_selective_scan_chunked_refuses_a_chunk_that_does_not_divide_L():
+    with pytest.raises(ValueError, match="does not divide"):
+        ref.selective_scan_chunked(*(_t(a) for a in _scan_inputs(1, 24, 8, 4)), 16)
 
 
 def test_selective_scan_plain_bf16_keeps_f32_state_and_returns_u_dtype():

@@ -226,12 +226,39 @@ def _vjp_check(fn_port, fn_jax, inputs, seed):
         np.testing.assert_allclose(g.numpy(), np.asarray(e), rtol=1e-5, atol=1e-5)
 
 
+def _rmsnorm_fn(a, b):
+    # the Function with the plain forward and the plain closed-form backward
+    # standing in for the two kernels
+    return rn.RMSNormFn.apply(a, b, lambda u, v: ref.rmsnorm(u, v),
+                              lambda u, v, g: ref.rmsnorm_backward(u, v, g, eps=1e-6))
+
+
 def test_rmsnorm_function_backward_matches_jax_vjp():
     rng = np.random.default_rng(4)
     x = rng.standard_normal((3, 5, 64)).astype(np.float32)
     w = (1 + 0.1 * rng.standard_normal(64)).astype(np.float32)
-    _vjp_check(lambda a, b: rn.RMSNormFn.apply(a, b, 1e-6, lambda u, v: ref.rmsnorm(u, v)),
-               lambda a, b: jref.rmsnorm(a, b), [x, w], 5)
+    _vjp_check(_rmsnorm_fn, lambda a, b: jref.rmsnorm(a, b), [x, w], 5)
+
+
+@pytest.mark.parametrize("d", [96, 1024])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_function_with_plain_launchers_matches_jax_vjp(d, dtype):
+    # f32 to 1e-5; bf16 (inputs, output and both gradients) at 5e-2, the
+    # kernel tests' bf16 tolerance
+    rng = np.random.default_rng(40)
+    x = rng.standard_normal((4, d)).astype(np.float32)
+    w = (1 + 0.1 * rng.standard_normal(d)).astype(np.float32)
+    gy = rng.standard_normal((4, d)).astype(np.float32)
+    tdt, jdt = (torch.float32, jnp.float32) if dtype == "float32" else (torch.bfloat16, jnp.bfloat16)
+    xt, wt = (_t(a).to(tdt).requires_grad_() for a in (x, w))
+    out = _rmsnorm_fn(xt, wt)
+    got = torch.autograd.grad(out, (xt, wt), _t(gy).to(tdt))
+    exp_out, vjp = jax.vjp(lambda a, b: jref.rmsnorm(a, b), jnp.asarray(x, jdt), jnp.asarray(w, jdt))
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == "float32" else dict(rtol=5e-2, atol=5e-2)
+    np.testing.assert_allclose(out.detach().float().numpy(), np.asarray(exp_out, np.float32), **tol)
+    for g, e in zip(got, vjp(jnp.asarray(gy, jdt))):
+        assert g.dtype == tdt
+        np.testing.assert_allclose(g.float().numpy(), np.asarray(e, np.float32), **tol)
 
 
 @pytest.mark.parametrize("causal", [True, False])
