@@ -42,11 +42,24 @@ limit as ``nvidia-smi`` reports them):
    remat full, int8 moments and int8 grad_comm (all five of its kernels)
    and plan (b) remat dots, f32 moments: per-step loss, grad norm, lr, ms,
    tokens/s, peak memory, exact launches per step, and a profile.
-7. ``parity``: 2-layer f32 models at full width of each serving arch, card
+7. ``search``: step 1 of the quickstart (``launch/quickstart.py``) on the
+   host: granite-moe-1b-a400m x train_4k tuned with ``mcts_1s`` for the
+   H100 spec and the one card (``hw="h100"``, mesh ``card``); wall seconds,
+   ``n_evals``, cache hits, the cost model's estimated terms (not a
+   measurement), the spec beside the card's reported memory; the plan's
+   attention tile must launch, and is held against the plain version at the
+   arch's prefill widths.
+8. ``quickstart``: steps 2 and 3 with the tuned plan (``microbatches``
+   capped at the cut batch of 2): 3 train steps at full width, B=2 x
+   S=4096 (exact launches a step for the plan, the plan's tile launched;
+   step ms, tokens/s, peak memory), then 4 requests served with the trained
+   weights (exact launches a decode call, every request complete, decode
+   ms a step).
+9. ``parity``: 2-layer f32 models at full width of each serving arch, card
    (kernels) against the port's CPU path (plain versions); for the MoE arch
    the routing must agree too.  ``train_parity``: the same for granite-moe's
    loss, every gradient and one int8-moment optimizer step.
-8. ``kernels``: one summary entry per kernel (the six ported ones and the
+10. ``kernels``: one summary entry per kernel (the six ported ones and the
    rmsnorm backward).
 
 Every launch counter is set to 0 just before a path is driven and read just
@@ -299,6 +312,43 @@ def _visible_pairs(Sq: int, Skv: int, causal: bool) -> int:
     return sum(min(Skv, max(0, q_off + i + 1)) for i in range(Sq))
 
 
+def _flash_case(torch, F, fa, gen, case) -> dict:
+    """One flash case against the plain version (timed where it is a prefill shape)."""
+    B, Hq, Hkv, Sq, Skv, D, bq, bkv, causal, dtype, role = case
+    dt = getattr(torch, dtype)
+    q = torch.randn((B, Hq, Sq, D), generator=gen, device="cuda").to(dt)
+    k = torch.randn((B, Hkv, Skv, D), generator=gen, device="cuda").to(dt)
+    v = torch.randn((B, Hkv, Skv, D), generator=gen, device="cuda").to(dt)
+    tol = TOL_BF16 if dtype == "bfloat16" else dict(atol=2e-5, rtol=2e-5)
+    fa.LAUNCHES.reset()
+    got = fa.flash_attention(q, k, v, causal=causal, block_q=bq, block_kv=bkv)
+    torch.cuda.synchronize()
+    tile = sorted(fa.LAUNCHES.tiles)
+    want = (min(bq, Sq), min(bkv, Skv))
+    if tile != [want]:
+        raise AssertionError(f"flash tile {tile} launched for requested {(bq, bkv)}")
+    exp = fa.attention_plain(q, k, v, causal=causal)
+    stats = check_close(got, exp, f"flash {role} {dtype}", **tol)
+    row = {
+        "shape": [B, Hq, Hkv, Sq, Skv, D], "dtype": dtype, "causal": causal, "role": role,
+        "tile_requested": [bq, bkv], "tile_launched": list(want),
+        "ragged": Sq % want[0] != 0 or Skv % want[1] != 0, **stats,
+    }
+    if role.startswith("prefill"):
+        esz = q.element_size()
+        nbytes = 2 * q.numel() * esz + 2 * k.numel() * esz
+        ops = 4 * D * _visible_pairs(Sq, Skv, causal) * B * Hq
+        b_ms, b_by = bound(nbytes, ops, dtype)
+        row.update(
+            **timed(torch, lambda: fa.flash_attention(q, k, v, causal=causal, block_q=bq, block_kv=bkv),
+                    lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True),
+                    ops),
+            plain_ms=cuda_ms(torch, lambda: fa.attention_plain(q, k, v, causal=causal), iters=5),
+            bound_ms=b_ms, bound_by=b_by, ops=ops, bytes=nbytes,
+        )
+    return row
+
+
 def phase_kernels_flash(torch, F, fa):
     # (B, Hq, Hkv, Sq, Skv, D, block_q, block_kv, causal, dtype, role)
     cases = [
@@ -322,40 +372,7 @@ def phase_kernels_flash(torch, F, fa):
         (1, 4, 2, 200, 200, 32, 128, 128, True, "bfloat16", "head_dim 32"),
     ]
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    rows = []
-    for B, Hq, Hkv, Sq, Skv, D, bq, bkv, causal, dtype, role in cases:
-        dt = getattr(torch, dtype)
-        q = torch.randn((B, Hq, Sq, D), generator=gen, device="cuda").to(dt)
-        k = torch.randn((B, Hkv, Skv, D), generator=gen, device="cuda").to(dt)
-        v = torch.randn((B, Hkv, Skv, D), generator=gen, device="cuda").to(dt)
-        tol = TOL_BF16 if dtype == "bfloat16" else dict(atol=2e-5, rtol=2e-5)
-        fa.LAUNCHES.reset()
-        got = fa.flash_attention(q, k, v, causal=causal, block_q=bq, block_kv=bkv)
-        torch.cuda.synchronize()
-        tile = sorted(fa.LAUNCHES.tiles)
-        want = (min(bq, Sq), min(bkv, Skv))
-        if tile != [want]:
-            raise AssertionError(f"flash tile {tile} launched for requested {(bq, bkv)}")
-        exp = fa.attention_plain(q, k, v, causal=causal)
-        stats = check_close(got, exp, f"flash {role} {dtype}", **tol)
-        row = {
-            "shape": [B, Hq, Hkv, Sq, Skv, D], "dtype": dtype, "causal": causal, "role": role,
-            "tile_requested": [bq, bkv], "tile_launched": list(want),
-            "ragged": Sq % want[0] != 0 or Skv % want[1] != 0, **stats,
-        }
-        if role.startswith("prefill"):
-            esz = q.element_size()
-            nbytes = 2 * q.numel() * esz + 2 * k.numel() * esz
-            ops = 4 * D * _visible_pairs(Sq, Skv, causal) * B * Hq
-            b_ms, b_by = bound(nbytes, ops, dtype)
-            row.update(
-                **timed(torch, lambda: fa.flash_attention(q, k, v, causal=causal, block_q=bq, block_kv=bkv),
-                        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True),
-                        ops),
-                plain_ms=cuda_ms(torch, lambda: fa.attention_plain(q, k, v, causal=causal), iters=5),
-                bound_ms=b_ms, bound_by=b_by, ops=ops, bytes=nbytes,
-            )
-        rows.append(row)
+    rows = [_flash_case(torch, F, fa, gen, case) for case in cases]
     emit("kernels.flash_attention", cases=rows)
     return rows
 
@@ -1175,6 +1192,127 @@ def phase_train(torch, name, plan, mods) -> dict:
     return {k: first[k] + rest[k] for k in first}
 
 
+def phase_search(torch, F, fa, mods):
+    """Step 1 of the quickstart on the host: tune granite-moe-1b-a400m x
+    train_4k with mcts_1s for the H100 spec and the one card; the plan's
+    attention tile must launch, and is held against the plain version at the
+    arch's prefill widths."""
+    qs = mods.quickstart
+    t0 = time.perf_counter()
+    res, terms = qs.tune()
+    wall = time.perf_counter() - t0
+    cfg = mods.get_config(qs.ARCH)
+    tiles = mods.tiles_from_plan(res.plan)
+    launch = mods.geometry.flash_launch(1, cfg.n_heads, SEQ, SEQ, cfg.resolved_head_dim, cfg.dtype,
+                                        tiles.attn_block_q, tiles.attn_block_kv)  # raises if not
+    options = mods.attn_block_options(cfg, mods.H100)
+    if res.plan.attn_block not in options:
+        raise AssertionError(f"tuned attn_block {res.plan.attn_block} is not among {options}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    bq, bkv = res.plan.attn_block
+    row = _flash_case(torch, F, fa, gen, (1, cfg.n_heads, cfg.n_kv_heads, SEQ, SEQ,
+                                          cfg.resolved_head_dim, bq, bkv, True, cfg.dtype,
+                                          f"prefill granite-moe, tuned plan ({bq},{bkv})"))
+    hw = mods.H100
+    emit("search", arch=qs.ARCH, shape=qs.SHAPE, algo=qs.ALGO, hw=hw.name, mesh="card",
+         wall_s_on_host=wall, tuner_wall_time_s=res.wall_time_s, n_evals=res.n_evals,
+         cache_hits=res.cache_hits, cache_misses=res.cache_misses, cost_s=res.cost,
+         plan=res.plan.to_dict(),
+         estimated_terms_not_measured={k: getattr(terms, k) for k in (
+             "step_s", "compute_s", "memory_s", "collective_s", "hbm_per_chip", "feasible")},
+         hw_spec=dataclasses.asdict(hw),
+         card_total_memory_bytes=torch.cuda.get_device_properties(0).total_memory,
+         flash_launch={"block_q": launch.block_q, "block_kv": launch.block_kv,
+                       "threads": launch.threads, "smem_bytes": launch.smem_bytes},
+         tuned_tile_kernel=row)
+    return res, row
+
+
+def phase_quickstart(torch, np, mods, res) -> dict:
+    """Steps 2 and 3 of ``launch/quickstart.py`` on the card: train 3 steps at
+    full width under the tuned plan (projected to the cut batch), then serve
+    4 requests with the trained weights.  Counters are set to 0 just before
+    each: the launches a train step must be ``_expected_train_counts`` of the
+    plan and the launched attention tile the plan's; the launches a decode
+    call ``_expected_decode_counts``; every request must complete."""
+    qs, optim, ops = mods.quickstart, mods.optim, mods.ops
+    plan = qs.project(res.plan)
+    tr = qs.make_trainer(plan, device="cuda")
+    cfg = tr.cfg
+    params, opt_state, _ = tr.init_state()
+    expected = _expected_train_counts(cfg, plan, params, tr.opt_cfg.moment_dtype, optim)
+    tr.tc.total_steps = 1
+    ops.reset_counters()
+    params, opt_state, step = tr.run(params, opt_state, 0)
+    first = ops.launch_counts()
+    launched = _launched_tiles(ops)
+    if first != expected:
+        raise AssertionError(f"quickstart train step 1 launches {first}, expected {expected}")
+    want_tile = {(min(plan.attn_block[0], SEQ), min(plan.attn_block[1], SEQ))}
+    if launched.get("flash_attention") != want_tile:
+        raise AssertionError(f"quickstart: plan tile {want_tile} but launched {launched}")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()  # peak of steps 2..: weights, state, one step's work
+    tr.tc.total_steps = qs.STEPS
+    ops.reset_counters()
+    params, opt_state, step = tr.run(params, opt_state, step)
+    rest = ops.launch_counts()
+    want = {k: v * (qs.STEPS - 1) for k, v in expected.items()}
+    if rest != want:
+        raise AssertionError(f"quickstart train steps 2-{qs.STEPS} launches {rest}, expected {want}")
+    peak = torch.cuda.max_memory_allocated()
+    log = tr.metrics_log
+    if len(log) != qs.STEPS or not all(
+            torch.isfinite(torch.tensor([r["loss"], r["grad_norm"]])).all() for r in log):
+        raise AssertionError(f"quickstart: non-finite loss or grad_norm: {log}")
+    med = statistics.median(r["step_time_s"] for r in log[1:])
+    tokens = qs.BATCH * qs.SEQ
+
+    eng = qs.make_engine(cfg, params, plan, device="cuda")
+    counted = eng._decode = _CountedDecode(eng._decode)
+    ops.reset_counters()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    if len(done) != qs.REQUESTS or any(len(r.generated) != qs.MAX_NEW for r in done):
+        raise AssertionError(f"quickstart served {len(done)}/{qs.REQUESTS} requests")
+    calls = counted.calls
+    want_dec = {k: v * calls for k, v in _expected_decode_counts(cfg).items()}
+    if counts != want_dec:
+        raise AssertionError(f"quickstart serving launches {counts} in {calls} decode calls, "
+                             f"expected {want_dec}")
+    mask = np.ones((eng.slots,), bool)
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        eng._decode(mask)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    # after serving: the profiled step updates the weights once more
+    batch = tr.batch_at(step)
+    prof = _profile_one(torch, lambda: tr.step_fn(params, opt_state, batch))
+    emit("quickstart", arch=cfg.name, plan=res.plan.to_dict(),
+         projected={"microbatches": [res.plan.microbatches, plan.microbatches]},
+         train={"batch": qs.BATCH, "seq": qs.SEQ, "steps": [
+                    {"step": r["step"], "loss": r["loss"], "grad_norm": r["grad_norm"],
+                     "lr": r["lr"], "step_ms": r["step_time_s"] * 1e3} for r in log],
+                "median_step_ms": med * 1e3, "tokens_per_s": tokens / med,
+                "peak_memory_gib": peak / 2**30, "launches_per_step": expected, "profile": prof,
+                "launched_tiles": {k: sorted(map(list, v)) for k, v in launched.items()}},
+         serve={"slots": eng.slots, "completed": len(done), "submitted": qs.REQUESTS,
+                "run_s": wall, "decode_calls": calls,
+                "launches_per_decode_call": {k: v // calls for k, v in counts.items()},
+                "median_decode_step_ms": statistics.median(times) * 1e3,
+                "decode_step_ms": [t * 1e3 for t in times]})
+    del tr, params, opt_state, batch, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: first[k] + rest[k] + counts[k] for k in first}
+
+
 def phase_train_parity(torch, np, mods):
     """A 2-layer f32 granite-moe at full width, B=1, S=512: loss and every
     gradient leaf on the card (kernels and their Functions) against the
@@ -1357,13 +1495,15 @@ def main() -> int:
     import torch.nn.functional as F
 
     from repro_torch.configs import InputShape, get_config
-    from repro_torch.core.space import SchedulePlan
-    from repro_torch.kernels import _build, ops
+    from repro_torch.core.hardware import H100
+    from repro_torch.core.space import SchedulePlan, attn_block_options
+    from repro_torch.kernels import _build, geometry, ops
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gemm as mg
     from repro_torch.kernels import quantize as qt
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import selective_scan as ss
+    from repro_torch.launch import quickstart
     from repro_torch.models import moe, transformer
     from repro_torch.models.losses import cross_entropy
     from repro_torch.serving.engine import ServingEngine
@@ -1407,7 +1547,8 @@ def main() -> int:
         make_prefill_step=make_prefill_step, make_positions=make_positions,
         tiles_from_plan=tiles_from_plan, moe=moe, optim=optim, cross_entropy=cross_entropy,
         InputShape=InputShape, Trainer=Trainer, TrainerConfig=TrainerConfig,
-        SchedulePlan=SchedulePlan,
+        SchedulePlan=SchedulePlan, quickstart=quickstart, geometry=geometry, H100=H100,
+        attn_block_options=attn_block_options,
     )
     plans = {
         "granite-3-2b": [SchedulePlan(), SchedulePlan(attn_block=(128, 128))],
@@ -1432,6 +1573,12 @@ def main() -> int:
             raise AssertionError(f"train plan a launched {counts}")
         for n in KERNELS:
             launches[n] += counts[n]
+    # the quickstart: tune on the host, then train and serve with the tuned plan
+    res, tuned_row = phase_search(torch, F, fa, mods)
+    rows["flash_attention"].append(tuned_row)
+    counts = phase_quickstart(torch, np, mods, res)
+    for n in KERNELS:
+        launches[n] += counts[n]
     for n in KERNELS:
         if launches[n] == 0:
             raise AssertionError(f"the main paths launched no {n} kernel")

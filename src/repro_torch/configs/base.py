@@ -9,7 +9,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import List
+from typing import List, Tuple
 
 # ---------------------------------------------------------------------------
 # Layer plan: the repeating period of heterogeneous layers (Jamba interleave,
@@ -103,6 +103,11 @@ class ModelConfig:
         return self.family in ("ssm", "hybrid")
 
     @property
+    def sub_quadratic(self) -> bool:
+        """True when long-context decode shapes (500k) are admissible."""
+        return self.family in ("ssm", "hybrid")
+
+    @property
     def is_attention_free(self) -> bool:
         return self.n_heads == 0
 
@@ -137,6 +142,57 @@ class ModelConfig:
     @property
     def n_periods(self) -> int:
         return self.n_layers // len(self.layer_plan())
+
+    # -- parameter accounting (used by the cost model and 6ND MFU) ----------
+    def _mixer_params(self, spec: LayerSpec) -> int:
+        d = self.d_model
+        if spec.mixer == "attn":
+            hd = self.resolved_head_dim
+            q = d * self.n_heads * hd
+            kv = 2 * d * self.n_kv_heads * hd
+            o = self.n_heads * hd * d
+            return q + kv + o
+        # mamba-1
+        di, ds, dtr = self.d_inner, self.ssm_state, self.resolved_dt_rank
+        in_proj = d * 2 * di
+        conv = self.conv_width * di + di
+        x_proj = di * (dtr + 2 * ds)
+        dt_proj = dtr * di + di
+        a_d = di * ds + di
+        out_proj = di * d
+        return in_proj + conv + x_proj + dt_proj + a_d + out_proj
+
+    def _mlp_params(self, spec: LayerSpec) -> Tuple[int, int]:
+        """(total, active) parameters of the MLP slot."""
+        d = self.d_model
+        if spec.mlp == "none":
+            return 0, 0
+        mats = 3 if self.act == "swiglu" else 2
+        one = mats * d * self.d_ff
+        if spec.mlp == "moe":
+            router = d * self.n_experts
+            return one * self.n_experts + router, one * self.experts_per_token + router
+        return one, one
+
+    def param_count(self) -> int:
+        plan = self.layer_plan()
+        per_period = sum(
+            self._mixer_params(s) + self._mlp_params(s)[0] + 2 * self.d_model
+            for s in plan
+        )
+        emb = self.vocab_size * self.d_model
+        head = 0 if self.tie_embeddings else self.vocab_size * self.d_model
+        return per_period * self.n_periods + emb + head + self.d_model
+
+    def active_param_count(self) -> int:
+        plan = self.layer_plan()
+        per_period = sum(
+            self._mixer_params(s) + self._mlp_params(s)[1] + 2 * self.d_model
+            for s in plan
+        )
+        emb = self.vocab_size * self.d_model
+        head = 0 if self.tie_embeddings else self.vocab_size * self.d_model
+        return per_period * self.n_periods + emb + head + self.d_model
 
     # -- smoke-test variant ---------------------------------------------------
     def reduced(self) -> "ModelConfig":

@@ -1,6 +1,8 @@
 """Training CLI.
 
     python -m repro_torch.launch.train --arch granite-moe-1b-a400m --smoke --device cpu
+    python -m repro_torch.launch.train --arch granite-moe-1b-a400m --smoke --device cpu \
+        --autotune mcts_1s                              # tune first, train with the plan
     python -m repro_torch.launch.train --arch granite-moe-1b-a400m --batch 2 --seq 4096 \\
         --plan-json '{"microbatches": 2, "remat": "full"}'     # full width, on the card
 
@@ -9,7 +11,13 @@
 ``--shape`` names with ``--batch`` / ``--seq`` in place of its batch and
 sequence length where given.  Runs on the CUDA device unless ``--device
 cpu`` is given; weights are random, drawn on the device from the trainer's
-seed.  ``--autotune`` raises until the search is ported (ROADMAP item A4).
+seed.
+
+The plan starts from the schedule space's default for the cell; ``--autotune
+ALGO`` replaces it with the plan the port's search finds for ``--arch`` x
+``--shape`` priced for what trains it, one H100 (``hw="h100"``, mesh
+``card``); ``--plan-json`` overrides fields last.  ``--smoke`` keeps the plan's ``remat`` and ``opt_dtype`` and at most 2
+microbatches, as the JAX package's CLI does.
 """
 from __future__ import annotations
 
@@ -28,19 +36,26 @@ def main(argv=None) -> int:
     ap.add_argument("--seq", type=int, default=None)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--plan-json", default=None)
-    ap.add_argument("--autotune", default=None)
+    ap.add_argument("--autotune", default=None,
+                    help="run this search algo first (e.g. mcts_1s) and train "
+                         "with the found schedule")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.autotune:
-        raise NotImplementedError("the schedule search is not ported yet: ROADMAP item A4")
 
     from repro_torch.configs import get_config, get_shape
     from repro_torch.configs.base import InputShape
-    from repro_torch.core.space import SchedulePlan
+    from repro_torch.core.space import SchedulePlan, ScheduleSpace, get_mesh
     from repro_torch.training.trainer import Trainer, TrainerConfig
 
     cfg = get_config(args.arch)
-    plan = SchedulePlan()
+    space = ScheduleSpace(cfg, get_shape(args.shape), get_mesh("h100", "card"))
+    plan = space.plan_from_actions(space.default_actions())
+    if args.autotune:
+        from repro_torch.core.autotuner import autotune
+
+        res = autotune(args.arch, args.shape, algo=args.autotune, hw="h100", mesh="card")
+        plan = res.plan
+        print(f"[train] autotuned plan ({args.autotune}, h100 card): {plan}")
     if args.plan_json:
         plan = SchedulePlan.from_dict({**plan.to_dict(), **json.loads(args.plan_json)})
     if args.smoke:

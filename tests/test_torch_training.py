@@ -386,5 +386,8 @@ def test_train_cli_smoke_runs_on_the_cpu(tmp_path, capsys):
                        "--plan-json", '{"microbatches": 2, "opt_dtype": "int8"}']) == 0
     out = capsys.readouterr().out
     assert "done at step 3" in out
-    with pytest.raises(NotImplementedError, match="A4"):
-        train.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--autotune", "mcts_1s"])
+    assert train.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--steps", "2",
+                       "--ckpt-dir", str(tmp_path / "tuned"), "--autotune", "mcts_1s"]) == 0
+    out = capsys.readouterr().out
+    assert "[train] autotuned plan (mcts_1s, h100 card): SchedulePlan(" in out
+    assert "done at step 2" in out
