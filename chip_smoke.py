@@ -55,12 +55,32 @@ limit as ``nvidia-smi`` reports them):
    step ms, tokens/s, peak memory), then 4 requests served with the trained
    weights (exact launches a decode call, every request complete, decode
    ms a step).
-9. ``parity``: 2-layer f32 models at full width of each serving arch, card
+9. ``decode_int8``: granite-moe-1b-a400m at full width decoding 16 rows
+   over a 32,768-long cache at ``cur`` = 32,767 (the measurement's decode
+   cut) through ``make_serve_step``, with a bf16 and an int8 KV cache
+   holding the same random K and V: exact launches a decode call (48
+   quantizes with int8: K and V apart, 24 layers), the first layer's new
+   rows within half an int8 step of the bf16 rows, the int8 logits against
+   the bf16 ones in relative norm, decode ms of each in turns and each
+   one's peak; then a 2-layer f32 int8 decode, card against the CPU path
+   (logits, codes and scales).
+10. ``measure``: ``mcts_cost+real_1s`` tunes granite-moe-1b-a400m x
+   train_4k for the H100 spec and mesh ``card``, its candidates timed on
+   the card by a one-worker measurement fleet (``core/measure_fleet.py``)
+   bound to the card target (``launch/measure.CardTarget``, full width,
+   6 of 24 layers): tune seconds, measurements, programs run and cache
+   hits, failures (none allowed), the plan, the Spearman rank correlation
+   of the cost model's and the card's step times over the programs and
+   their ratio; an int8 and a bf16 decode request through the same worker;
+   one request through the subprocess CLI (``python -m
+   repro_torch.launch.measure``); then the measured plan and the
+   quickstart's ``mcts_1s`` plan trained at full depth in turns.
+11. ``parity``: 2-layer f32 models at full width of each serving arch, card
    (kernels) against the port's CPU path (plain versions); for the MoE arch
    the routing must agree too.  ``train_parity``: the same for granite-moe's
    loss, every gradient and one int8-moment optimizer step.
-10. ``kernels``: one summary entry per kernel (the six ported ones and the
-   rmsnorm backward).
+12. ``phase_seconds``: each phase's wall seconds; then ``kernels``: one
+   summary entry per kernel (the six ported ones and the rmsnorm backward).
 
 Every launch counter is set to 0 just before a path is driven and read just
 after it.  Any failure raises and exits non-zero.  The last line is the
@@ -73,6 +93,7 @@ import dataclasses
 import gc
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -107,8 +128,19 @@ EXPECTED_PREFILL = {
 }
 TRAIN_ARCH = "granite-moe-1b-a400m"
 TRAIN_STEPS = 3  # a plan's steps on the card: the first is timed apart (warm-up)
+# the decode cut of the card's measurement (core/measure.py CUT_ROWS): 16 rows
+# over a decode_32k cache, every step at cur = S - 1, so it attends the whole cache
+DECODE_ROWS, DECODE_LEN = 16, 32768
+# int8 against bf16 decode logits of the same step, in relative norm over the
+# (16, vocab) tensor: a bound for gross faults only.  Rounding a K or V row to
+# int8 moves the attention output by a fraction of a percent, and over 24
+# layers of random weights that flips top-8 expert choices, which moves whole
+# rows; the exact checks of the int8 decode are the first layer's new rows,
+# the launches and the 2-layer f32 parity
+INT8_DECODE_REL = 0.5
 
 CARD = {"card": None, "power_limit": None}
+T_START = time.perf_counter()
 
 
 def emit(phase: str, **fields) -> None:
@@ -538,8 +570,9 @@ def phase_kernels_quantize(torch, qt):
     """Both int8 kernels against their plain versions: q and the scale
     bit-equal, the f32 dequantize bit-equal and the bf16 one within one bf16
     step; at the optimizer's moment leaves of granite-moe (w_up, the tied
-    embedding, the router), test_kernels.py's shapes, a bf16 input, a ragged
-    width, zero rows and exact .5 ties."""
+    embedding, the router), the int8 KV cache's decode write (``(B*Hkv, 64)``
+    bf16), test_kernels.py's shapes, a bf16 input, a ragged width, zero rows
+    and exact .5 ties."""
     E, L, d, f = 32, 24, 1024, 512
     # (R, C, dtype, kind, role)
     cases = [  # the cheap tie rows first: they catch a rounding fault by design
@@ -549,6 +582,8 @@ def phase_kernels_quantize(torch, qt):
         (49155, d, "float32", "normal", "train moment embed"),
         (L * d, E, "float32", "normal", "train moment router"),
         (49155, d, "bfloat16", "normal", "bf16 gradient embed"),
+        # the int8 KV cache's write: one row per (slot, kv head), DECODE_ROWS x 8 heads of 64
+        (DECODE_ROWS * 8, 64, "bfloat16", "normal", "decode KV rows"),
         (8, 128, "float32", "normal", "test"), (16, 64, "float32", "normal", "test"),
         (4, 256, "float32", "normal", "test"),
         (4099, 1000, "float32", "zero rows", "ragged width, zero rows"),
@@ -597,7 +632,7 @@ def phase_kernels_quantize(torch, qt):
         if (qt.QUANT_LAUNCHES.count, qt.DEQUANT_LAUNCHES.count) != (1, 2):
             raise AssertionError(f"quantize {role}: launches {qt.QUANT_LAUNCHES.count}, "
                                  f"{qt.DEQUANT_LAUNCHES.count}")
-        if role.startswith(("train", "bf16")):
+        if role.startswith(("train", "bf16", "decode")):
             esz = x.element_size()
             q_bytes = R * C * esz + R * C + 4 * R  # x read, q and the scales written
             dq_bytes = R * C + 4 * R + R * C * 4  # q and the scales read, f32 written
@@ -1313,6 +1348,306 @@ def phase_quickstart(torch, np, mods, res) -> dict:
     return {k: first[k] + rest[k] + counts[k] for k in first}
 
 
+def _fill_caches(torch, ops, caches, gen) -> None:
+    """The same random K and V in both caches: N(0, 1) in bf16 in the bf16
+    cache, and its rowwise int8 codes and scales (the quantize kernel, before
+    any counted run) in the int8 one."""
+    for name, leaves in caches["bf16"].items():
+        i8 = caches["int8"][name]
+        for k in ("k", "v"):
+            for p in range(leaves[k].shape[0]):
+                x = leaves[k][p]
+                x.copy_(torch.randn(x.shape, generator=gen, device="cuda", dtype=torch.bfloat16))
+                q, sc = ops.quantize_int8(x.reshape(-1, x.shape[-1]))
+                i8[k][p].copy_(q.view(x.shape))
+                i8[k + "_s"][p].copy_(sc.view(i8[k + "_s"][p].shape))
+
+
+def _decode_int8_parity(torch, np, mods) -> dict:
+    """A 2-layer f32 granite-moe at full width decoding with an int8 cache on
+    the card (kernels) and through the port's CPU path (plain versions): 6
+    steps at a scalar ``cur``, then one at per-row ``cur`` with a ``commit``
+    mask; the logits of every step (committed rows) within 1e-3, as
+    ``phase_parity`` holds them, and at the end the codes and scales.  The K
+    and V rows a layer quantizes come from hidden states that differ between
+    card and CPU as the logits do (up to ~1e-4 relative on a row), so a scale
+    is held to 1e-3 relative and a code may take the next value, on at most
+    1e-2 of the codes (a value within 1e-4 x 127 of a rounding boundary)."""
+    transformer, ops = mods.transformer, mods.ops
+    cfg = dataclasses.replace(mods.get_config(TRAIN_ARCH), n_layers=2, dtype="float32")
+    params = {"cpu": transformer.init_params(cfg, SEED, device="cpu")}
+    params["cuda"] = _tree_to(params["cpu"], "cuda")
+    B, L = 4, 64
+    toks = np.random.default_rng(SEED + 9).integers(0, cfg.vocab_size, (B, 8))
+    caches = {d: transformer.init_cache(cfg, B, L, kv_dtype="int8", device=d) for d in params}
+    n_attn = sum(s.mixer == "attn" for s in cfg.layer_plan()) * cfg.n_periods
+    steps = [(t, None) for t in range(6)] + [(np.array([6, 2, 5, 0]), np.array([1, 0, 1, 1], bool))]
+    worst = 0.0
+    for i, (cur, commit) in enumerate(steps):
+        out = {}
+        for d in ("cuda", "cpu"):
+            c = torch.as_tensor(cur, device=d)
+            m = None if commit is None else torch.from_numpy(commit).to(d)
+            ops.reset_counters()
+            logits, _ = transformer.decode_step(params[d], cfg, caches[d],
+                                                torch.from_numpy(toks[:, i:i + 1]).to(d), c, m)
+            if d == "cuda":
+                torch.cuda.synchronize()
+                if ops.launch_counts()["quantize_int8"] != 2 * n_attn:
+                    raise AssertionError(f"int8 decode parity: {ops.launch_counts()} launches, "
+                                         f"expected {2 * n_attn} quantize_int8")
+            out[d] = logits.cpu() if commit is None else logits.cpu()[torch.from_numpy(commit)]
+        st = check_close(out["cuda"], out["cpu"], f"int8 decode parity step {i} logits",
+                         atol=1e-3, rtol=1e-3)
+        worst = max(worst, st["max_abs_err"])
+    n_codes = n_diff = 0
+    scale_rel = 0.0
+    written = slice(0, 7)  # the positions the steps wrote
+    for name, leaves in caches["cpu"].items():
+        got = caches["cuda"][name]
+        for k in ("k", "v"):
+            d = got[k].cpu().int() - leaves[k].int()
+            if d.abs().max().item() > 1:
+                raise AssertionError(f"int8 decode parity: {name}.{k} codes differ by more than 1")
+            n_codes += d[..., written, :].numel()
+            n_diff += int((d != 0).sum().item())
+            check_close(got[k + "_s"].cpu(), leaves[k + "_s"], f"int8 decode parity {name}.{k}_s",
+                        atol=0.0, rtol=1e-3)
+            scale_rel = max(scale_rel, ((got[k + "_s"].cpu() - leaves[k + "_s"]).abs()
+                                        / leaves[k + "_s"]).max().item())
+    if n_diff > 1e-2 * n_codes:
+        raise AssertionError(f"int8 decode parity: {n_diff} of {n_codes} codes differ (limit 1e-2)")
+    return {"n_layers": 2, "dtype": "float32", "rows": B, "max_len": L, "steps": len(steps),
+            "logits_max_abs_err": worst, "logits_tol": 1e-3, "codes": n_codes,
+            "codes_differing": n_diff, "codes_differing_limit": 1e-2, "scale_rtol": 1e-3,
+            "scale_worst_rel_err": scale_rel}
+
+
+def phase_decode_int8(torch, np, mods) -> dict:
+    """granite-moe-1b-a400m at full width through ``make_serve_step``:
+    ``DECODE_ROWS`` rows at ``cur`` = ``DECODE_LEN`` - 1 over a bf16 and an
+    int8 cache that hold the same random K and V.  Exact launches of one
+    decode call of each (the int8 one quantizes K and V apart: two launches
+    per attention layer, 48 in all); the first layer's new K and V rows, whose
+    inputs the two runs share, within half an int8 step of the bf16 rows; the
+    logits in relative norm (``INT8_DECODE_REL``); decode ms of each in turns
+    (median of 10) and each one's peak (the weights, its cache and the step's
+    own peak over what was allocated before it); then the 2-layer f32 int8
+    decode, card against the CPU path."""
+    ops, transformer = mods.ops, mods.transformer
+    t_phase = time.perf_counter()
+    cfg = mods.get_config(TRAIN_ARCH)
+    params = transformer.init_params(cfg, SEED, device="cuda")
+    weights = sum(t.numel() * t.element_size() for t in _leaves(params))
+    caches = {kv: transformer.init_cache(cfg, DECODE_ROWS, DECODE_LEN, kv_dtype=kv, device="cuda")
+              for kv in ("bf16", "int8")}
+    cache_bytes = {kv: sum(t.numel() * t.element_size() for t in _leaves(c))
+                   for kv, c in caches.items()}
+    _fill_caches(torch, ops, caches, torch.Generator(device="cuda").manual_seed(SEED + 8))
+    tokens = torch.from_numpy(
+        np.random.default_rng(SEED + 8).integers(0, cfg.vocab_size, (DECODE_ROWS, 1))).to("cuda")
+    cur = DECODE_LEN - 1
+    steps = {kv: mods.make_serve_step(cfg, None, mods.SchedulePlan(kv_dtype=kv), device="cuda")
+             for kv in caches}
+    attn_blocks = [f"b{i}" for i, s in enumerate(cfg.layer_plan()) if s.mixer == "attn"]
+    n_attn = len(attn_blocks) * cfg.n_periods
+    base = _expected_decode_counts(cfg)
+    expected = {"bf16": base, "int8": {**base, "quantize_int8": 2 * n_attn}}
+    logits, counts, peak_gib = {}, {}, {}
+    for kv in ("bf16", "int8"):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_counters()
+        out, _ = steps[kv](params, caches[kv], tokens, cur)
+        torch.cuda.synchronize()
+        counts[kv] = ops.launch_counts()
+        if counts[kv] != expected[kv]:
+            raise AssertionError(f"decode_int8 {kv}: launches {counts[kv]}, expected {expected[kv]}")
+        transient = torch.cuda.max_memory_allocated() - before
+        peak_gib[kv] = (weights + cache_bytes[kv] + transient) / 2**30
+        if tuple(out.shape) != (DECODE_ROWS, cfg.vocab_size) or not bool(out.isfinite().all()):
+            raise AssertionError(f"decode_int8 {kv}: logits of the wrong shape or not finite")
+        logits[kv] = out.float()
+    # the first attention layer's new rows: the same K and V in both runs
+    first = {}
+    for k in ("k", "v"):
+        codes = caches["int8"][attn_blocks[0]][k][0][:, :, cur].float()
+        sc = caches["int8"][attn_blocks[0]][k + "_s"][0][:, :, cur]
+        ref = caches["bf16"][attn_blocks[0]][k][0][:, :, cur].float()
+        first[k] = ((codes * sc - ref).abs() / sc).max().item()
+        if first[k] > 0.5 + 1e-5:
+            raise AssertionError(f"decode_int8: the first layer's new {k} row is {first[k]} int8 "
+                                 "steps from the bf16 row (limit 0.5)")
+    rel = ((logits["int8"] - logits["bf16"]).norm() / logits["bf16"].norm()).item()
+    row_rel = ((logits["int8"] - logits["bf16"]).norm(dim=-1) / logits["bf16"].norm(dim=-1))
+    if rel > INT8_DECODE_REL:
+        raise AssertionError(f"decode_int8: int8 logits {rel} from bf16 in norm (limit {INT8_DECODE_REL})")
+    times = {"bf16": [], "int8": []}
+    for _ in range(10):
+        for kv in ("bf16", "int8"):
+            t0 = time.perf_counter()
+            steps[kv](params, caches[kv], tokens, cur)
+            torch.cuda.synchronize()
+            times[kv].append((time.perf_counter() - t0) * 1e3)
+    del caches, params, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    parity = _decode_int8_parity(torch, np, mods)
+    emit("decode_int8", arch=cfg.name, rows=DECODE_ROWS, max_len=DECODE_LEN, cur=cur,
+         cache_content="N(0,1) K and V, the same in both caches",
+         launches_per_decode_call=counts,
+         quantize_launches_per_decode_call={"int8": counts["int8"]["quantize_int8"],
+                                            "design": "K and V quantized apart: 2 a layer",
+                                            "attention_layers": n_attn},
+         median_decode_step_ms={kv: statistics.median(t) for kv, t in times.items()},
+         decode_step_ms=times, peak_gib=peak_gib,
+         cache_gib={kv: b / 2**30 for kv, b in cache_bytes.items()}, weights_gib=weights / 2**30,
+         first_layer_new_row_err_in_int8_steps=first,
+         logits_rel_int8_vs_bf16=rel, logits_rel_tol=INT8_DECODE_REL,
+         logits_worst_row_rel=row_rel.max().item(), parity=parity,
+         seconds=time.perf_counter() - t_phase)
+    return {n: counts["bf16"][n] + counts["int8"][n] for n in KERNELS}
+
+
+def _ranks(np, xs):
+    """Ranks from 0, ties given their mean rank."""
+    xs = np.asarray(xs, dtype=float)
+    ranks = np.empty(len(xs))
+    ranks[xs.argsort(kind="stable")] = np.arange(len(xs))
+    for v in np.unique(xs):
+        ranks[xs == v] = ranks[xs == v].mean()
+    return ranks
+
+
+def spearman(np, a, b) -> float:
+    return float(np.corrcoef(_ranks(np, a), _ranks(np, b))[0, 1])
+
+
+def _train_turns(torch, mods, plans: dict) -> tuple:
+    """Each plan (projected to the cut batch) trained ``TRAIN_STEPS`` steps
+    at full width through the quickstart's ``Trainer``, fresh weights each
+    time, the plans in turns twice; exact launches a step; step ms of steps
+    2..``TRAIN_STEPS`` of both turns."""
+    qs, ops, optim = mods.quickstart, mods.ops, mods.optim
+    out = {name: {"step_ms": [], "peak_gib": 0.0} for name in plans}
+    counts = {n: 0 for n in KERNELS}
+    for _ in range(2):
+        for name, plan in plans.items():
+            tr = qs.make_trainer(qs.project(plan), device="cuda", steps=TRAIN_STEPS)
+            params, opt_state, _ = tr.init_state()
+            expected = _expected_train_counts(tr.cfg, tr.plan, params, tr.opt_cfg.moment_dtype,
+                                              optim)
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_counters()
+            tr.run(params, opt_state, 0)
+            got = ops.launch_counts()
+            if got != {k: v * TRAIN_STEPS for k, v in expected.items()}:
+                raise AssertionError(f"measure: {name} plan's {TRAIN_STEPS} steps launched {got}, "
+                                     f"expected {expected} a step")
+            for n in KERNELS:
+                counts[n] += got[n]
+            log = tr.metrics_log
+            if not all(torch.isfinite(torch.tensor([r["loss"], r["grad_norm"]])).all() for r in log):
+                raise AssertionError(f"measure: {name} plan: non-finite loss or grad_norm: {log}")
+            out[name]["step_ms"] += [r["step_time_s"] * 1e3 for r in log[1:]]
+            out[name]["peak_gib"] = max(out[name]["peak_gib"], torch.cuda.max_memory_allocated() / 2**30)
+            out[name]["plan"] = tr.plan.to_dict()
+            del tr, params, opt_state
+            gc.collect()
+            torch.cuda.empty_cache()
+    for r in out.values():
+        r["median_step_ms"] = statistics.median(r["step_ms"])
+    return out, counts
+
+
+def phase_measure(torch, np, mods, base_res) -> dict:
+    """The paper's measured-cost hybrid on the card: ``mcts_cost+real_1s``
+    tunes granite-moe-1b-a400m x train_4k for the H100 spec and mesh
+    ``card``, each candidate timed on the card by a one-worker fleet bound to
+    the card target (``launch/measure.CardTarget``, at the quickstart's
+    depth cut: full width, 6 of 24 layers), no measurement failing; the
+    Spearman rank correlation of the cost model's ``step_s`` and the card's
+    projected ``step_s`` over the programs measured, and their ratio; a
+    decode request with an int8 cache (and one with bf16) through the same
+    worker; one request through the subprocess CLI (``measure_request`` ->
+    ``python -m repro_torch.launch.measure``); then the measured plan and the
+    quickstart's ``mcts_1s`` plan trained at full depth in turns."""
+    qs, M = mods.quickstart, mods.measure
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()  # the worker's to use
+    cache_dir = ROOT / "build" / "chip_smoke_measure"
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    cut = qs.measure_cut()
+    with mods.MeasurementFleet(1, cache_dir=str(cache_dir), target=mods.CardTarget(),
+                               timeout=600.0, grace_s=120.0) as fleet:
+        backend = fleet.bind(qs.ARCH, qs.SHAPE, "card", hw="h100", device="cuda", cut=cut)
+        t0 = time.perf_counter()
+        res = mods.autotune(qs.ARCH, qs.SHAPE, algo=qs.MEASURE_ALGO, hw="h100", mesh="card",
+                            seed=SEED, measure_backend=backend)
+        tune_s = time.perf_counter() - t0
+        tune_stats = fleet.stats()
+        if res.n_measure_failures or fleet.n_failures:
+            raise AssertionError(f"measure: {res.n_measure_failures} measurements failed: "
+                                 f"{tune_stats}")
+        decode = {}
+        for kv in ("int8", "bf16"):
+            rec = fleet.measure_cell(qs.ARCH, "decode_32k", "card", mods.SchedulePlan(kv_dtype=kv),
+                                     hw="h100", device="cuda", cut=cut)
+            if rec["source"] != "card" or rec["program"] != {"kv_dtype": kv}:
+                raise AssertionError(f"measure: decode {kv} record {rec['source']} {rec['program']}")
+            decode[kv] = {k: rec[k] for k in ("measured_s", "measured_runs_s", "step_s",
+                                              "model_step_s", "peak_bytes", "cut", "projection")}
+    records = [r for r in (M.load_record(str(p)) for p in sorted(cache_dir.glob("*.json")))
+               if r is not None and r["shape"] == qs.SHAPE]
+    if len(records) != tune_stats["n_measured"] or any(r["source"] != "card" for r in records):
+        raise AssertionError(f"measure: {len(records)} card records for "
+                             f"{tune_stats['n_measured']} measurements")
+    model_s = [r["model_step_s"] for r in records]
+    card_s = [r["step_s"] for r in records]
+    ratio = [c / m for c, m in zip(card_s, model_s)]
+    by_field = {}
+    for f in ("attn_block", "remat", "opt_dtype", "grad_comm", "microbatches"):
+        groups = {}
+        for r, x in zip(records, ratio):
+            groups.setdefault(str(r["program"][f]), []).append(x)
+        by_field[f] = {k: {"n": len(v), "median_card_over_model": statistics.median(v)}
+                       for k, v in sorted(groups.items())}
+    t0 = time.perf_counter()
+    cli = M.measure_request(M.make_request(qs.ARCH, qs.SHAPE, "card", res.plan, timeout=600.0,
+                                           hw="h100", device="cuda", cut=cut))
+    cli_s = time.perf_counter() - t0
+    key = M.request_key(M.make_request(qs.ARCH, qs.SHAPE, "card", res.plan, hw="h100",
+                                       device="cuda", cut=cut))
+    worker_rec = M.load_record(str(cache_dir / f"{key}.json"))
+    if cli["source"] != "card" or cli["program"] != worker_rec["program"]:
+        raise AssertionError(f"measure: the CLI measured {cli['program']} on {cli['source']}")
+    trains, counts = _train_turns(torch, mods, {"mcts_cost+real_1s": res.plan,
+                                                "mcts_1s": base_res.plan})
+    emit("measure", arch=qs.ARCH, shape=qs.SHAPE, algo=qs.MEASURE_ALGO, hw="h100", mesh="card",
+         cut=cut, tune_s=tune_s, n_measurements=res.n_measurements,
+         n_measure_failures=res.n_measure_failures,
+         card_measurements=tune_stats["n_measured"], cache_hits=tune_stats["n_cache_hits"],
+         joined_in_flight=tune_stats["n_deduped"], fleet=tune_stats,
+         plan=res.plan.to_dict(), measured_step_s=res.measured, model_cost_s=res.cost,
+         spearman_model_vs_card=spearman(np, model_s, card_s), programs=len(records),
+         median_card_over_model=statistics.median(ratio),
+         card_over_model_by_field=by_field,
+         records=[{"program": r["program"], "measured_ms": r["measured_s"] * 1e3,
+                   "spread_ms": r["spread_s"] * 1e3, "step_s": r["step_s"],
+                   "model_step_s": r["model_step_s"], "peak_gib": r["peak_bytes"] / 2**30}
+                  for r in records],
+         decode=decode,
+         cli={"seconds": cli_s, "measured_ms": cli["measured_s"] * 1e3,
+              "worker_measured_ms": worker_rec["measured_s"] * 1e3, "program": cli["program"],
+              "device": cli["device"]},
+         full_depth_train=trains, seconds=time.perf_counter() - t_phase)
+    return counts
+
+
 def phase_train_parity(torch, np, mods):
     """A 2-layer f32 granite-moe at full width, B=1, S=512: loss and every
     gradient leaf on the card (kernels and their Functions) against the
@@ -1479,6 +1814,39 @@ def _summary_row(n: str, rows: list, launches: int) -> dict:
     }
 
 
+def make_mods():
+    """The port's modules the phases use (``src`` on ``sys.path``)."""
+    import types
+
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.core import measure
+    from repro_torch.core.autotuner import autotune
+    from repro_torch.core.hardware import H100
+    from repro_torch.core.measure_fleet import MeasurementFleet
+    from repro_torch.core.space import SchedulePlan, attn_block_options
+    from repro_torch.kernels import geometry, ops
+    from repro_torch.launch import quickstart
+    from repro_torch.launch.measure import CardTarget
+    from repro_torch.models import moe, transformer
+    from repro_torch.models.losses import cross_entropy
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.training import optimizer as optim
+    from repro_torch.training.train_step import (
+        make_positions, make_prefill_step, make_serve_step, tiles_from_plan,
+    )
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+
+    return types.SimpleNamespace(
+        get_config=get_config, ops=ops, transformer=transformer, ServingEngine=ServingEngine,
+        make_prefill_step=make_prefill_step, make_serve_step=make_serve_step,
+        make_positions=make_positions, tiles_from_plan=tiles_from_plan, moe=moe, optim=optim,
+        cross_entropy=cross_entropy, InputShape=InputShape, Trainer=Trainer,
+        TrainerConfig=TrainerConfig, SchedulePlan=SchedulePlan, quickstart=quickstart,
+        geometry=geometry, H100=H100, attn_block_options=attn_block_options, autotune=autotune,
+        measure=measure, MeasurementFleet=MeasurementFleet, CardTarget=CardTarget,
+    )
+
+
 def main() -> int:
     import torch
 
@@ -1489,28 +1857,18 @@ def main() -> int:
         print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
-    import types
-
     import numpy as np
     import torch.nn.functional as F
 
-    from repro_torch.configs import InputShape, get_config
-    from repro_torch.core.hardware import H100
-    from repro_torch.core.space import SchedulePlan, attn_block_options
-    from repro_torch.kernels import _build, geometry, ops
+    from repro_torch.kernels import _build, ops
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gemm as mg
     from repro_torch.kernels import quantize as qt
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import selective_scan as ss
-    from repro_torch.launch import quickstart
-    from repro_torch.models import moe, transformer
-    from repro_torch.models.losses import cross_entropy
-    from repro_torch.serving.engine import ServingEngine
-    from repro_torch.training import optimizer as optim
-    from repro_torch.training.train_step import make_positions, make_prefill_step, tiles_from_plan
-    from repro_torch.training.trainer import Trainer, TrainerConfig
 
+    mods = make_mods()
+    get_config, SchedulePlan = mods.get_config, mods.SchedulePlan
     torch.backends.cuda.matmul.allow_tf32 = False  # the f32 plain versions in true f32
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi()
@@ -1533,33 +1891,38 @@ def main() -> int:
     if not bf16 or spilled:
         raise AssertionError(f"bf16 wgmma kernels spill registers: {spilled or 'none found in ptxas'}")
 
-    rows = {
-        "rmsnorm": phase_kernels_rmsnorm(torch, F, rn),
-        "flash_attention": phase_kernels_flash(torch, F, fa),
-        "moe_gemm": phase_kernels_moe(torch, F, mg),
-        "selective_scan": phase_kernels_scan(torch, F, ss),
-    }
-    rows["quantize_int8"] = rows["dequantize_int8"] = phase_kernels_quantize(torch, qt)
-    rows["rmsnorm_backward"] = phase_grad(torch, rn, fa, mg, ss)
+    phase_s = {"build": time.perf_counter() - t0}
 
-    mods = types.SimpleNamespace(
-        get_config=get_config, ops=ops, transformer=transformer, ServingEngine=ServingEngine,
-        make_prefill_step=make_prefill_step, make_positions=make_positions,
-        tiles_from_plan=tiles_from_plan, moe=moe, optim=optim, cross_entropy=cross_entropy,
-        InputShape=InputShape, Trainer=Trainer, TrainerConfig=TrainerConfig,
-        SchedulePlan=SchedulePlan, quickstart=quickstart, geometry=geometry, H100=H100,
-        attn_block_options=attn_block_options,
-    )
+    def timed_phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = phase_s.get(name, 0.0) + time.perf_counter() - t
+        return out
+
+    rows = {
+        "rmsnorm": timed_phase("kernels", phase_kernels_rmsnorm, torch, F, rn),
+        "flash_attention": timed_phase("kernels", phase_kernels_flash, torch, F, fa),
+        "moe_gemm": timed_phase("kernels", phase_kernels_moe, torch, F, mg),
+        "selective_scan": timed_phase("kernels", phase_kernels_scan, torch, F, ss),
+    }
+    rows["quantize_int8"] = rows["dequantize_int8"] = timed_phase(
+        "kernels", phase_kernels_quantize, torch, qt)
+    rows["rmsnorm_backward"] = timed_phase("grad", phase_grad, torch, rn, fa, mg, ss)
+
     plans = {
         "granite-3-2b": [SchedulePlan(), SchedulePlan(attn_block=(128, 128))],
         "granite-moe-1b-a400m": [SchedulePlan()],
         "falcon-mamba-7b": [SchedulePlan(), SchedulePlan(scan_chunk=64)],
     }
     launches = {n: 0 for n in KERNELS}
+
+    def add(counts):
+        for n in KERNELS:
+            launches[n] += counts[n]
+
     for arch in ARCHS:
-        for counts in run_path(torch, np, arch, plans[arch], mods):
-            for n in KERNELS:
-                launches[n] += counts[n]
+        for counts in timed_phase(f"serving {arch}", run_path, torch, np, arch, plans[arch], mods):
+            add(counts)
         gc.collect()  # the engine holds its weights in a reference cycle
         torch.cuda.empty_cache()
     # training: (a) runs all five kernels of the arch, (b) has f32 moments
@@ -1568,17 +1931,20 @@ def main() -> int:
         "b": SchedulePlan(remat="dots", microbatches=2),
     }
     for name, plan in train_plans.items():
-        counts = phase_train(torch, name, plan, mods)
+        counts = timed_phase("train", phase_train, torch, name, plan, mods)
         if name == "a" and not all(counts[n] for n in ("quantize_int8", "dequantize_int8", "moe_gemm")):
             raise AssertionError(f"train plan a launched {counts}")
-        for n in KERNELS:
-            launches[n] += counts[n]
+        add(counts)
     # the quickstart: tune on the host, then train and serve with the tuned plan
-    res, tuned_row = phase_search(torch, F, fa, mods)
+    res, tuned_row = timed_phase("search", phase_search, torch, F, fa, mods)
     rows["flash_attention"].append(tuned_row)
-    counts = phase_quickstart(torch, np, mods, res)
-    for n in KERNELS:
-        launches[n] += counts[n]
+    add(timed_phase("quickstart", phase_quickstart, torch, np, mods, res))
+    # the int8 KV cache on the measurement's decode cut, then the measured search
+    decode_counts = timed_phase("decode_int8", phase_decode_int8, torch, np, mods)
+    if not decode_counts["quantize_int8"]:
+        raise AssertionError("the int8 decode launched no quantize_int8 kernel")
+    add(decode_counts)
+    add(timed_phase("measure", phase_measure, torch, np, mods, res))
     for n in KERNELS:
         if launches[n] == 0:
             raise AssertionError(f"the main paths launched no {n} kernel")
@@ -1587,9 +1953,10 @@ def main() -> int:
     parity_plans = {"granite-3-2b": SchedulePlan(), "granite-moe-1b-a400m": SchedulePlan(),
                     "falcon-mamba-7b": SchedulePlan(scan_chunk=64)}
     for arch in ARCHS:
-        phase_parity(torch, np, get_config(arch), parity_plans[arch], ops, transformer, moe,
-                     make_positions, tiles_from_plan)
-    phase_train_parity(torch, np, mods)
+        timed_phase("parity", phase_parity, torch, np, get_config(arch), parity_plans[arch], ops,
+                    mods.transformer, mods.moe, mods.make_positions, mods.tiles_from_plan)
+    timed_phase("train_parity", phase_train_parity, torch, np, mods)
+    emit("phase_seconds", seconds=phase_s, total_s=time.perf_counter() - T_START)
 
     summary = [_summary_row(n, rows[n], launches[n]) for n in KERNELS]
     print(json.dumps({"kernels": summary}), flush=True)

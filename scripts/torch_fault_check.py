@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
-"""Plant known faults in copies of the port's kernels and wrappers and check
-that the kernel and gradient phases of ``chip_smoke.py`` catch every one.
+"""Plant known faults in copies of the port's kernels, wrappers and decode
+path and check that the phases of ``chip_smoke.py`` catch every one.
 
     python3 scripts/torch_fault_check.py DIR     # on a machine with a CUDA card
 
 ``DIR`` must lie outside the checkout.  Each case is a copy of ``src/`` and
 ``chip_smoke.py`` in ``DIR/<case>`` with one fault planted in one file under
-``src/repro_torch/kernels/`` (a CUDA source or a wrapper); the copy builds its
+``src/repro_torch/`` (a CUDA source, a wrapper, or the int8 KV cache's write
+in ``models/attention.py``); the copy builds its
 own kernels and runs, in a fresh process, the ``chip_smoke`` phase that must
 catch it: the file's phase, or the case's own where it names one (the
 unedited control runs every phase named below).  The control must pass
-and every mutant (twelve of them) must fail.  Prints one JSON line per
+and every mutant (fourteen of them) must fail.  Prints one JSON line per
 case (with the failing check's numbers) and exits 1 if any case went the
 other way.
 """
@@ -23,7 +24,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-KERNELS = Path("src/repro_torch/kernels")
+PORT = Path("src/repro_torch")
 
 # chip_smoke phase -> its call, with the kernel modules imported by RUN
 PHASES = {
@@ -33,84 +34,86 @@ PHASES = {
     "phase_kernels_scan": "chip_smoke.phase_kernels_scan(torch, F, ss)",
     "phase_kernels_quantize": "chip_smoke.phase_kernels_quantize(torch, qt)",
     "phase_grad": "chip_smoke.phase_grad(torch, rn, fa, mg, ss)",
+    "phase_decode_int8": "chip_smoke.phase_decode_int8(torch, np, chip_smoke.make_mods())",
 }
 # the phase that must catch a fault in each file
 PHASE_OF = {
-    "csrc/rmsnorm.cu": "phase_kernels_rmsnorm",
-    "csrc/flash_attention.cu": "phase_kernels_flash",
-    "csrc/moe_gemm.cu": "phase_kernels_moe",
-    "csrc/selective_scan.cu": "phase_kernels_scan",
-    "csrc/quantize.cu": "phase_kernels_quantize",
-    "rmsnorm.py": "phase_grad",
+    "kernels/csrc/rmsnorm.cu": "phase_kernels_rmsnorm",
+    "kernels/csrc/flash_attention.cu": "phase_kernels_flash",
+    "kernels/csrc/moe_gemm.cu": "phase_kernels_moe",
+    "kernels/csrc/selective_scan.cu": "phase_kernels_scan",
+    "kernels/csrc/quantize.cu": "phase_kernels_quantize",
+    "kernels/rmsnorm.py": "phase_grad",
+    "models/attention.py": "phase_decode_int8",
 }
 
-# case -> (file under src/repro_torch/kernels, [(text, replacement), ...][,
+# case -> (file under src/repro_torch, [(text, replacement), ...][,
 # phase]); each text's first occurrence is replaced, which is the bf16
 # kernel's where a .cu file has two
 CASES = {
     "control": None,
     # query tiles from row 2048 on never visit their last kv tile: only the
     # 4096-token main-path shapes have such rows
-    "flash_skip_last_kv_tile_from_row_2048": ("csrc/flash_attention.cu", [(
+    "flash_skip_last_kv_tile_from_row_2048": ("kernels/csrc/flash_attention.cu", [(
         "const int n_tiles = kv_tiles(Skv, block_kv, causal, q_off + q_end - 1);",
         "const int n_tiles = kv_tiles(Skv, block_kv, causal, q_off + q_end - 1) - (q0 >= 2048);",
     )]),
     # the accumulator of the first 8 rows of each warp (rows 0-7, 16-23, ...
     # of a warpgroup) is not rescaled when the running max grows
-    "flash_alpha_not_applied_to_rows_g": ("csrc/flash_attention.cu", [(
+    "flash_alpha_not_applied_to_rows_g": ("kernels/csrc/flash_attention.cu", [(
         "          acc[4 * j + 0] *= alpha_a;\n          acc[4 * j + 1] *= alpha_a;\n",
         "",
     )]),
     # the bf16 grouped GEMM never streams the slices of its last block_d step
-    "moe_gemm_skip_last_block_d_step": ("csrc/moe_gemm.cu", [(
+    "moe_gemm_skip_last_block_d_step": ("kernels/csrc/moe_gemm.cu", [(
         "const int n_slices = cdiv(d, kSlice);",
         "const int n_slices = cdiv(d - block_d, kSlice);",
     )]),
     # the forward's w, stored (E,d,f) and so MN-major, is read without the
     # wgmma transpose bit (and its descriptor): as if it were K-major
-    "moe_gemm_forward_w_transpose_bit_dropped": ("csrc/moe_gemm.cu", [(
+    "moe_gemm_forward_w_transpose_bit_dropped": ("kernels/csrc/moe_gemm.cu", [(
         "constexpr int kTnspB = TB ? 0 : 1;",
         "constexpr int kTnspB = 0;",
     )]),
     # the backward's dw = x^T . dy reads x as stored (E,C,d) without the
     # transpose bit (and its descriptor): only dw, which the gradient phase
     # checks
-    "moe_gemm_dw_reads_x_untransposed": ("csrc/moe_gemm.cu", [(
+    "moe_gemm_dw_reads_x_untransposed": ("kernels/csrc/moe_gemm.cu", [(
         "constexpr int kTnspA = TA;",
         "constexpr int kTnspA = 0;",
     )], "phase_grad"),
     # the scan's carry pass leaves chunk 0's end state out of the carry: the
     # second chunk starts from zero, the later ones from carries short of it
-    "scan_carry_skips_chunk0_h": ("csrc/selective_scan.cu", [(
+    "scan_carry_skips_chunk0_h": ("kernels/csrc/selective_scan.cu", [(
         "carry = fmaf(ex2(a2 * dtsum[(static_cast<long long>(b) * nC + c) * Di + d]), carry, states[at]);",
         "carry = fmaf(ex2(a2 * dtsum[(static_cast<long long>(b) * nC + c) * Di + d]), carry,"
         " c ? states[at] : 0.f);",
     )]),
     # the carry pass decays the carry by the previous chunk's sum(dt) (one
     # chunk late; the first chunk's by its own)
-    "scan_carry_decay_one_chunk_late": ("csrc/selective_scan.cu", [(
+    "scan_carry_decay_one_chunk_late": ("kernels/csrc/selective_scan.cu", [(
         "carry = fmaf(ex2(a2 * dtsum[(static_cast<long long>(b) * nC + c) * Di + d]), carry, states[at]);",
         "carry = fmaf(ex2(a2 * dtsum[(static_cast<long long>(b) * nC + (c ? c - 1 : 0)) * Di + d]),"
         " carry, states[at]);",
     )]),
     # a row spread over a group of warps (d >= 4096 in bf16) normalises by
     # its own warp's sum of squares, not the group's
-    "rmsnorm_group_sum_own_warp_only": ("csrc/rmsnorm.cu", [(
+    "rmsnorm_group_sum_own_warp_only": ("kernels/csrc/rmsnorm.cu", [(
         "    for (int g = 0; g < G; ++g) v += s[group * G + g];\n",
         "    v = s[warp];\n",
     )]),
     # the backward's dw leaves out the last block's partial row
-    "rmsnorm_backward_dw_drops_last_block": ("csrc/rmsnorm.cu", [(
+    "rmsnorm_backward_dw_drops_last_block": ("kernels/csrc/rmsnorm.cu", [(
         "    for (int b = sy; b < blocks; b += kDwSlices)",
         "    for (int b = sy; b < blocks - 1; b += kDwSlices)",
     )], "phase_grad"),
     # quantize rounds half away from zero (roundf) instead of half to even
-    "quantize_round_half_away_from_zero": ("csrc/quantize.cu", [(
+    "quantize_round_half_away_from_zero": ("kernels/csrc/quantize.cu", [(
         "const float r = rintf(__fdiv_rn(x, scale));",
         "const float r = roundf(__fdiv_rn(x, scale));",
     )]),
     # quantize multiplies by 127 / amax instead of dividing by amax / 127
-    "quantize_scale_by_reciprocal": ("csrc/quantize.cu", [
+    "quantize_scale_by_reciprocal": ("kernels/csrc/quantize.cu", [
         ("const float r = rintf(__fdiv_rn(x, scale));", "const float r = rintf(x * scale);"),
         ("  if (lane == 0) scale[row] = s;\n",
          "  if (lane == 0) scale[row] = s;\n"
@@ -120,16 +123,31 @@ CASES = {
     ]),
     # the rmsnorm wrapper launches without its autograd Function: the output
     # is cut from the graph and every gradient below it is lost
-    "rmsnorm_output_detached": ("rmsnorm.py", [(
+    "rmsnorm_output_detached": ("kernels/rmsnorm.py", [(
         "        return RMSNormFn.apply(x, w, lambda a, b: _launch(a, b, eps, vec),\n"
         "                               lambda a, b, g: rmsnorm_backward(a, b, g, eps=eps))\n",
         "        return _launch(x, w, eps, vec)\n",
     )]),
+    # the int8 KV cache writes the new row's K and V scales one position
+    # early: the row at cur keeps the scale it had
+    "int8_kv_scale_written_one_position_off": ("models/attention.py", [(
+        '        _write_at_cur_(cache["k_s"], ks, cur, commit)\n'
+        '        _write_at_cur_(cache["v_s"], vs, cur, commit)\n',
+        '        _write_at_cur_(cache["k_s"], ks, cur - 1, commit)\n'
+        '        _write_at_cur_(cache["v_s"], vs, cur - 1, commit)\n',
+    )]),
+    # the decode path quantizes the new K and V rows with the plain version,
+    # on the card too
+    "int8_kv_quantized_by_the_plain_version": ("models/attention.py", [
+        ("from repro_torch.kernels import ops\n", "from repro_torch.kernels import ops, ref\n"),
+        ("q, s = ops.quantize_int8(", "q, s = ref.quantize_int8("),
+    ]),
 }
 
 RUN = """
 import sys
 sys.path.insert(0, "src")
+import numpy as np
 import torch, torch.nn.functional as F
 import chip_smoke
 from repro_torch.kernels import flash_attention as fa, moe_gemm as mg, quantize as qt
@@ -151,7 +169,7 @@ def run_case(base: Path, name: str, edit) -> dict:
     phases = sorted({_phase(c) for c in CASES.values() if c is not None})
     if edit is not None:
         rel, pairs = edit[:2]
-        path = work / KERNELS / rel
+        path = work / PORT / rel
         text = path.read_text()
         for old, new in pairs:
             if old not in text:

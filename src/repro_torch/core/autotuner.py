@@ -17,8 +17,9 @@ Algorithms (paper §5 protocol, plus the complete-plan portfolio):
 
 ``measure_fn`` / ``measure_backend`` (callables, plan -> seconds) re-rank
 candidates at every root synchronization — the ``mcts_cost+real_*``
-configurations; a measurement on the H100 is ROADMAP item A7, and the
-persistent plan store (``plan_store=``) item A10.
+configurations; on the H100 a ``core/measure_fleet.py`` fleet bound to the
+card target (``launch/measure.CardTarget``) is the backend.  The
+persistent plan store (``plan_store=``) is ROADMAP item A10.
 """
 from __future__ import annotations
 
@@ -170,8 +171,13 @@ def autotune(
     exactly as in the JAX package: ``mcts_cost+real_*`` runs re-rank each
     root synchronization's candidates by them, and a failed measurement
     degrades that candidate to its exact analytic cost (counted on
-    ``TuneResult.n_measure_failures``) instead of aborting the run.  The
-    measurement on the H100 itself is ROADMAP item A7.
+    ``TuneResult.n_measure_failures``) instead of aborting the run.  On the
+    H100: ``MeasurementFleet(1, target=launch.measure.CardTarget()).bind(
+    arch, shape, "card", device="cuda", cut=...)`` times each candidate's
+    step on the card (one worker, the weights resident across requests,
+    records cached on disk by the program the card runs); its ``step_s``
+    is the card's time projected to the cell, in the analytic model's
+    seconds, so a degraded candidate ranks on the same scale.
 
     ``controller`` mounts a round-boundary ``RunController``
     (``repro_torch.core.run_control``): a deadline or cancel finishes the

@@ -16,9 +16,10 @@ with ``hw`` the ``core.hardware.HardwareSpec`` the cell is priced for:
     step_s       = max(compute, memory) + (1 - overlap)·collective
 
 The formulas are the JAX package's.  Three of its terms were derived for the
-TPU and are not calibrated for the H100 (ROADMAP A7 measures them): the
-kernel-tile efficiency ``(bq/(bq+64))·(bkv/(bkv+64))``, the scan's
-grid-step term and the 5 % overlap tax.  The spill test is the hardware's
+TPU and are not calibrated for the H100 (``launch/measure.py`` times the
+card beside them; fitting them is ROADMAP A14): the kernel-tile efficiency
+``(bq/(bq+64))·(bkv/(bkv+64))``, the scan's grid-step term and the 5 %
+overlap tax.  The spill test is the hardware's
 own: under ``tpu-v5e`` the JAX kernel's VMEM working set, under the H100
 whether the port's flash kernel launches the tile at all
 (``kernels.geometry.flash_launch``).

@@ -3,6 +3,7 @@ with the trained weights, on the card.
 
     python -m repro_torch.launch.quickstart                       # on the H100
     python -m repro_torch.launch.quickstart --device cpu --smoke  # reduced config, CPU
+    python -m repro_torch.launch.quickstart --measure             # tune on card step times
 
 1. **Tune** granite-moe-1b-a400m x ``train_4k`` with ``mcts_1s`` (the
    ProTuner ensemble, 15 standard + 1 greedy MCTS) for the H100's spec and
@@ -17,6 +18,14 @@ with the trained weights, on the card.
    projects its plan.
 3. **Serve** 4 requests with the trained weights through ``ServingEngine``,
    its grouped GEMMs at the plan's tiles.
+
+With ``--measure``, step 1 is the paper's measured-cost hybrid
+``mcts_cost+real_1s``: each root synchronization's candidates are re-ranked
+by step times measured on the card (``launch/measure.py``) through a
+one-worker measurement fleet (``core/measure_fleet.py``), at full width and
+``MEASURE_LAYERS`` of the 24 layers (``--smoke``: the ``reduced()`` config
+at S = 64, on the CPU with ``--device cpu``).  Records are cached on disk by
+program, so a second run measures nothing it has measured before.
 
 Runs on the CUDA device unless ``--device cpu`` is given; the full-width
 config runs only on the card (``--smoke`` is the reduced config).
@@ -37,15 +46,48 @@ SMOKE_SEQ = 64
 STEPS = 3
 SLOTS, REQUESTS, MAX_NEW = 4, 4, 8
 SEED = 0
+MEASURE_ALGO = "mcts_cost+real_1s"
+MEASURE_LAYERS = 6  # the depth cut of a measurement on the card: full width, 6 of 24 layers
 
 
 def tune():
     """(``TuneResult``, the cost model's ``RooflineTerms`` of its plan)."""
-    from repro_torch.core.autotuner import autotune, make_mdp
+    from repro_torch.core.autotuner import autotune
 
     res = autotune(ARCH, SHAPE, algo=ALGO, hw="h100", mesh="card", seed=SEED)
-    terms = make_mdp(ARCH, SHAPE, "card", hw="h100").cost_model.terms(res.plan)
-    return res, terms
+    return res, tune_terms(res.plan)
+
+
+def tune_terms(plan):
+    """The cost model's ``RooflineTerms`` of ``plan`` in the tuned cell."""
+    from repro_torch.core.autotuner import make_mdp
+
+    return make_mdp(ARCH, SHAPE, "card", hw="h100").cost_model.terms(plan)
+
+
+def measure_cut(smoke: bool = False) -> dict:
+    return {"reduced": True, "seq": SMOKE_SEQ} if smoke else {"layers": MEASURE_LAYERS}
+
+
+def tune_measured(device="cuda", smoke: bool = False, cache_dir=None, timeout: float = 600.0):
+    """(``TuneResult``, the fleet's counters): ``mcts_cost+real_1s`` for the
+    H100 spec and mesh ``card``, its candidates measured on ``device`` by one
+    persistent worker (the card's one timing process)."""
+    import torch
+
+    from repro_torch.core.autotuner import autotune
+    from repro_torch.core.measure_fleet import MeasurementFleet
+    from repro_torch.launch.measure import CardTarget
+
+    if torch.cuda.is_initialized():
+        torch.cuda.empty_cache()  # what this process cached is the worker's to use
+    with MeasurementFleet(1, cache_dir=cache_dir, target=CardTarget(), timeout=timeout,
+                          grace_s=120.0) as fleet:
+        backend = fleet.bind(ARCH, SHAPE, "card", hw="h100", device=device,
+                             cut=measure_cut(smoke))
+        res = autotune(ARCH, SHAPE, algo=MEASURE_ALGO, hw="h100", mesh="card", seed=SEED,
+                       measure_backend=backend)
+        return res, fleet.stats()
 
 
 def project(plan, batch: int = BATCH):
@@ -96,13 +138,29 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--smoke", action="store_true", help="the reduced() config")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--measure", action="store_true",
+                    help=f"tune with {MEASURE_ALGO}: candidates re-ranked by step times "
+                         "measured on the device")
+    ap.add_argument("--measure-cache", default=None, help="the measurement records' directory")
     args = ap.parse_args(argv)
     if args.device == "cpu" and not args.smoke:
         ap.error("the full-width config runs on the card; on the CPU pass --smoke")
     from repro_torch.core.hardware import H100
 
-    print(f"== 1. tuning {ARCH} x {SHAPE} with {ALGO} for {H100.name}, mesh card ==")
-    res, terms = tune()
+    algo = MEASURE_ALGO if args.measure else ALGO
+    print(f"== 1. tuning {ARCH} x {SHAPE} with {algo} for {H100.name}, mesh card ==")
+    if args.measure:
+        res, stats = tune_measured(args.device, args.smoke, args.measure_cache)
+        measured = "none" if res.measured is None else f"{res.measured:.4g} s"
+        print(f"{res.n_measurements} measurements on {args.device} ({stats['n_measured']} "
+              f"programs run, {stats['n_cache_hits']} cache hits, {stats['n_deduped']} joined "
+              f"in flight), {res.n_measure_failures} failures; the plan's measured step "
+              f"{measured} (the time of the cut {measure_cut(args.smoke)}, projected to the cell)")
+        if res.n_measure_failures:
+            print("a failed measurement re-ranks by the cost model's estimate")
+        terms = tune_terms(res.plan)
+    else:
+        res, terms = tune()
     print(f"plan ({res.n_evals} cost evals, {res.cache_hits} cache hits, "
           f"{res.wall_time_s:.2f} s on the host):")
     for k, v in res.plan.to_dict().items():
@@ -132,6 +190,8 @@ def main(argv=None) -> int:
     for r in sorted(done, key=lambda r: r.uid):
         print(f"    req {r.uid}: {len(r.prompt)} prompt tokens -> {r.generated}")
     print(f"completed {len(done)}/{REQUESTS} requests")
+    if args.measure and res.n_measure_failures:
+        return 1
     return 0 if len(done) == REQUESTS else 1
 
 

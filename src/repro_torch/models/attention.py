@@ -57,14 +57,30 @@ def forward(
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device,
                kv_dtype: str = "bf16", n_periods: int = 0) -> dict:
-    if kv_dtype == "int8":
-        raise NotImplementedError("the int8 KV cache is not ported yet: ROADMAP item A13")
     lead = (n_periods,) if n_periods else ()
     shape = lead + (batch, cfg.n_kv_heads, max_len, cfg.resolved_head_dim)
+    if kv_dtype == "int8":
+        # rowwise (per b, h, position) symmetric int8 codes and an f32 scale
+        # that starts at one, as in the JAX package
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_s": torch.ones(shape[:-1] + (1,), dtype=torch.float32, device=device),
+            "v_s": torch.ones(shape[:-1] + (1,), dtype=torch.float32, device=device),
+        }
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
     }
+
+
+def _quant_kv(x: torch.Tensor):
+    """``x (B, Hkv, 1, hd)`` -> int8 codes of its shape and f32 scales
+    ``(B, Hkv, 1, 1)``: the quantize kernel over a contiguous ``(B*Hkv, hd)``
+    view, one row per head."""
+    B, Hkv, _, hd = x.shape
+    q, s = ops.quantize_int8(x.reshape(B * Hkv, hd).contiguous())
+    return q.view(B, Hkv, 1, hd), s.view(B, Hkv, 1, 1)
 
 
 def _write_at_cur_(c: torch.Tensor, new: torch.Tensor, cur: torch.Tensor, commit) -> None:
@@ -90,9 +106,12 @@ def decode_step(
     """Attend one new token per row and write its K/V into ``cache`` in place
     (the JAX step returns a new cache instead).  A row outside ``commit``
     attends over its cache as it stands, so its output is not that row's
-    next step; the serving engine discards it."""
-    if "k_s" in cache:
-        raise NotImplementedError("the int8 KV cache is not ported yet: ROADMAP item A13")
+    next step; the serving engine discards it.
+
+    An int8 cache (``k_s`` / ``v_s`` scales, ``init_cache(kv_dtype="int8")``)
+    takes each new K and V row through the quantize kernel and is never
+    dequantized: the scales fold into the logits and the probabilities, and
+    the codes go int8 -> bf16 -> f32 in the products, as in the JAX package."""
     B = x.shape[0]
     hd = cfg.resolved_head_dim
     cur = torch.as_tensor(cur, dtype=torch.long, device=x.device)
@@ -102,18 +121,33 @@ def decode_step(
     pos = cur[:, None] if per_row else cur.expand(B, 1)
     q, k_new = layers.apply_positions(q, k_new, cfg, pos)
     k, v = cache["k"], cache["v"]
-    _write_at_cur_(k, k_new.to(k.dtype), cur, commit)
-    _write_at_cur_(v, v_new.to(v.dtype), cur, commit)
+    int8_kv = "k_s" in cache
+    if int8_kv:
+        (kq, ks), (vq, vs) = _quant_kv(k_new), _quant_kv(v_new)
+        _write_at_cur_(k, kq, cur, commit)
+        _write_at_cur_(v, vq, cur, commit)
+        _write_at_cur_(cache["k_s"], ks, cur, commit)
+        _write_at_cur_(cache["v_s"], vs, cur, commit)
+        k_scale = cache["k_s"][..., 0][:, :, None, None, :]  # (B, Hkv, 1, 1, L)
+        v_scale = cache["v_s"][..., 0][:, :, None, None, :]
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    else:
+        _write_at_cur_(k, k_new.to(k.dtype), cur, commit)
+        _write_at_cur_(v, v_new.to(v.dtype), cur, commit)
     # GQA-grouped masked attention over the full cache: query heads reshape
     # to (Hkv, groups) so the cache is never repeated; f32 on the logits.
     # Plain PyTorch, as the JAX package's decode attention is plain jnp.
     groups = cfg.n_heads // cfg.n_kv_heads
     qg = q.reshape(B, cfg.n_kv_heads, groups, 1, hd)
     logits = torch.einsum("bkgqd,bktd->bkgqt", qg.float(), k.float()) * (hd ** -0.5)
+    if int8_kv:
+        logits = logits * k_scale
     t = torch.arange(k.shape[2], device=x.device)
     lim = cur[:, None, None, None, None] if per_row else cur
     logits = logits.masked_fill(~(t <= lim), -1e30)
     probs = torch.softmax(logits, dim=-1)
+    if int8_kv:
+        probs = probs * v_scale
     o = torch.einsum("bkgqt,bktd->bkgqd", probs, v.float()).to(x.dtype)
     o = o.reshape(B, cfg.n_heads, 1, hd).transpose(1, 2).reshape(B, 1, -1)
     return o @ p["wo"], cache

@@ -130,3 +130,11 @@ def test_chip_smoke_refuses_to_run_without_a_card():
     )
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_the_measurement_modules_are_among_the_scanned_files():
+    """The measurement layer (core/measure*.py, launch/measure.py and the
+    stub CLI) is held to the same no-JAX rule as the rest of the port."""
+    for rel in ("core/measure.py", "core/measure_stub.py", "core/measure_fleet.py",
+                "launch/measure.py", "launch/dryrun_stub.py"):
+        assert PORT / rel in PORT_FILES

@@ -163,8 +163,6 @@ def test_decode_matches_forward(model):
 
 def test_unported_paths_raise_with_their_roadmap_item(model):
     _, cfg, *_ = model
-    with pytest.raises(NotImplementedError, match="A13"):
-        ttf.init_cache(cfg, B, 8, kv_dtype="int8", device="cpu")
     with pytest.raises(NotImplementedError, match="A2"):
         get_config("qwen2-vl-72b")
     with pytest.raises(NotImplementedError, match="A2"):

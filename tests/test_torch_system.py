@@ -2,6 +2,8 @@
 autotune -> train -> checkpoint -> failure -> elastic restart plan -> serve,
 and the port's quickstart and training CLI with ``--autotune``."""
 import dataclasses
+import json
+import os
 
 import numpy as np
 import pytest
@@ -57,6 +59,25 @@ def test_quickstart_tunes_trains_and_serves_on_the_cpu_when_asked(capsys):
     assert "not a measurement" in out and "h100-sxm" in out
     assert "trained to step 3" in out
     assert f"completed {quickstart.REQUESTS}/{quickstart.REQUESTS} requests" in out
+
+
+def test_quickstart_measure_tunes_on_measured_step_times_on_the_cpu(tmp_path, capsys):
+    """``--measure``: ``mcts_cost+real_1s`` with one fleet worker timing the
+    reduced config's steps on the CPU (the card's target on ``--device
+    cpu``), no measurement failing; a second run measures nothing anew."""
+    from repro_torch.launch import quickstart
+
+    cache = str(tmp_path / "measure_cache")
+    argv = ["--device", "cpu", "--smoke", "--measure", "--measure-cache", cache]
+    assert quickstart.main(argv) == 0
+    out = capsys.readouterr().out
+    assert "mcts_cost+real_1s" in out and ", 0 failures" in out
+    assert f"completed {quickstart.REQUESTS}/{quickstart.REQUESTS} requests" in out
+    records = [json.load(open(os.path.join(cache, f))) for f in os.listdir(cache)]
+    assert records and all(r["source"] == "cpu" and r["cut"]["reduced"] for r in records)
+    res, stats = quickstart.tune_measured("cpu", smoke=True, cache_dir=cache)
+    assert stats["n_measured"] == 0 and res.n_measure_failures == 0
+    assert res.n_measurements == stats["n_cache_hits"] + stats["n_deduped"] > 0
 
 
 def test_quickstart_projects_only_microbatches_and_refuses_full_width_on_the_cpu():
