@@ -7,7 +7,7 @@ Phases, one JSON line each (every line carries the card's name and power
 limit as ``nvidia-smi`` reports them):
 
 1. ``device``: torch, CUDA, the card.
-2. ``build``: the five CUDA sources (and the shared ``csrc/sm90.cuh``)
+2. ``build``: the six CUDA sources (and the shared ``csrc/sm90.cuh``)
    compiled with ``nvcc`` for ``sm_90a`` from ``src/repro_torch/kernels/csrc/``,
    one ``nvcc`` each, in parallel; seconds, ``ptxas -v`` lines, and the
    registers and spill bytes of the bf16 TMA -> wgmma kernels, which must
@@ -23,11 +23,17 @@ limit as ``nvidia-smi`` reports them):
    ``F.rms_norm`` yardstick also carry ``device_ms``: the same calls
    captured 20 to a CUDA graph and timed by replaying it, so the host's
    time a launch drops out.
-4. ``grad``: the autograd Function of rmsnorm, flash attention and moe_gemm
-   at the training shapes against autograd through the plain version, on
-   the card (rmsnorm's backward is a kernel of its own, ``rmsnorm_backward``,
-   also held alone at more widths and timed); the scan must refuse an input
-   that requires grad.
+4. ``grad``: the autograd Function of rmsnorm, flash attention, moe_gemm and
+   the scan at the training shapes against autograd through the plain
+   version, on the card (rmsnorm's backward is a kernel of its own,
+   ``rmsnorm_backward``, also held alone at more widths and timed; flash's
+   is ``flash_attention_backward`` from the forward's lse, at head_dims
+   128, 32 and 16, Sq < Skv and ragged lengths, timed alone, fwd+bwd and
+   against SDPA's fwd+bwd in turns; the scan's is
+   ``selective_scan_backward`` from the forward's carry-ins, at every
+   scan_chunk option at falcon-mamba's width, in f32, with slow decay, one
+   chunk and large dt, held to autograd through
+   ``ref.selective_scan_chunked``).
 5. Per serving arch -- granite-3-2b, granite-moe-1b-a400m, falcon-mamba-7b,
    each at full width and depth, bf16, random weights from seed 0, freed
    before the next is made:
@@ -40,8 +46,12 @@ limit as ``nvidia-smi`` reports them):
 6. ``train``: granite-moe-1b-a400m at full width through ``Trainer`` /
    ``make_train_step``, B=2 x S=4096 in two microbatches, under plan (a)
    remat full, int8 moments and int8 grad_comm (all five of its kernels)
-   and plan (b) remat dots, f32 moments: per-step loss, grad norm, lr, ms,
-   tokens/s, peak memory, exact launches per step, and a profile.
+   and plan (b) remat dots, f32 moments; then falcon-mamba-7b at full width
+   and ``MAMBA_TRAIN_LAYERS`` of its 64 layers, 1 x 4096, remat full, int8
+   moments (rmsnorm, the scan and both backward kernels, quantize): per-step
+   loss, grad norm, lr, ms, tokens/s, peak memory, exact launches per step,
+   every leaf moved by step 1, the plain attention never on the card, and a
+   profile.
 7. ``search``: step 1 of the quickstart (``launch/quickstart.py``) on the
    host: granite-moe-1b-a400m x train_4k tuned with ``mcts_1s`` for the
    H100 spec and the one card (``hw="h100"``, mesh ``card``); wall seconds,
@@ -77,10 +87,12 @@ limit as ``nvidia-smi`` reports them):
    quickstart's ``mcts_1s`` plan trained at full depth in turns.
 11. ``parity``: 2-layer f32 models at full width of each serving arch, card
    (kernels) against the port's CPU path (plain versions); for the MoE arch
-   the routing must agree too.  ``train_parity``: the same for granite-moe's
-   loss, every gradient and one int8-moment optimizer step.
+   the routing must agree too.  ``train_parity``: the same for the loss,
+   every gradient and one int8-moment optimizer step of granite-moe (512
+   tokens) and falcon-mamba (320 tokens, scan_chunk 64).
 12. ``phase_seconds``: each phase's wall seconds; then ``kernels``: one
-   summary entry per kernel (the six ported ones and the rmsnorm backward).
+   summary entry per kernel (the six ported ones and the rmsnorm, flash and
+   scan backward kernels).
 
 Every launch counter is set to 0 just before a path is driven and read just
 after it.  Any failure raises and exits non-zero.  The last line is the
@@ -89,6 +101,7 @@ the card from a seed; nothing is downloaded.  Nothing of JAX is imported.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -109,15 +122,17 @@ SM_COUNT = 132
 SFU_EXP_PER_SM_CLOCK = 16  # exp2 results a clock per SM: NVIDIA throughput table, compute capability 9.0
 SEQ = 4096
 SEED = 0
-KERNELS = ("rmsnorm", "rmsnorm_backward", "flash_attention", "moe_gemm", "selective_scan",
-           "quantize_int8", "dequantize_int8")
-LIBRARIES = ("rmsnorm", "flash_attention", "moe_gemm", "selective_scan", "quantize")  # csrc/*.cu
+KERNELS = ("rmsnorm", "rmsnorm_backward", "flash_attention", "flash_attention_backward", "moe_gemm",
+           "selective_scan", "selective_scan_backward", "quantize_int8", "dequantize_int8")
+LIBRARIES = ("rmsnorm", "flash_attention", "flash_attention_backward", "moe_gemm", "selective_scan",
+             "quantize")  # csrc/*.cu
 ARCHS = ("granite-3-2b", "granite-moe-1b-a400m", "falcon-mamba-7b")
 
 # launches of one 1x4096 prefill by arch: the one cross-check of
 # _expected_counts, which gives every other expected count
 NOT_IN_INFERENCE = {"quantize_int8": 0, "dequantize_int8": 0,  # inference quantizes nothing
-                    "rmsnorm_backward": 0}  # and takes no gradient
+                    "rmsnorm_backward": 0, "flash_attention_backward": 0,  # and takes no gradient
+                    "selective_scan_backward": 0}
 EXPECTED_PREFILL = {
     "granite-3-2b": {"rmsnorm": 81, "flash_attention": 40, "moe_gemm": 0, "selective_scan": 0,
                      **NOT_IN_INFERENCE},
@@ -128,6 +143,13 @@ EXPECTED_PREFILL = {
 }
 TRAIN_ARCH = "granite-moe-1b-a400m"
 TRAIN_STEPS = 3  # a plan's steps on the card: the first is timed apart (warm-up)
+# falcon-mamba-7b training: one 1x4096 sequence, remat full, int8 moments.
+# Full depth does not fit one card (PERF.md section 4: the optimizer's f32
+# temporaries of the stacked in_proj leaf alone are ~1.6 GB a layer), so the
+# depth is cut: 28 of 64 layers fit with ~10 GiB to spare, 32 do not
+# (scripts/torch_train_fit.py); the widths are the published ones
+MAMBA_ARCH = "falcon-mamba-7b"
+MAMBA_TRAIN_LAYERS = 28
 # the decode cut of the card's measurement (core/measure.py CUT_ROWS): 16 rows
 # over a decode_32k cache, every step at cur = S - 1, so it attends the whole cache
 DECODE_ROWS, DECODE_LEN = 16, 32768
@@ -240,11 +262,17 @@ def check_close(got, exp, what: str, *, atol: float, rtol: float, rel=None, row_
     diff = got - exp
     err = diff.abs()
     row_err = diff.reshape(-1, diff.shape[-1]).norm(dim=-1)
-    row_exp = exp.reshape(-1, exp.shape[-1]).norm(dim=-1).clamp_min(1e-30)
+    row_exp = exp.reshape(-1, exp.shape[-1]).norm(dim=-1)
+    # a row whose expected value is exactly 0 (the gradient of a query row
+    # that sees one key cancels exactly) has no relative error: it is held
+    # element by element alone, and counted
+    nonzero = row_exp > 0
     stats = {
         "max_abs_err": err.max().item(), "mean_abs_exp": exp.abs().mean().item(),
         "rel_err": (diff.norm() / exp.norm().clamp_min(1e-30)).item(),
-        "worst_row_rel_err": (row_err / row_exp).max().item(),
+        "worst_row_rel_err": (row_err[nonzero] / row_exp[nonzero]).max().item() if bool(nonzero.any())
+        else 0.0,
+        "zero_rows": int((~nonzero).sum().item()),
         "elementwise_ok": not bool((err > atol + rtol * exp.abs()).any()),
         "atol": atol, "rtol": rtol, "rel_tol": rel, "row_rel_tol": row_rel,
     }
@@ -261,9 +289,13 @@ def ptxas_lines(text: str) -> list:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = m.group(1)
-            base = re.search(r"(flash_fwd_bf16|flash_fwd_f32|rmsnorm_kernel|rmsnorm_backward_kernel|"
-                             r"rmsnorm_dw_kernel|moe_gemm_bf16|moe_gemm_f32|selective_scan_kernel|"
-                             r"selective_scan_carry_kernel|dequantize_kernel|quantize_kernel)", name)
+            base = re.search(r"(flash_fwd_bf16|flash_fwd_f32|flash_bwd_dkdv_bf16|flash_bwd_dq_bf16|"
+                             r"flash_bwd_dkdv_f32|flash_bwd_dq_f32|flash_bwd_delta|rmsnorm_kernel|"
+                             r"rmsnorm_backward_kernel|rmsnorm_dw_kernel|moe_gemm_bf16|moe_gemm_f32|"
+                             r"selective_scan_kernel|selective_scan_carry_kernel|"
+                             r"selective_scan_bwd_chunk_kernel|selective_scan_bwd_carry_kernel|"
+                             r"selective_scan_bwd_kernel|selective_scan_bwd_reduce_kernel|"
+                             r"dequantize_kernel|quantize_kernel)", name)
             label = base.group(1) if base else name
             # the template arguments: types, then integer and bool literals
             arg = r"f|13__nv_bfloat16|L[ib]\d+E"
@@ -681,7 +713,11 @@ def _grad_case(torch, what, fn_kernel, fn_plain, inputs, gen, tol, launches):
 
 def phase_grad(torch, rn, fa, mg, ss):
     """Each kernel's autograd Function on the card at the training shapes
-    against autograd through its plain version; the scan must refuse."""
+    against autograd through its plain version (the rmsnorm, flash and scan
+    backward kernels also timed alone, beside their bounds)."""
+    from repro_torch.kernels import ref as kref
+
+    F = torch.nn.functional
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
     f32 = dict(atol=1e-4, rtol=1e-4)
     rows = []
@@ -751,24 +787,71 @@ def phase_grad(torch, rn, fa, mg, ss):
         bwd_rows.append(row)
         del x, gy, w, dx, dw, xp, wp, edx, edw
 
-    for dtype, shape, tol in (("bfloat16", (1, 16, 8, SEQ, SEQ, 64), TOL_BF16),
-                              ("float32", (1, 4, 2, 512, 512, 64), f32)):
+    # flash: the Function (the forward writing lse, the backward kernel) at
+    # granite-moe's training shape first (the summary line's row), then f32,
+    # head_dim 128, 32 and 16, Sq < Skv and ragged lengths; each against
+    # autograd through the plain version
+    flash_rows = []
+    flash_cases = [  # ((B, Hq, Hkv, Sq, Skv, D), dtype, role)
+        ((1, 16, 8, SEQ, SEQ, 64), "bfloat16", "train granite-moe"),
+        ((1, 4, 2, 512, 512, 64), "float32", "f32"),
+        ((1, 8, 2, 1024, 1024, 128), "bfloat16", "head_dim 128"),
+        ((1, 4, 2, 200, 200, 128), "float32", "head_dim 128"),
+        ((2, 4, 2, 100, 333, 64), "bfloat16", "Sq < Skv, ragged"),
+        ((2, 4, 2, 100, 333, 64), "float32", "Sq < Skv, ragged"),
+        ((1, 4, 2, 300, 300, 32), "bfloat16", "ragged Sq = Skv = 300, head_dim 32"),
+        ((1, 4, 4, 200, 200, 16), "bfloat16", "head_dim 16, one q-head a kv-head"),
+    ]
+    for shape, dtype, role in flash_cases:
         B, Hq, Hkv, Sq, Skv, D = shape
+        tol = TOL_BF16 if dtype == "bfloat16" else f32
+        # the forward's tile: the training plans' (256, 256); at head_dim 128
+        # in bf16 only block_q <= 128 launches (the backward's tile is its own)
+        bq = 128 if (D > 64 and dtype == "bfloat16") else 256
         q, k, v = randn((B, Hq, Sq, D), dtype), randn((B, Hkv, Skv, D), dtype), randn((B, Hkv, Skv, D), dtype)
         stats, xs, gy = _grad_case(
-            torch, f"flash {dtype}",
-            lambda a, b, c: fa.flash_attention(a, b, c, causal=True, block_q=256, block_kv=256),
+            torch, f"flash {role} {dtype}",
+            lambda a, b, c: fa.flash_attention(a, b, c, causal=True, block_q=bq, block_kv=bq),
             lambda a, b, c: fa.attention_plain(a, b, c, causal=True), [q, k, v], gen, tol,
-            {fa.LAUNCHES: 1})
-        row = {"kernel": "flash_attention", "shape": list(shape), "dtype": dtype, **stats}
-        if dtype == "bfloat16":
-            row.update(
-                fwd_bwd_ms=cuda_ms(torch, lambda: torch.autograd.grad(fa.flash_attention(
-                    *xs, causal=True, block_q=256, block_kv=256), xs, gy), iters=5),
-                plain_fwd_bwd_ms=cuda_ms(torch, lambda: torch.autograd.grad(
-                    fa.attention_plain(*xs, causal=True), xs, gy), iters=5),
-                note="backward is the plain version's, recomputed")
-        rows.append(row)
+            {fa.LAUNCHES: 1, fa.BWD_LAUNCHES: 1})
+        grads = [stats[f"d{i}"] for i in range(3)]
+        row = {"kernel": "flash_attention_backward", "shape": list(shape), "dtype": dtype, "role": role,
+               "forward_tile": [bq, bq], "tiles": sorted(fa.BWD_LAUNCHES.tiles), **stats,
+               "max_abs_err": max(g["max_abs_err"] for g in grads),
+               "rel_err": max(g["rel_err"] for g in grads), "mean_abs_exp": grads[0]["mean_abs_exp"],
+               "launches": {"flash_attention": 1, "flash_attention_backward": 1},
+               "main_path": role.startswith("train")}
+        # the five products: 10 D operations a visible (query, key) pair a
+        # q-head; q, k, v, lse and do read once, dq, dk, dv written once
+        pairs = _visible_pairs(Sq, Skv, True) * B * Hq
+        ops = 10 * D * pairs
+        esz = q.element_size()
+        nbytes = (3 * q.numel() + 4 * k.numel()) * esz + 4 * B * Hq * Sq
+        b_ms, b_by = bound(nbytes, ops, dtype)
+        _, lse = fa._launch(q, k, v, True, fa.flash_launch(B, Hq, Sq, Skv, D, dtype, bq, bq),
+                            with_lse=True)
+        bwd = fa.flash_backward_launch(B, Hq, Hkv, Sq, Skv, D, dtype)
+        fwd_bwd = lambda: torch.autograd.grad(fa.flash_attention(  # noqa: E731
+            *xs, causal=True, block_q=bq, block_kv=bq), xs, gy)
+        # SDPA's is_causal aligns the diagonal top-left: the same function only when Sq == Skv
+        sdpa = (lambda: torch.autograd.grad(F.scaled_dot_product_attention(  # noqa: E731
+            *xs, is_causal=True, enable_gqa=True), xs, gy)) if Sq == Skv else None
+        both = timed(torch, fwd_bwd, sdpa, ops + 4 * D * pairs, iters=10)
+        alone = timed(torch, lambda: fa._launch_backward(q, k, v, lse, gy, True, bwd), None, ops,
+                      iters=10)
+        row.update(
+            **{**alone, "library_ms": both["library_ms"]},
+            fwd_bwd_ms=both["ms"], fwd_bwd_ms_runs=both["ms_runs"],
+            fwd_bwd_vs_library=both.get("vs_library"),
+            plain_ms=cuda_ms(torch, lambda: fa.attention_backward_plain(q, k, v, lse, gy),
+                             iters=3, warmup=1),
+            plain_fwd_bwd_ms=cuda_ms(torch, lambda: torch.autograd.grad(
+                fa.attention_plain(*xs, causal=True), xs, gy), iters=3, warmup=1),
+            bound_ms=b_ms, bound_by=b_by, ops=ops, bytes=nbytes,
+            library="torch.autograd.grad through F.scaled_dot_product_attention (fwd+bwd), "
+                    "in turns with the kernels' fwd+bwd; never called by the port")
+        flash_rows.append(row)
+        del lse
         del q, k, v, xs, gy
 
     # granite-moe's training shapes: 1x4096 tokens a microbatch, C = 1280
@@ -804,20 +887,76 @@ def phase_grad(torch, rn, fa, mg, ss):
         rows.append(row)
         del x, w, xs, gy
 
-    u = randn((1, 256, 512), "bfloat16").requires_grad_()
-    A = -torch.ones((512, 16), device="cuda")
-    bm = randn((1, 256, 16), "bfloat16")
-    try:
-        ss.selective_scan(u, u, A, bm, bm, torch.ones(512, device="cuda"))
-    except NotImplementedError as e:
-        scan = str(e)
-    else:
-        raise AssertionError("selective_scan returned an output for an input that requires grad")
-    emit("grad", cases=rows, rmsnorm_backward=bwd_rows, scan_refuses=scan,
-         note="rmsnorm backward: its own kernel; flash backward: plain recompute; moe_gemm "
-              "backward: 2 kernel launches on the saved operands as stored (dx reads w "
-              "transposed, dw reads x transposed)")
-    return bwd_rows
+    # the scan: the Function (the forward keeping its carry-ins, the backward
+    # kernel) at falcon-mamba's training shape under each scan_chunk option
+    # (chunk 128, the main path's, first: the summary line's row), then f32
+    # with 5 chunks, slow decay (dt ~ 0.02: adjoints carried across chunks),
+    # one chunk, and large dt (dt ~ 3: a_t underflows); each against
+    # autograd through ref.selective_scan_chunked (the plain loop over L is
+    # too slow at 4096 steps)
+    scan_rows = []
+    scan_cases = [  # ((B, L, Di, N), chunk, d_block, dtype, dt_shift, role)
+        ((1, SEQ, 8192, 16), 128, 256, "bfloat16", 0.0, "train falcon-mamba, plan chunk 128"),
+        ((1, SEQ, 8192, 16), 64, 256, "bfloat16", 0.0, "train falcon-mamba, plan chunk 64"),
+        ((1, SEQ, 8192, 16), 256, 256, "bfloat16", 0.0, "train falcon-mamba, plan chunk 256"),
+        ((2, 320, 512, 16), 64, 256, "float32", 0.0, "f32, 5 chunks"),
+        ((1, 1024, 256, 16), 64, 128, "float32", -4.0, "f32, 16 chunks, slow decay"),
+        ((1, 1024, 1024, 16), 128, 256, "bfloat16", -4.0, "8 chunks, slow decay"),
+        ((2, 256, 1024, 16), 256, 256, "bfloat16", 0.0, "chunk == L"),
+        ((1, 96, 48, 8), 32, 48, "float32", 3.0, "N = 8, d_block == Di, large dt"),
+    ]
+    plain_ms = {}  # the closed-form plain backward's time by shape (its work does not depend on the chunk)
+    clock_hz = max_sm_clock_mhz() * 1e6
+    for (B, L, Di, N), ch, db, dtype, shift, role in scan_cases:
+        tol = TOL_BF16 if dtype == "bfloat16" else dict(atol=1e-4, rtol=1e-3)  # the forward's
+        args = _scan_inputs(torch, gen, B, L, Di, N, dtype, shift)
+        stats, xs, gy = _grad_case(
+            torch, f"selective_scan {role} {dtype}",
+            lambda *a: ss.selective_scan(*a, chunk=ch, d_block=db),
+            lambda *a: kref.selective_scan_chunked(*a, min(ch, L)), list(args), gen, tol,
+            {ss.LAUNCHES: 1, ss.BWD_LAUNCHES: 1})
+        bwd = ss.scan_backward_launch(B, L, Di, N, dtype, ch, db)
+        grads = [stats[f"d{i}"] for i in range(6)]
+        row = {"kernel": "selective_scan_backward", "shape": [B, L, Di, N], "dtype": dtype,
+               "role": role, "tile": [bwd.chunk, bwd.d_block], "chunks": L // bwd.chunk,
+               "kernel_launches_per_call": bwd.kernels, "scratch_mib": bwd.scratch_floats * 4 / 2**20,
+               **stats, "max_abs_err": max(g["max_abs_err"] for g in grads),
+               "rel_err": max(g["rel_err"] for g in grads), "mean_abs_exp": grads[0]["mean_abs_exp"],
+               "launches": {"selective_scan": 1, "selective_scan_backward": 1},
+               "main_path": role.startswith("train")}
+        esz = args[0].element_size()
+        # u, dt, gy, Bm, Cm, A, D read once, du, ddt, dBm, dCm, dA, dD
+        # written once; ~25 f32 operations a state update (the state
+        # recomputed, the adjoint, five gradient terms)
+        nbytes = (5 * B * L * Di + 4 * B * L * N) * esz + 2 * (Di * N + Di) * 4
+        ops = 25 * B * L * Di * N
+        b_ms, b_by = bound(nbytes, ops, "float32")
+        u, dt_, A, Bm, Cm, D = (x.detach() for x in xs)
+        y, states = ss._launch(u, dt_, A, Bm, Cm, D, ss.scan_launch(B, L, Di, N, dtype, ch, db))
+        key = (B, L, Di, N, dtype)
+        if key not in plain_ms:  # one timed call: seconds at falcon-mamba's width
+            plain_ms[key] = cuda_ms(torch, lambda: ss.selective_scan_backward_plain(
+                u, dt_, A, Bm, Cm, D, gy), iters=1, warmup=0)
+        row.update(
+            **timed(torch, lambda: ss._launch_backward(u, dt_, A, Bm, Cm, D, states, gy, bwd), None,
+                    ops, iters=10),
+            fwd_bwd_ms=cuda_ms(torch, lambda: torch.autograd.grad(
+                ss.selective_scan(*xs, chunk=ch, d_block=db), xs, gy), iters=5),
+            plain_ms=plain_ms[key], bound_ms=b_ms, bound_by=b_by, ops=ops, bytes=nbytes,
+            exp_bound_ms=3 * B * L * Di * N / (SM_COUNT * SFU_EXP_PER_SM_CLOCK * clock_hz) * 1e3,
+            library="none: no PyTorch call computes the scan's gradient")
+        scan_rows.append(row)
+        del y, states
+        del args, xs, gy
+    emit("grad", cases=rows, rmsnorm_backward=bwd_rows, flash_attention_backward=flash_rows,
+         selective_scan_backward=scan_rows,
+         note="rmsnorm backward: its own kernel; flash backward: the flash_attention_backward "
+              "kernel (dQ and Delta, then dK/dV) from the forward's lse; scan backward: the "
+              "selective_scan_backward kernel (chunk adjoints, reverse fold, output, reduce) "
+              "from the forward's carry-ins; moe_gemm backward: 2 kernel launches on the saved "
+              "operands as stored (dx reads w transposed, dw reads x transposed)")
+    return {"rmsnorm_backward": bwd_rows, "flash_attention_backward": flash_rows,
+            "selective_scan_backward": scan_rows}
 
 
 # ---------------------------------------------------------------------------
@@ -1026,7 +1165,7 @@ def phase_slot_reuse(np, cfg, params, ServingEngine):
 
 
 def _kernel_group(name: str) -> str:
-    if re.search(r"rmsnorm_\w*kernel|flash_fwd|moe_gemm_(bf16|f32)|selective_scan_\w*kernel|"
+    if re.search(r"rmsnorm_\w*kernel|flash_fwd|flash_bwd|moe_gemm_(bf16|f32)|selective_scan_\w*kernel|"
                  r"quantize_kernel", name):
         return "kernels"
     if re.search(r"gemm|cutlass|nvjet|xmma|sm90_|cublas|matmul", name, re.I):
@@ -1134,24 +1273,54 @@ def _expected_train_counts(cfg, plan, params, moment_dtype: str, optim) -> dict:
     """Launches of one train step of ``cfg`` under ``plan``, per microbatch:
     the forward's; with remat (``dots`` or ``full``) the period's kernels
     again in the backward (the final norm lies outside the remat period);
-    one rmsnorm backward for each norm of the forward and two more grouped
-    GEMMs for each one's backward (flash's backward is a plain recompute: no
-    launch).  Then per quantizable leaf two quantizes and two dequantizes for
-    int8 moments, one each for int8 ``grad_comm``."""
+    one rmsnorm, flash and scan backward for each norm, attention and Mamba
+    mixer of the forward, and two more grouped GEMMs for each one's
+    backward.  Then per quantizable leaf two quantizes and two dequantizes
+    for int8 moments, one each for int8 ``grad_comm``."""
     fwd = _expected_counts(cfg)
     rerun = int(plan.remat != "none")
     counts = {
         "rmsnorm": fwd["rmsnorm"] + rerun * (fwd["rmsnorm"] - 1),
         "rmsnorm_backward": fwd["rmsnorm"],
         "flash_attention": fwd["flash_attention"] * (1 + rerun),
+        "flash_attention_backward": fwd["flash_attention"],
         "moe_gemm": fwd["moe_gemm"] * (1 + rerun) + 2 * fwd["moe_gemm"],
-        "selective_scan": 0,
+        "selective_scan": fwd["selective_scan"] * (1 + rerun),
+        "selective_scan_backward": fwd["selective_scan"],
     }
     counts = {k: v * plan.microbatches for k, v in counts.items()}
     n_quant = sum(optim._quantizable(p) for _, p in optim.leaves(params))
     per_leaf = 2 * (moment_dtype == "int8") + (plan.grad_comm == "int8")
     counts["quantize_int8"] = counts["dequantize_int8"] = n_quant * per_leaf
     return counts
+
+
+@contextlib.contextmanager
+def plain_attention_watch():
+    """Records the device of every call of the plain attention
+    (``ref.attention``, under both names the port holds it by): a train step
+    on the card must make none on a CUDA tensor."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    real, seen = ref.attention, []
+
+    def recording(q, *args, **kw):
+        seen.append(q.device.type)
+        return real(q, *args, **kw)
+
+    ref.attention = fa.attention_plain = recording
+    try:
+        yield seen
+    finally:
+        ref.attention = fa.attention_plain = real
+
+
+def _check_no_plain_attention(seen: list, what: str) -> int:
+    on_card = seen.count("cuda")
+    if on_card:
+        raise AssertionError(f"{what}: the plain attention ran {on_card} times on the card")
+    return on_card
 
 
 def _bf16_frozen(torch, p, lr: float, weight_decay: float) -> bool:
@@ -1168,27 +1337,32 @@ def _bf16_frozen(torch, p, lr: float, weight_decay: float) -> bool:
     return bool((lr * (1 + weight_decay * a) < half_step).all())
 
 
-def phase_train(torch, name, plan, mods) -> dict:
-    """granite-moe at full width through ``Trainer`` / ``make_train_step``:
-    B=2, S=4096, two microbatches of 1x4096; exact launches per step, finite
-    loss and gradient norm, every leaf moved by step 1, a profile."""
+def phase_train(torch, name, plan, mods, arch=TRAIN_ARCH, batch=2, n_layers=None) -> dict:
+    """``arch`` at full width (``n_layers``: a depth cut) through ``Trainer``
+    / ``make_train_step``: ``batch`` x 4096 tokens; exact launches per step,
+    the plain attention never on the card, finite loss and gradient norm,
+    every leaf moved by step 1, peak memory, a profile."""
     optim = mods.optim
-    cfg = mods.get_config(TRAIN_ARCH)
+    cfg = mods.get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     oc = optim.OptimizerConfig(peak_lr=1e-3, warmup_steps=2, moment_dtype=plan.opt_dtype)
-    shape = mods.InputShape("train_chip", SEQ, 2, "train")
+    shape = mods.InputShape("train_chip", SEQ, batch, "train")
     tc = mods.TrainerConfig(total_steps=1, ckpt_every=10**9, log_every=1, ckpt_async=False,
                             ckpt_dir=str(ROOT / "build" / "chip_smoke_ckpt"), seed=SEED)
     tr = mods.Trainer(cfg, shape, plan, tc, opt_cfg=oc, device="cuda")
     params, opt_state, _ = tr.init_state()
+    n_params = sum(p.numel() for _, p in optim.leaves(params))
     expected = _expected_train_counts(cfg, plan, params, oc.moment_dtype, optim)
-    before = {k: v.detach().clone() for k, v in optim.leaves(params)}
+    before = {k: v.detach().to("cpu", copy=True) for k, v in optim.leaves(params)}  # off the card
     mods.ops.reset_counters()
-    params, opt_state, step = tr.run(params, opt_state, 0)
+    with plain_attention_watch() as seen:
+        params, opt_state, step = tr.run(params, opt_state, 0)
     first = mods.ops.launch_counts()
     if first != expected:
         raise AssertionError(f"train {name}: step 1 launches {first}, expected {expected}")
     lr1 = tr.metrics_log[0]["lr"]
-    unchanged = [k for k, v in optim.leaves(params) if torch.equal(v, before[k])]
+    unchanged = [k for k, v in optim.leaves(params) if torch.equal(v.detach().cpu(), before[k])]
     frozen = [k for k in unchanged if _bf16_frozen(torch, before[k], lr1, oc.weight_decay)]
     if set(unchanged) - set(frozen):
         raise AssertionError(f"train {name}: leaves unchanged after step 1: "
@@ -1199,11 +1373,13 @@ def phase_train(torch, name, plan, mods) -> dict:
     torch.cuda.reset_peak_memory_stats()  # peak of steps 2..: weights, state, one step's work
     tr.tc.total_steps = TRAIN_STEPS
     mods.ops.reset_counters()
-    params, opt_state, step = tr.run(params, opt_state, step)
+    with plain_attention_watch() as seen_rest:
+        params, opt_state, step = tr.run(params, opt_state, step)
     rest = mods.ops.launch_counts()
     want = {k: v * (TRAIN_STEPS - 1) for k, v in expected.items()}
     if rest != want:
         raise AssertionError(f"train {name}: steps 2-{TRAIN_STEPS} launches {rest}, expected {want}")
+    plain_on_card = _check_no_plain_attention(seen + seen_rest, f"train {name}")
     peak = torch.cuda.max_memory_allocated()
     log = tr.metrics_log
     if len(log) != TRAIN_STEPS or not all(
@@ -1211,18 +1387,23 @@ def phase_train(torch, name, plan, mods) -> dict:
         raise AssertionError(f"train {name}: non-finite loss or grad_norm: {log}")
     steady = [r["step_time_s"] for r in log[1:]]
     med = statistics.median(steady)
-    batch = tr.batch_at(step)
-    prof = _profile_one(torch, lambda: tr.step_fn(params, opt_state, batch))
-    emit("train", arch=cfg.name, plan=name, plan_fields={
-             k: getattr(plan, k) for k in ("remat", "microbatches", "opt_dtype", "grad_comm")},
-         batch=2, seq=SEQ, microbatch_tokens=SEQ * 2 // plan.microbatches,
+    tokens = batch * SEQ
+    step_batch = tr.batch_at(step)
+    prof = _profile_one(torch, lambda: tr.step_fn(params, opt_state, step_batch))
+    emit("train", arch=cfg.name, plan=name, n_layers=cfg.n_layers, params=n_params, plan_fields={
+             k: getattr(plan, k) for k in ("remat", "microbatches", "opt_dtype", "grad_comm",
+                                           "scan_chunk")},
+         batch=batch, seq=SEQ, microbatch_tokens=tokens // plan.microbatches,
          steps=[{"step": r["step"], "loss": r["loss"], "grad_norm": r["grad_norm"], "lr": r["lr"],
                  "step_ms": r["step_time_s"] * 1e3,
-                 "tokens_per_s": 2 * SEQ / r["step_time_s"]} for r in log],
-         median_step_ms=med * 1e3, tokens_per_s=2 * SEQ / med, peak_memory_gib=peak / 2**30,
+                 "tokens_per_s": tokens / r["step_time_s"]} for r in log],
+         median_step_ms=med * 1e3, tokens_per_s=tokens / med, peak_memory_gib=peak / 2**30,
+         card_memory_gib=torch.cuda.get_device_properties(0).total_memory / 2**30,
          launches_per_step=expected, launches_step1=first, launches_rest=rest,
+         plain_attention_calls_on_card=plain_on_card, plain_attention_calls=len(seen + seen_rest),
          leaves_frozen_by_bf16_rounding=frozen, profile=prof)
-    del tr, params, opt_state, batch
+    del tr, params, opt_state, step_batch
+    gc.collect()
     torch.cuda.empty_cache()
     return {k: first[k] + rest[k] for k in first}
 
@@ -1278,7 +1459,8 @@ def phase_quickstart(torch, np, mods, res) -> dict:
     expected = _expected_train_counts(cfg, plan, params, tr.opt_cfg.moment_dtype, optim)
     tr.tc.total_steps = 1
     ops.reset_counters()
-    params, opt_state, step = tr.run(params, opt_state, 0)
+    with plain_attention_watch() as seen:
+        params, opt_state, step = tr.run(params, opt_state, 0)
     first = ops.launch_counts()
     launched = _launched_tiles(ops)
     if first != expected:
@@ -1291,11 +1473,13 @@ def phase_quickstart(torch, np, mods, res) -> dict:
     torch.cuda.reset_peak_memory_stats()  # peak of steps 2..: weights, state, one step's work
     tr.tc.total_steps = qs.STEPS
     ops.reset_counters()
-    params, opt_state, step = tr.run(params, opt_state, step)
+    with plain_attention_watch() as seen_rest:
+        params, opt_state, step = tr.run(params, opt_state, step)
     rest = ops.launch_counts()
     want = {k: v * (qs.STEPS - 1) for k, v in expected.items()}
     if rest != want:
         raise AssertionError(f"quickstart train steps 2-{qs.STEPS} launches {rest}, expected {want}")
+    plain_on_card = _check_no_plain_attention(seen + seen_rest, "quickstart train")
     peak = torch.cuda.max_memory_allocated()
     log = tr.metrics_log
     if len(log) != qs.STEPS or not all(
@@ -1336,6 +1520,7 @@ def phase_quickstart(torch, np, mods, res) -> dict:
                      "lr": r["lr"], "step_ms": r["step_time_s"] * 1e3} for r in log],
                 "median_step_ms": med * 1e3, "tokens_per_s": tokens / med,
                 "peak_memory_gib": peak / 2**30, "launches_per_step": expected, "profile": prof,
+                "plain_attention_calls_on_card": plain_on_card,
                 "launched_tiles": {k: sorted(map(list, v)) for k, v in launched.items()}},
          serve={"slots": eng.slots, "completed": len(done), "submitted": qs.REQUESTS,
                 "run_s": wall, "decode_calls": calls,
@@ -1648,21 +1833,21 @@ def phase_measure(torch, np, mods, base_res) -> dict:
     return counts
 
 
-def phase_train_parity(torch, np, mods):
-    """A 2-layer f32 granite-moe at full width, B=1, S=512: loss and every
-    gradient leaf on the card (kernels and their Functions) against the
-    port's CPU path; then one ``apply_updates`` with int8 moments from the
-    same gradients on both."""
+def phase_train_parity(torch, np, mods, arch=TRAIN_ARCH, S=512, plan=None):
+    """A 2-layer f32 ``arch`` at full width, B=1, ``S`` tokens: loss and
+    every gradient leaf on the card (kernels and their Functions: the flash
+    and scan backward kernels among them) against the port's CPU path; then
+    one ``apply_updates`` with int8 moments from the same gradients on
+    both."""
     optim, transformer, moe, ops = mods.optim, mods.transformer, mods.moe, mods.ops
-    cfg = dataclasses.replace(mods.get_config(TRAIN_ARCH), n_layers=2, dtype="float32")
-    tiles = mods.tiles_from_plan(mods.SchedulePlan())
+    cfg = dataclasses.replace(mods.get_config(arch), n_layers=2, dtype="float32")
+    tiles = mods.tiles_from_plan(plan or mods.SchedulePlan())
     params = {"cpu": transformer.init_params(cfg, SEED, device="cpu")}
     params["cuda"] = _tree_to(params["cpu"], "cuda")
-    S = 512
     toks = torch.from_numpy(np.random.default_rng(SEED + 7).integers(0, cfg.vocab_size, (1, S)))
     routes = {"cuda": [], "cpu": []}
     real_route = moe.route
-    out, counts = {}, None
+    out, counts, launched = {}, None, None
     try:
         for device in ("cuda", "cpu"):
             def route(p, c, xt, device=device):
@@ -1682,13 +1867,16 @@ def phase_train_parity(torch, np, mods):
             if device == "cuda":
                 torch.cuda.synchronize()
                 counts = ops.launch_counts()
+                launched = {k: sorted(map(list, v)) for k, v in _launched_tiles(ops).items()}
             out[device] = (loss.detach().cpu(), {k: g.detach().cpu() for k, g in zip(paths, grads)})
     finally:
         moe.route = real_route
     fwd = _expected_counts(cfg)
-    want = {**fwd, "moe_gemm": 3 * fwd["moe_gemm"], "rmsnorm_backward": fwd["rmsnorm"]}
+    want = {**fwd, "moe_gemm": 3 * fwd["moe_gemm"], "rmsnorm_backward": fwd["rmsnorm"],
+            "flash_attention_backward": fwd["flash_attention"],
+            "selective_scan_backward": fwd["selective_scan"]}
     if counts != want:
-        raise AssertionError(f"train_parity: launches {counts}, expected {want}")
+        raise AssertionError(f"train_parity {cfg.name}: launches {counts}, expected {want}")
     loss_stats = check_close(out["cuda"][0][None], out["cpu"][0][None], "train_parity loss",
                              atol=1e-5, rtol=1e-5)
     grad_rel = {}
@@ -1696,7 +1884,7 @@ def phase_train_parity(torch, np, mods):
         g = out["cuda"][1][k]
         grad_rel[k] = ((g - g_cpu).norm() / g_cpu.norm().clamp_min(1e-30)).item()
         if not bool(g.isfinite().all()) or grad_rel[k] > 1e-4:
-            raise AssertionError(f"train_parity: gradient {k} rel {grad_rel[k]} > 1e-4")
+            raise AssertionError(f"train_parity {cfg.name}: gradient {k} rel {grad_rel[k]} > 1e-4")
     k_top, gaps = cfg.experts_per_token, []
     for (_, _, topi_gpu), (probs, _, topi_cpu) in zip(routes["cuda"], routes["cpu"], strict=True):
         if not torch.equal(topi_gpu.cpu(), topi_cpu):
@@ -1739,9 +1927,10 @@ def phase_train_parity(torch, np, mods):
     if n_diff > 1e-5 * n_codes:
         raise AssertionError(f"train_parity: {n_diff} of {n_codes} int8 codes differ (limit 1e-5)")
     emit("train_parity", arch=cfg.name, n_layers=2, dtype="float32", tokens=S, launches=counts,
-         loss_cuda=out["cuda"][0].item(), loss_cpu=out["cpu"][0].item(), loss=loss_stats,
+         tiles=launched, loss_cuda=out["cuda"][0].item(), loss_cpu=out["cpu"][0].item(), loss=loss_stats,
          worst_grad_rel=max(grad_rel.values()), grad_rel=grad_rel,
-         routing={"layers": len(gaps), "topi_equal": True, "min_gap_kth_to_next_prob": min(gaps)},
+         routing={"layers": len(gaps), "topi_equal": True,
+                  "min_gap_kth_to_next_prob": min(gaps) if gaps else None},
          optimizer={"moment_dtype": "int8", "launches": opt_counts, "worst_param_abs_err": worst_param,
                     "codes": n_codes, "codes_differing": n_diff})
 
@@ -1780,13 +1969,21 @@ SOURCES = {
     "moe_gemm": ("src/repro_torch/kernels/csrc/moe_gemm.cu", "src/repro/kernels/moe_gemm.py:69"),
     "selective_scan": ("src/repro_torch/kernels/csrc/selective_scan.cu",
                        "src/repro/kernels/selective_scan.py:90"),
+    # the gradients of the flash and scan kernels, which the JAX package takes
+    # with jax.vjp of its oracles (src/repro/kernels/ref.py:16 and :50); the
+    # TPU has no kernel of either
+    "flash_attention_backward": ("src/repro_torch/kernels/csrc/flash_attention_backward.cu",
+                                 "src/repro/kernels/flash_attention.py:129"),
+    "selective_scan_backward": ("src/repro_torch/kernels/csrc/selective_scan.cu",
+                                "src/repro/kernels/selective_scan.py:90"),
     "quantize_int8": ("src/repro_torch/kernels/csrc/quantize.cu", "src/repro/kernels/quantize.py:36"),
     "dequantize_int8": ("src/repro_torch/kernels/csrc/quantize.cu",
                         "src/repro/kernels/quantize.py:65"),
 }
 _SUMMARY_KEYS = ("shape", "dtype", "role", "max_abs_err", "rel_err", "ms", "plain_ms", "bound_ms",
                  "bound_by", "library_ms", "vs_library", "achieved_tflops", "device_ms",
-                 "library_device_ms", "exp_bound_ms", "kernel_launches_per_call")
+                 "library_device_ms", "exp_bound_ms", "kernel_launches_per_call", "fwd_bwd_ms",
+                 "fwd_bwd_vs_library")
 
 
 def _summary_row(n: str, rows: list, launches: int) -> dict:
@@ -1794,7 +1991,7 @@ def _summary_row(n: str, rows: list, launches: int) -> dict:
     quantize phase's rows (``dequant_*`` fields for the dequantize)."""
     src, replaces = SOURCES[n]
     head = {"name": n, "route": "cuda", "source": src, "replaces": replaces, "launches": launches}
-    timed_rows = [r for r in rows if "ms" in r]
+    timed_rows = [r for r in rows if "ms" in r and r.get("main_path", True)]
     if n in ("quantize_int8", "dequantize_int8"):
         pre = "" if n == "quantize_int8" else "dequant_"
         err = (lambda r: 0.0) if n == "quantize_int8" else (  # q and scale bit-equal
@@ -1907,7 +2104,7 @@ def main() -> int:
     }
     rows["quantize_int8"] = rows["dequantize_int8"] = timed_phase(
         "kernels", phase_kernels_quantize, torch, qt)
-    rows["rmsnorm_backward"] = timed_phase("grad", phase_grad, torch, rn, fa, mg, ss)
+    rows.update(timed_phase("grad", phase_grad, torch, rn, fa, mg, ss))
 
     plans = {
         "granite-3-2b": [SchedulePlan(), SchedulePlan(attn_block=(128, 128))],
@@ -1935,6 +2132,13 @@ def main() -> int:
         if name == "a" and not all(counts[n] for n in ("quantize_int8", "dequantize_int8", "moe_gemm")):
             raise AssertionError(f"train plan a launched {counts}")
         add(counts)
+    # falcon-mamba-7b: the scan's backward on the main path
+    mamba_plan = SchedulePlan(remat="full", microbatches=1, opt_dtype="int8", scan_chunk=128)
+    counts = timed_phase("train", phase_train, torch, "mamba", mamba_plan, mods, MAMBA_ARCH, 1,
+                         MAMBA_TRAIN_LAYERS)
+    if not all(counts[n] for n in ("selective_scan", "selective_scan_backward", "rmsnorm_backward")):
+        raise AssertionError(f"train falcon-mamba launched {counts}")
+    add(counts)
     # the quickstart: tune on the host, then train and serve with the tuned plan
     res, tuned_row = timed_phase("search", phase_search, torch, F, fa, mods)
     rows["flash_attention"].append(tuned_row)
@@ -1956,6 +2160,8 @@ def main() -> int:
         timed_phase("parity", phase_parity, torch, np, get_config(arch), parity_plans[arch], ops,
                     mods.transformer, mods.moe, mods.make_positions, mods.tiles_from_plan)
     timed_phase("train_parity", phase_train_parity, torch, np, mods)
+    timed_phase("train_parity", phase_train_parity, torch, np, mods, MAMBA_ARCH, 320,
+                SchedulePlan(scan_chunk=64))
     emit("phase_seconds", seconds=phase_s, total_s=time.perf_counter() - T_START)
 
     summary = [_summary_row(n, rows[n], launches[n]) for n in KERNELS]

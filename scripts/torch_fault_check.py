@@ -11,7 +11,7 @@ in ``models/attention.py``); the copy builds its
 own kernels and runs, in a fresh process, the ``chip_smoke`` phase that must
 catch it: the file's phase, or the case's own where it names one (the
 unedited control runs every phase named below).  The control must pass
-and every mutant (fourteen of them) must fail.  Prints one JSON line per
+and every mutant (eighteen of them) must fail.  Prints one JSON line per
 case (with the failing check's numbers) and exits 1 if any case went the
 other way.
 """
@@ -40,6 +40,7 @@ PHASES = {
 PHASE_OF = {
     "kernels/csrc/rmsnorm.cu": "phase_kernels_rmsnorm",
     "kernels/csrc/flash_attention.cu": "phase_kernels_flash",
+    "kernels/csrc/flash_attention_backward.cu": "phase_grad",
     "kernels/csrc/moe_gemm.cu": "phase_kernels_moe",
     "kernels/csrc/selective_scan.cu": "phase_kernels_scan",
     "kernels/csrc/quantize.cu": "phase_kernels_quantize",
@@ -96,6 +97,29 @@ CASES = {
         "carry = fmaf(ex2(a2 * dtsum[(static_cast<long long>(b) * nC + (c ? c - 1 : 0)) * Di + d]),"
         " carry, states[at]);",
     )]),
+    # the flash backward's dK/dV takes the first q-head of each GQA group
+    # only, dropping the group's sum
+    "flash_backward_drops_gqa_group_sum": ("kernels/csrc/flash_attention_backward.cu", [(
+        "  const int steps = groups * nq;",
+        "  const int steps = nq;",
+    )]),
+    # the flash backward reads the forward's lse (natural log) as if it were
+    # in log2 units
+    "flash_backward_lse_read_as_log2": ("kernels/csrc/flash_attention_backward.cu", [(
+        "  return l == -INFINITY ? INFINITY : l * kLog2e;",
+        "  return l == -INFINITY ? INFINITY : l;",
+    )]),
+    # the scan backward never folds the adjoint carried in from later
+    # chunks: each chunk's walk starts from zero
+    "scan_backward_skips_reverse_fold": ("kernels/csrc/selective_scan.cu", [(
+        "    float gnext = (st && c < nC - 1) ? adj[state_at(b, c + 1, n, d, nC, N, Di)] : 0.f;",
+        "    float gnext = 0.f;",
+    )], "phase_grad"),
+    # the scan backward's du leaves out the skip term D * gy
+    "scan_backward_du_drops_d_gy": ("kernels/csrc/selective_scan.cu", [(
+        "from_f32<T>(fmaf(dskip, gyv, s_du));",
+        "from_f32<T>(s_du);",
+    )], "phase_grad"),
     # a row spread over a group of warps (d >= 4096 in bf16) normalises by
     # its own warp's sum of squares, not the group's
     "rmsnorm_group_sum_own_warp_only": ("kernels/csrc/rmsnorm.cu", [(

@@ -39,6 +39,12 @@
 //  * f32: one thread per query row in true f32 on the CUDA cores (no TF32),
 //    16 keys per softmax step, for the 2e-5 tolerance of the f32 tests.
 //
+// lse: where the caller passes it (training: the backward kernel,
+// csrc/flash_attention_backward.cu, reads it), each row's log-sum-exp of its
+// scaled scores, m + log(l) in natural-log units, (B,Hq,Sq) f32, written in
+// the epilogue from the running max and sum the rows already hold; -inf for
+// a row that sees no key.  Serving passes null and writes nothing more.
+//
 // The tile is the caller's (the plan's): the wrapper passes block_q,
 // block_kv, the key rows the ring holds, the thread count and the
 // shared-memory size (kernels/geometry.py), and the launcher checks them
@@ -59,6 +65,7 @@ constexpr int kSub = 64;        // bf16: keys per ring stage and online-softmax 
 constexpr int kWgRows = 64;     // bf16: query rows of one consumer warpgroup
 constexpr int kStepF32 = 16;    // f32: keys per online-softmax step
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kThreadsF32 = 256;
 constexpr int kSmemPerBlock = 232448;
 
@@ -130,8 +137,9 @@ int f32_smem(int block_kv, int D) { return 2 * f32_kv_pad(block_kv) * D * 4; }
 template <int D>
 __global__ void __launch_bounds__(Bf16<D>::kThreads, 1)
 flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
-               const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ o, int Hq, int Hkv,
-               int Sq, int Skv, int block_q, int block_kv, int kv_pad, int causal, float scale) {
+               const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ o,
+               float* __restrict__ lse, int Hq, int Hkv, int Sq, int Skv, int block_q, int block_kv,
+               int kv_pad, int causal, float scale) {
   using K = Bf16<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* qs = sm90::align1024(smem_raw);
@@ -298,6 +306,11 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__
     l_b = quad_sum(l_b);
     const float inv_a = 1.f / (l_a == 0.f ? 1.f : l_a);  // a row that saw no key -> 0
     const float inv_b = 1.f / (l_b == 0.f ? 1.f : l_b);
+    if (lse != nullptr && t4 == 0) {  // m is in log2 units: lse = (m + log2 l) ln 2
+      float* lb = lse + static_cast<long long>(b * Hq + h) * Sq;
+      if (ra < q_end) lb[ra] = l_a == 0.f ? -INFINITY : (m_a + log2f(l_a)) * kLn2;
+      if (rb < q_end) lb[rb] = l_b == 0.f ? -INFINITY : (m_b + log2f(l_b)) * kLn2;
+    }
     bf16* ob = o + static_cast<long long>(b * Hq + h) * Sq * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
@@ -318,8 +331,9 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__
 template <int D>
 __global__ void __launch_bounds__(kThreadsF32)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, int Hq, int Hkv, int Sq,
-              int Skv, int block_q, int block_kv, int kv_pad, int causal, float scale) {
+              const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse, int Hq,
+              int Hkv, int Sq, int Skv, int block_q, int block_kv, int kv_pad, int causal,
+              float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* Ks = reinterpret_cast<float*>(smem_raw);  // [kv_pad][D]
   float* Vs = Ks + kv_pad * D;                       // [kv_pad][D]
@@ -418,6 +432,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   if (!valid) return;
+  if (lse != nullptr)
+    lse[static_cast<long long>(b * Hq + h) * Sq + row] = l == 0.f ? -INFINITY : m + logf(l);
   const float lv = l == 0.f ? 1.f : l;  // a row that saw no key -> 0
   float* orow = o + (static_cast<long long>(b * Hq + h) * Sq + row) * D;
 #pragma unroll
@@ -428,21 +444,23 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D>
 cudaError_t launch_f32(dim3 grid, int threads, int smem, cudaStream_t stream, const void* q,
-                       const void* k, const void* v, void* o, int Hq, int Hkv, int Sq, int Skv,
+                       const void* k, const void* v, void* o, float* lse, int Hq, int Hkv, int Sq,
+                       int Skv,
                        int block_q, int block_kv, int kv_pad, int causal, float scale) {
   cudaError_t e = cudaFuncSetAttribute(flash_fwd_f32<D>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   flash_fwd_f32<D><<<grid, threads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), Hq, Hkv, Sq, Skv, block_q, block_kv, kv_pad, causal, scale);
+      static_cast<float*>(o), lse, Hq, Hkv, Sq, Skv, block_q, block_kv, kv_pad, causal, scale);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_bf16(dim3 grid, int threads, int smem, cudaStream_t stream, const void* q,
-                        const void* k, const void* v, void* o, int B, int Hq, int Hkv, int Sq,
-                        int Skv, int block_q, int block_kv, int kv_pad, int causal, float scale) {
+                        const void* k, const void* v, void* o, float* lse, int B, int Hq, int Hkv,
+                        int Sq, int Skv, int block_q, int block_kv, int kv_pad, int causal,
+                        float scale) {
   using K = Bf16<D>;
   if (bf16_consumers(block_q) > K::kMaxConsumers) return cudaErrorInvalidValue;
   CUtensorMap qmap, kmap, vmap;  // boxes of 64 rows x one swizzled row chunk
@@ -459,20 +477,21 @@ cudaError_t launch_bf16(dim3 grid, int threads, int smem, cudaStream_t stream, c
                                 kSmemPerBlock);
   }();
   if (ready != cudaSuccess) return ready;
-  flash_fwd_bf16<D><<<grid, threads, smem, stream>>>(qmap, kmap, vmap, static_cast<bf16*>(o), Hq,
-                                                     Hkv, Sq, Skv, block_q, block_kv, kv_pad,
+  flash_fwd_bf16<D><<<grid, threads, smem, stream>>>(qmap, kmap, vmap, static_cast<bf16*>(o), lse,
+                                                     Hq, Hkv, Sq, Skv, block_q, block_kv, kv_pad,
                                                      causal, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  block_q/block_kv are the tile, kv_pad
+// dtype: 0 = float32, 1 = bfloat16.  lse: null, or (B,Hq,Sq) f32 to hold each
+// row's log-sum-exp (for the backward).  block_q/block_kv are the tile, kv_pad
 // the key rows staged at a time, threads and smem_bytes the block's size:
 // all from kernels/geometry.py; a size that disagrees with this file's
 // arithmetic is refused.  Returns cudaGetLastError() after the launch.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
-                                      int B, int Hq, int Hkv, int Sq, int Skv, int D,
+                                      void* lse, int B, int Hq, int Hkv, int Sq, int Skv, int D,
                                       int block_q, int block_kv, int kv_pad, int threads,
                                       int smem_bytes, int causal, float scale, int dtype,
                                       void* stream) {
@@ -486,13 +505,15 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((Sq + block_q - 1) / block_q, Hq, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lf = static_cast<float*>(lse);
   cudaError_t e = cudaErrorInvalidValue;
 #define REPRO_FLASH_CASE(DIM)                                                               \
   case DIM:                                                                                 \
-    e = dtype == 1 ? launch_bf16<DIM>(grid, threads, smem_bytes, s, q, k, v, o, B, Hq, Hkv, \
-                                      Sq, Skv, block_q, block_kv, kv_pad, causal, scale)    \
-                   : launch_f32<DIM>(grid, threads, smem_bytes, s, q, k, v, o, Hq, Hkv, Sq, \
-                                     Skv, block_q, block_kv, kv_pad, causal, scale);        \
+    e = dtype == 1 ? launch_bf16<DIM>(grid, threads, smem_bytes, s, q, k, v, o, lf, B, Hq,  \
+                                      Hkv, Sq, Skv, block_q, block_kv, kv_pad, causal,      \
+                                      scale)                                                \
+                   : launch_f32<DIM>(grid, threads, smem_bytes, s, q, k, v, o, lf, Hq, Hkv, \
+                                     Sq, Skv, block_q, block_kv, kv_pad, causal, scale);    \
     break;
   switch (D) {
     REPRO_FLASH_CASE(16)

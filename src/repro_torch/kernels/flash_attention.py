@@ -20,11 +20,17 @@ that does not fit a Hopper block; nothing else changes it.
 
 A CPU tensor takes the plain version (``ref.attention``); a CUDA tensor
 launches the kernel or raises.  Where autograd records (grad enabled and an
-input that requires grad), the launch goes through ``FlashAttentionFn``: the
-JAX kernel is forward-only, so its backward recomputes the plain version
-from the saved ``q``, ``k``, ``v`` (never the ``S x S`` scores, which are
-not saved) and returns its gradient; at 1x4096 with 16 heads that backward
-holds one layer's f32 scores, about 1 GiB, at a time.
+input that requires grad), the launch goes through ``FlashAttentionFn``:
+the forward kernel also writes each row's log-sum-exp (``lse``), the
+Function saves ``q``, ``k``, ``v`` and ``lse`` (never the ``S x S``
+scores), and its backward launches the backward kernel
+(``csrc/flash_attention_backward.cu``: a dQ kernel that also sums ``Delta
+= rowsum(P * dP)``, then a dK/dV kernel that sums each GQA group in its
+block; deterministic, its tiles its own, ``geometry.flash_backward_launch``).
+``BWD_LAUNCHES`` counts one per backward call, whatever its two kernel
+launches, and records the dK/dV and dQ tiles.  The JAX kernel is
+forward-only: the backward is held to ``jax.vjp`` of the JAX package's
+``ref.attention`` through its plain version, ``ref.attention_backward``.
 """
 from __future__ import annotations
 
@@ -33,16 +39,19 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.geometry import flash_launch
+from repro_torch.kernels.geometry import flash_backward_launch, flash_launch
 from repro_torch.kernels.ref import attention as attention_plain
+from repro_torch.kernels.ref import attention_backward as attention_backward_plain
 
 LAUNCHES = _build.LaunchCounter("flash_attention")
+BWD_LAUNCHES = _build.LaunchCounter("flash_attention_backward")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 
 
-_ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 12 + (
-    ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGS = (_P,) * 5 + (_I,) * 12 + (ctypes.c_float, _I, _P)
+_BWD_ARGS = (_P,) * 9 + (_I,) * 14 + (ctypes.c_float, _I, _P)
 
 
 def flash_attention(
@@ -70,47 +79,58 @@ def flash_attention(
             )
     if Hq % Hkv:
         raise ValueError(f"q heads {Hq} not a multiple of kv heads {Hkv}")
-    launch = flash_launch(B, Hq, Sq, Skv, D, _DTYPE_NAMES[q.dtype], block_q, block_kv)
+    dtype = _DTYPE_NAMES[q.dtype]
+    launch = flash_launch(B, Hq, Sq, Skv, D, dtype, block_q, block_kv)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        bwd = flash_backward_launch(B, Hq, Hkv, Sq, Skv, D, dtype)
         return FlashAttentionFn.apply(
-            q, k, v, causal, lambda a, b, c: _launch(a, b, c, causal, launch)
+            q, k, v, causal, lambda a, b, c: _launch(a, b, c, causal, launch, with_lse=True),
+            lambda *t: _launch_backward(*t, causal, bwd),
         )
-    return _launch(q, k, v, causal, launch)
+    return _launch(q, k, v, causal, launch)[0]
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """``launch(q, k, v)`` forward; backward by recompute through ``ref.attention``.
+    """``launch(q, k, v) -> (o, lse)`` forward; ``launch_backward(q, k, v,
+    lse, do) -> (dq, dk, dv)`` backward.
 
-    Saves only ``q``, ``k``, ``v``.  ``launch`` is the kernel on the card
-    (the tests pass the plain version to check the backward on the CPU).
+    Saves ``q``, ``k``, ``v`` and ``lse``.  On the card both are the
+    kernels; the tests pass the plain versions (``ref.attention_lse``,
+    ``ref.attention_backward``) to check the Function on the CPU.
     """
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, launch):
-        ctx.save_for_backward(q, k, v)
-        ctx.causal = causal
-        return launch(q, k, v)
+    def forward(ctx, q, k, v, causal, launch, launch_backward):
+        o, lse = launch(q, k, v)
+        ctx.save_for_backward(q, k, v, lse)
+        ctx.launch_backward = launch_backward
+        return o
 
     @staticmethod
     def backward(ctx, go):
-        q, k, v = ctx.saved_tensors
-        with torch.enable_grad():
-            qd, kd, vd = (t.detach().requires_grad_() for t in (q, k, v))
-            o = attention_plain(qd, kd, vd, causal=ctx.causal)
-            gq, gk, gv = torch.autograd.grad(o, (qd, kd, vd), go)
-        return gq, gk, gv, None, None
+        q, k, v, lse = ctx.saved_tensors
+        gq, gk, gv = ctx.launch_backward(q, k, v, lse, go.contiguous())
+        return gq, gk, gv, None, None, None
 
 
-def _launch(q, k, v, causal: bool, launch) -> torch.Tensor:
+def _check_layout(**tensors) -> None:
+    for name, t in tensors.items():
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"flash_attention kernel takes contiguous, 16-byte aligned {name}")
+
+
+def _launch(q, k, v, causal: bool, launch, with_lse: bool = False):
+    """``(o, lse)``: ``lse`` (B, Hq, Sq) f32 is written only ``with_lse``
+    (training), else it is None and the kernel is passed a null pointer."""
     B, Hq, Sq, D = q.shape
     _, Hkv, Skv, _ = k.shape
     o = torch.empty_like(q)
-    for name, t in (("q", q), ("k", k), ("v", v), ("o", o)):
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"flash_attention kernel takes contiguous, 16-byte aligned {name}")
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device) if with_lse else None
+    _check_layout(q=q, k=k, v=v, o=o)
     lib, fn = _build.launcher("flash_attention", "flash_attention_launch", _ARGS)
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         B, Hq, Hkv, Sq, Skv, D, launch.block_q, launch.block_kv, launch.kv_pad,
         launch.threads, launch.smem_bytes, int(causal), float(D ** -0.5),
         _DTYPE_CODES[q.dtype], _build.stream(q),
@@ -118,4 +138,25 @@ def _launch(q, k, v, causal: bool, launch) -> torch.Tensor:
     if err:
         _build.check(lib, "flash_attention", err)
     LAUNCHES.add(tile=(launch.block_q, launch.block_kv))
-    return o
+    return o, lse
+
+
+def _launch_backward(q, k, v, lse, do, causal: bool, bwd):
+    B, Hq, Sq, D = q.shape
+    _, Hkv, Skv, _ = k.shape
+    if do.shape != q.shape or do.dtype != q.dtype or lse.shape != (B, Hq, Sq):
+        raise ValueError(f"flash_attention backward: do must be {tuple(q.shape)} {q.dtype} and lse "
+                         f"{(B, Hq, Sq)}; got {tuple(do.shape)} {do.dtype} and {tuple(lse.shape)}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    _check_layout(q=q, k=k, v=v, do=do, lse=lse)
+    lib, fn = _build.launcher("flash_attention_backward", "flash_attention_backward_launch", _BWD_ARGS)
+    err = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        B, Hq, Hkv, Sq, Skv, D, *bwd.dkdv_tile, *bwd.dq_tile, bwd.threads, bwd.dkdv_smem,
+        bwd.dq_smem, int(causal), float(D ** -0.5), _DTYPE_CODES[q.dtype], _build.stream(q),
+    )
+    if err:
+        _build.check(lib, "flash_attention_backward", err)
+    BWD_LAUNCHES.add(tile=(bwd.dkdv_tile, bwd.dq_tile))
+    return dq, dk, dv

@@ -182,6 +182,73 @@ def flash_launch(
     return FlashLaunch(bq, bkv, threads, kv_pad, smem, grid)
 
 
+# The backward (csrc/flash_attention_backward.cu): a dQ kernel (one block a
+# q tile of a q head, walking the kv tiles up to the diagonal twice: Delta =
+# rowsum(P * dP), then dQ) and a dK/dV kernel (one block a kv tile of a kv
+# head, looping over the group's q-heads and its q tiles from the diagonal
+# down).  Its tiles are the kernel's own: the plan tunes only the forward's,
+# as in the JAX package.
+FLASH_BWD_THREADS = {"bfloat16": 128, "float32": 64}
+_BWD_PAD = 8  # bf16: elements a staged row is padded by (16 bytes: no bank conflicts)
+
+
+@dataclass(frozen=True)
+class FlashBwdLaunch:
+    dkdv_tile: Tuple[int, int]  # (keys a block owns, q rows staged at a time)
+    dq_tile: Tuple[int, int]  # (q rows a block owns, keys staged at a time)
+    threads: int  # of either kernel
+    dkdv_smem: int
+    dq_smem: int
+    dkdv_grid: Tuple[int, int, int]  # (kv tiles, kv heads, batch)
+    dq_grid: Tuple[int, int, int]  # (q tiles, q heads, batch)
+
+
+def flash_backward_tiles(head_dim: int, dtype: str) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """((dk/dv keys, q rows staged), (dq rows, keys staged)).  bf16: a warp
+    owns 16 rows of mma.sync tiles, four warps a block; at head_dim 128 the
+    staged side is halved to keep the accumulators in registers.  f32: a
+    thread a row, 64 a block, 16 rows of the other side staged."""
+    if dtype == "float32":
+        return (64, 16), (64, 16)
+    staged = 64 if head_dim <= 64 else 32
+    return (64, staged), (64, staged)
+
+
+def flash_backward_smem_bytes(head_dim: int, dtype: str) -> Tuple[int, int]:
+    """(dk/dv kernel, dq kernel) shared-memory bytes of one block.  bf16: the
+    block's own rows (K and V, or Q and dO) once, the staged side's tiles
+    twice (one in use, the next loading by cp.async), and lse and Delta of
+    the staged (dK/dV) or own (dQ) query rows in f32."""
+    (kc, kr), (qr, qc) = flash_backward_tiles(head_dim, dtype)
+    if dtype == "float32":
+        own = 2 * 64 * (head_dim + 1) * 4  # the block's K and V (or Q and dO) rows, padded
+        staged = 2 * 16 * head_dim * 4
+        return own + staged + 2 * 16 * 4, own + staged
+    ld = head_dim + _BWD_PAD
+    return (2 * (kc + 2 * kr) * ld * 2 + 2 * 2 * kr * 4, 2 * (qr + 2 * qc) * ld * 2 + 2 * qr * 4)
+
+
+@functools.lru_cache(maxsize=1024)  # called on every launch: pure in its arguments
+def flash_backward_launch(
+    batch: int, q_heads: int, kv_heads: int, seq_q: int, seq_kv: int, head_dim: int, dtype: str,
+) -> FlashBwdLaunch:
+    """The launch of one ``flash_attention_backward`` call, or ``ValueError``."""
+    if dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"flash_attention backward takes float32 or bfloat16, not {dtype}")
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"flash_attention backward is built for head_dim in {HEAD_DIMS}, not {head_dim}")
+    if q_heads % kv_heads:
+        raise ValueError(f"q heads {q_heads} not a multiple of kv heads {kv_heads}")
+    dkdv, dq = flash_backward_tiles(head_dim, dtype)
+    s_kv, s_q = flash_backward_smem_bytes(head_dim, dtype)
+    if max(s_kv, s_q) > SMEM_PER_BLOCK:
+        raise ValueError(f"flash backward at head_dim {head_dim} in {dtype} needs "
+                         f"{max(s_kv, s_q)} bytes of shared memory; a Hopper block has {SMEM_PER_BLOCK}")
+    return FlashBwdLaunch(
+        dkdv, dq, FLASH_BWD_THREADS[dtype], s_kv, s_q,
+        (-(-seq_kv // dkdv[0]), kv_heads, batch), (-(-seq_q // dq[0]), q_heads, batch))
+
+
 def launchable_attn_blocks(head_dim: int = 64, dtype: str = "bfloat16") -> List[Tuple[int, int]]:
     """Which of the JAX space's ``attn_block`` options launch (long sequences)."""
     out = []
@@ -324,6 +391,72 @@ def scan_launch(
     chunks = L // ch
     scratch = B * chunks * Di * (N + 1) if chunks > 1 else 0
     return ScanLaunch(ch, db, db, smem, (B, Di // db, chunks), scratch)
+
+
+# The backward (the same file): one thread a (channel, state) -- 16 channels
+# of 16 state lanes a block of 256 threads, walking the tile's d_block
+# channels 16 at a time -- at the forward's tile.  Passes: the chunks' local
+# adjoints from zero (grid (B, Di/d_block, L/chunk - 1)), their reverse fold
+# (one thread a (batch, state, channel)), the output pass (grid (B,
+# Di/d_block, L/chunk): each chunk's states recomputed from its carry-in,
+# checkpointed every 16 steps in shared memory, and walked back), and a
+# reduction of the partial dB, dC, dA and dD sums.  Four launches a call,
+# two when chunk == L.
+SCAN_BWD_THREADS = 256
+SCAN_BWD_STEP = 16  # steps between the output pass's checkpoints
+_SCAN_BWD_WARPS = SCAN_BWD_THREADS // 32
+_SCAN_BWD_CHANNELS = SCAN_BWD_THREADS // SCAN_MAX_STATE  # channels a pass of the block
+
+
+@dataclass(frozen=True)
+class ScanBwdLaunch:
+    chunk: int
+    d_block: int
+    threads: int
+    smem_bytes: int  # of the output pass
+    grid: Tuple[int, int, int]  # the output pass's (batch, channel blocks, chunks)
+    scratch_floats: int  # f32 scratch the wrapper allocates
+
+    @property
+    def kernels(self) -> int:
+        return 4 if self.grid[2] > 1 else 2
+
+
+def scan_backward_smem_bytes(chunk: int, n_state: int) -> int:
+    """The output pass: B and C of the chunk staged in f32 and the chunk's dB
+    and dC sums over the block's channels, u, dt and gy of the 16 channels
+    in hand, the checkpoints (one float a thread every 16 steps), and each
+    warp's per-step sums of the 16 steps in hand."""
+    ckpts = -(-chunk // SCAN_BWD_STEP) * SCAN_BWD_THREADS
+    slots = 2 * _SCAN_BWD_WARPS * SCAN_BWD_STEP * SCAN_MAX_STATE
+    return 4 * (4 * chunk * n_state + 3 * chunk * _SCAN_BWD_CHANNELS + ckpts + slots)
+
+
+def scan_backward_scratch_floats(B: int, L: int, Di: int, N: int, chunk: int, d_block: int) -> int:
+    """The adjoint carries and sums of dt (B * L/chunk * Di * (N + 1), none
+    for one chunk), the partial dB and dC rows of each channel block (2 * B
+    * L * Di/d_block * N) and the partial dA and dD of each chunk (B *
+    L/chunk * Di * (N + 1))."""
+    chunks = L // chunk
+    per_chunk = B * chunks * Di * (N + 1)
+    return (per_chunk if chunks > 1 else 0) + 2 * B * L * (Di // d_block) * N + per_chunk
+
+
+@functools.lru_cache(maxsize=1024)  # called on every launch: pure in its arguments
+def scan_backward_launch(
+    B: int, L: int, Di: int, N: int, dtype: str, chunk: int, d_block: int
+) -> ScanBwdLaunch:
+    """The launch of one ``selective_scan_backward`` call at the forward's
+    tile (``scan_launch``'s clamp and checks), or ``ValueError``."""
+    fwd = scan_launch(B, L, Di, N, dtype, chunk, d_block)
+    smem = scan_backward_smem_bytes(fwd.chunk, N)
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"scan tile (chunk={fwd.chunk}, d_block={fwd.d_block}) at N={N}: the backward needs "
+            f"{smem} bytes of shared memory; a Hopper block has {SMEM_PER_BLOCK}"
+        )
+    return ScanBwdLaunch(fwd.chunk, fwd.d_block, SCAN_BWD_THREADS, smem, fwd.grid,
+                         scan_backward_scratch_floats(B, L, Di, N, fwd.chunk, fwd.d_block))
 
 
 def launchable_scan_chunks(d_block: int = 256, n_state: int = 16, dtype: str = "bfloat16") -> List[int]:

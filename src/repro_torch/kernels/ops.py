@@ -40,8 +40,10 @@ COUNTERS = {
     "rmsnorm": _rn.LAUNCHES,
     "rmsnorm_backward": _rn.BWD_LAUNCHES,
     "flash_attention": _fa.LAUNCHES,
+    "flash_attention_backward": _fa.BWD_LAUNCHES,
     "moe_gemm": _mg.LAUNCHES,
     "selective_scan": _ss.LAUNCHES,
+    "selective_scan_backward": _ss.BWD_LAUNCHES,
     "quantize_int8": _qt.QUANT_LAUNCHES,
     "dequantize_int8": _qt.DEQUANT_LAUNCHES,
 }

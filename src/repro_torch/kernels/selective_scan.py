@@ -21,10 +21,19 @@ one per call, and ``LAUNCHES.tiles`` records every ``(chunk, d_block)``
 launched since the last reset.
 
 A CPU tensor takes the plain version (``ref.selective_scan``); a CUDA tensor
-launches the kernel or raises.  The kernel has no gradient yet: on a CUDA
-input that requires grad (with grad enabled) the wrapper raises
-``NotImplementedError`` naming ROADMAP item A12, never returning an output
-that is silently cut from the graph.
+launches the kernel or raises.  Where autograd records (grad enabled and an
+input that requires grad), the launch goes through ``ScanFn``: the forward
+keeps its scratch (each chunk's carry-in after the carry pass) and the
+backward launches the backward kernel at the forward's tile (the same
+``.cu``: the chunks' local adjoints, their reverse fold, each chunk
+recomputed from its carry-in and walked back, and a reduction of the
+partial dB, dC, dA and dD sums; ``geometry.scan_backward_launch``).  It
+returns ``du, ddt, dA, dBm, dCm, dD`` in the inputs' dtypes.
+``BWD_LAUNCHES`` counts one per backward call, whatever its kernel
+launches.  The JAX kernel is forward-only: the backward is held to
+``jax.vjp`` of the JAX package's ``ref.selective_scan`` through its plain
+versions, ``ref.selective_scan_backward`` and the chunked
+``ref.selective_scan_chunked_backward``.
 """
 from __future__ import annotations
 
@@ -33,13 +42,17 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.geometry import scan_launch
+from repro_torch.kernels.geometry import scan_backward_launch, scan_launch
 from repro_torch.kernels.ref import selective_scan as selective_scan_plain
+from repro_torch.kernels.ref import selective_scan_backward as selective_scan_backward_plain
 
 LAUNCHES = _build.LaunchCounter("selective_scan")
+BWD_LAUNCHES = _build.LaunchCounter("selective_scan_backward")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
-_ARGS = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 8 + (ctypes.c_void_p,)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGS = (_P,) * 8 + (_I,) * 8 + (_P,)
+_BWD_ARGS = (_P,) * 15 + (_I,) * 8 + (_P,)
 
 
 def selective_scan(
@@ -55,10 +68,42 @@ def selective_scan(
 ) -> torch.Tensor:
     if u.device.type == "cpu":
         return selective_scan_plain(u, dt, A, Bm, Cm, D)
+    launch = _check(u, dt, A, Bm, Cm, D, chunk, d_block)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (u, dt, A, Bm, Cm, D)):
-        raise NotImplementedError(
-            "selective_scan has no gradient on the card yet (Mamba training): ROADMAP item A12"
-        )
+        B, L, Di = u.shape
+        bwd = scan_backward_launch(B, L, Di, A.shape[-1], _DTYPE_NAMES[u.dtype], chunk, d_block)
+        return ScanFn.apply(u, dt, A, Bm, Cm, D, lambda *t: _launch(*t, launch),
+                            lambda *t: _launch_backward(*t, bwd))
+    return _launch(u, dt, A, Bm, Cm, D, launch)[0]
+
+
+class ScanFn(torch.autograd.Function):
+    """``launch(u, dt, A, Bm, Cm, D) -> (y, saved)`` forward;
+    ``launch_backward(u, dt, A, Bm, Cm, D, saved, gy) -> (du, ddt, dA, dBm,
+    dCm, dD)`` backward.
+
+    Saves the six inputs and ``saved``: on the card the forward kernel's
+    scratch (each chunk's carry-in; None for one chunk), which the backward
+    kernel reads.  The tests pass the plain versions (``saved`` None) to
+    check the Function on the CPU.
+    """
+
+    @staticmethod
+    def forward(ctx, u, dt, A, Bm, Cm, D, launch, launch_backward):
+        y, saved = launch(u, dt, A, Bm, Cm, D)
+        ctx.save_for_backward(u, dt, A, Bm, Cm, D, saved)
+        ctx.launch_backward = launch_backward
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        *inputs, saved = ctx.saved_tensors
+        grads = ctx.launch_backward(*inputs, saved, gy.contiguous())
+        return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)), None, None)
+
+
+def _check(u, dt, A, Bm, Cm, D, chunk: int, d_block: int):
+    """Raise on what the kernels do not take; return the forward's launch."""
     if u.device.type != "cuda":
         raise ValueError(f"selective_scan runs on cuda or cpu tensors, not {u.device}")
     if u.dtype not in _DTYPE_CODES:
@@ -80,6 +125,14 @@ def selective_scan(
     for name, t in (("u", u), *((n, v[0]) for n, v in want.items())):
         if not t.is_contiguous():
             raise ValueError(f"selective_scan kernel takes a contiguous {name}")
+    return launch
+
+
+def _launch(u, dt, A, Bm, Cm, D, launch):
+    """``(y, scratch)``: the scratch holds each chunk's carry-in after the
+    carry pass (None for one chunk)."""
+    B, L, Di = u.shape
+    N = A.shape[-1]
     y = torch.empty_like(u)
     scratch = (torch.empty(launch.scratch_floats, dtype=torch.float32, device=u.device)
                if launch.scratch_floats else None)
@@ -93,4 +146,29 @@ def selective_scan(
     if err:
         _build.check(lib, "selective_scan", err)
     LAUNCHES.add(tile=(launch.chunk, launch.d_block))
-    return y
+    return y, scratch
+
+
+def _launch_backward(u, dt, A, Bm, Cm, D, states, gy, bwd):
+    if gy.shape != u.shape or gy.dtype != u.dtype or not gy.is_contiguous():
+        raise ValueError(f"selective_scan backward: gy must be a contiguous {tuple(u.shape)} "
+                         f"{u.dtype}; got {tuple(gy.shape)} {gy.dtype}")
+    B, L, Di = u.shape
+    N = A.shape[-1]
+    if bwd.grid[2] > 1 and states is None:
+        raise ValueError("selective_scan backward needs the forward's carry-ins")
+    du, ddt = torch.empty_like(u), torch.empty_like(dt)
+    dA, dBm, dCm, dD = (torch.empty_like(t) for t in (A, Bm, Cm, D))
+    scratch = torch.empty(bwd.scratch_floats, dtype=torch.float32, device=u.device)
+    lib, fn = _build.launcher("selective_scan", "selective_scan_backward_launch", _BWD_ARGS)
+    err = fn(
+        u.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), D.data_ptr(),
+        gy.data_ptr(), None if states is None else states.data_ptr(), scratch.data_ptr(),
+        du.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dBm.data_ptr(), dCm.data_ptr(), dD.data_ptr(),
+        B, L, Di, N, bwd.chunk, bwd.d_block, bwd.smem_bytes, _DTYPE_CODES[u.dtype],
+        _build.stream(u),
+    )
+    if err:
+        _build.check(lib, "selective_scan", err)
+    BWD_LAUNCHES.add(tile=(bwd.chunk, bwd.d_block))
+    return du, ddt, dA, dBm, dCm, dD

@@ -208,8 +208,9 @@ def test_kernel_tiles_are_the_jax_defaults():
     t = ops.DEFAULT_TILES
     assert (t.attn_block_q, t.attn_block_kv, t.scan_chunk, t.scan_d_block) == (256, 256, 128, 256)
     assert (t.moe_block_c, t.moe_block_f, t.moe_block_d) == (128, 256, 256)
-    assert set(ops.COUNTERS) == {"rmsnorm", "rmsnorm_backward", "flash_attention", "moe_gemm",
-                                 "selective_scan", "quantize_int8", "dequantize_int8"}
+    assert set(ops.COUNTERS) == {"rmsnorm", "rmsnorm_backward", "flash_attention",
+                                 "flash_attention_backward", "moe_gemm", "selective_scan",
+                                 "selective_scan_backward", "quantize_int8", "dequantize_int8"}
 
 
 @pytest.mark.parametrize(
