@@ -28,12 +28,13 @@ limit as ``nvidia-smi`` reports them):
    version, on the card (rmsnorm's backward is a kernel of its own,
    ``rmsnorm_backward``, also held alone at more widths and timed; flash's
    is ``flash_attention_backward`` from the forward's lse, at head_dims
-   128, 32 and 16, Sq < Skv and ragged lengths, timed alone, fwd+bwd and
-   against SDPA's fwd+bwd in turns; the scan's is
+   128, 32 and 16, Sq < Skv and ragged lengths, timed alone and fwd+bwd,
+   each in turns with SDPA's backward alone and fwd+bwd; the scan's is
    ``selective_scan_backward`` from the forward's carry-ins, at every
    scan_chunk option at falcon-mamba's width, in f32, with slow decay, one
    chunk and large dt, held to autograd through
-   ``ref.selective_scan_chunked``).
+   ``ref.selective_scan_chunked``; each backward kernel called twice on the
+   same inputs must give bit-equal gradients).
 5. Per serving arch -- granite-3-2b, granite-moe-1b-a400m, falcon-mamba-7b,
    each at full width and depth, bf16, random weights from seed 0, freed
    before the next is made:
@@ -290,7 +291,7 @@ def ptxas_lines(text: str) -> list:
         if m:
             name = m.group(1)
             base = re.search(r"(flash_fwd_bf16|flash_fwd_f32|flash_bwd_dkdv_bf16|flash_bwd_dq_bf16|"
-                             r"flash_bwd_dkdv_f32|flash_bwd_dq_f32|flash_bwd_delta|rmsnorm_kernel|"
+                             r"flash_bwd_dkdv_f32|flash_bwd_dq_f32|rmsnorm_kernel|"
                              r"rmsnorm_backward_kernel|rmsnorm_dw_kernel|moe_gemm_bf16|moe_gemm_f32|"
                              r"selective_scan_kernel|selective_scan_carry_kernel|"
                              r"selective_scan_bwd_chunk_kernel|selective_scan_bwd_carry_kernel|"
@@ -711,6 +712,18 @@ def _grad_case(torch, what, fn_kernel, fn_plain, inputs, gen, tol, launches):
     return out, xs, gy
 
 
+def _check_bit_equal(torch, what: str, call) -> None:
+    """Two calls of a backward kernel on the same inputs must give bit-equal
+    gradients (no atomics: every sum is taken in a fixed order)."""
+    first = [g.clone() for g in call()]
+    second = call()
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(first, second)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: gradient {i} differs between two calls, max "
+                                 f"{(a.float() - b.float()).abs().max().item()}")
+
+
 def phase_grad(torch, rn, fa, mg, ss):
     """Each kernel's autograd Function on the card at the training shapes
     against autograd through its plain version (the rmsnorm, flash and scan
@@ -831,16 +844,24 @@ def phase_grad(torch, rn, fa, mg, ss):
         _, lse = fa._launch(q, k, v, True, fa.flash_launch(B, Hq, Sq, Skv, D, dtype, bq, bq),
                             with_lse=True)
         bwd = fa.flash_backward_launch(B, Hq, Hkv, Sq, Skv, D, dtype)
+        _check_bit_equal(torch, f"flash_attention_backward {role} {dtype}",
+                         lambda: fa._launch_backward(q, k, v, lse, gy, True, bwd))
         fwd_bwd = lambda: torch.autograd.grad(fa.flash_attention(  # noqa: E731
             *xs, causal=True, block_q=bq, block_kv=bq), xs, gy)
         # SDPA's is_causal aligns the diagonal top-left: the same function only when Sq == Skv
-        sdpa = (lambda: torch.autograd.grad(F.scaled_dot_product_attention(  # noqa: E731
-            *xs, is_causal=True, enable_gqa=True), xs, gy)) if Sq == Skv else None
+        sdpa, sdpa_bwd = None, None
+        if Sq == Skv:
+            sdpa = lambda: torch.autograd.grad(F.scaled_dot_product_attention(  # noqa: E731
+                *xs, is_causal=True, enable_gqa=True), xs, gy)
+            ys = F.scaled_dot_product_attention(*xs, is_causal=True, enable_gqa=True)
+            sdpa_bwd = lambda: torch.autograd.grad(ys, xs, gy, retain_graph=True)  # noqa: E731
         both = timed(torch, fwd_bwd, sdpa, ops + 4 * D * pairs, iters=10)
-        alone = timed(torch, lambda: fa._launch_backward(q, k, v, lse, gy, True, bwd), None, ops,
+        alone = timed(torch, lambda: fa._launch_backward(q, k, v, lse, gy, True, bwd), sdpa_bwd, ops,
                       iters=10)
         row.update(
-            **{**alone, "library_ms": both["library_ms"]},
+            **{k_: v_ for k_, v_ in alone.items() if k_ not in ("library_ms", "vs_library")},
+            bit_equal=True, library_ms=both["library_ms"],
+            library_bwd_ms=alone["library_ms"], bwd_vs_library=alone.get("vs_library"),
             fwd_bwd_ms=both["ms"], fwd_bwd_ms_runs=both["ms_runs"],
             fwd_bwd_vs_library=both.get("vs_library"),
             plain_ms=cuda_ms(torch, lambda: fa.attention_backward_plain(q, k, v, lse, gy),
@@ -848,8 +869,10 @@ def phase_grad(torch, rn, fa, mg, ss):
             plain_fwd_bwd_ms=cuda_ms(torch, lambda: torch.autograd.grad(
                 fa.attention_plain(*xs, causal=True), xs, gy), iters=3, warmup=1),
             bound_ms=b_ms, bound_by=b_by, ops=ops, bytes=nbytes,
-            library="torch.autograd.grad through F.scaled_dot_product_attention (fwd+bwd), "
-                    "in turns with the kernels' fwd+bwd; never called by the port")
+            library="torch.autograd.grad through F.scaled_dot_product_attention: library_ms "
+                    "fwd+bwd, in turns with the kernels' fwd+bwd; library_bwd_ms its backward alone "
+                    "(retain_graph on one output), in turns with the backward kernel; never called "
+                    "by the port")
         flash_rows.append(row)
         del lse
         del q, k, v, xs, gy
@@ -933,6 +956,9 @@ def phase_grad(torch, rn, fa, mg, ss):
         b_ms, b_by = bound(nbytes, ops, "float32")
         u, dt_, A, Bm, Cm, D = (x.detach() for x in xs)
         y, states = ss._launch(u, dt_, A, Bm, Cm, D, ss.scan_launch(B, L, Di, N, dtype, ch, db))
+        _check_bit_equal(torch, f"selective_scan_backward {role} {dtype}",
+                         lambda: ss._launch_backward(u, dt_, A, Bm, Cm, D, states, gy, bwd))
+        row["bit_equal"] = True
         key = (B, L, Di, N, dtype)
         if key not in plain_ms:  # one timed call: seconds at falcon-mamba's width
             plain_ms[key] = cuda_ms(torch, lambda: ss.selective_scan_backward_plain(
@@ -951,10 +977,11 @@ def phase_grad(torch, rn, fa, mg, ss):
     emit("grad", cases=rows, rmsnorm_backward=bwd_rows, flash_attention_backward=flash_rows,
          selective_scan_backward=scan_rows,
          note="rmsnorm backward: its own kernel; flash backward: the flash_attention_backward "
-              "kernel (dQ and Delta, then dK/dV) from the forward's lse; scan backward: the "
-              "selective_scan_backward kernel (chunk adjoints, reverse fold, output, reduce) "
-              "from the forward's carry-ins; moe_gemm backward: 2 kernel launches on the saved "
-              "operands as stored (dx reads w transposed, dw reads x transposed)")
+              "kernel (dQ and Delta, then dK/dV, both TMA -> wgmma) from the forward's lse; scan "
+              "backward: the selective_scan_backward kernel (chunk adjoints, reverse fold, output, "
+              "reduce) from the forward's carry-ins; both backward kernels called twice, bit-equal; "
+              "moe_gemm backward: 2 kernel launches on the saved operands as stored (dx reads w "
+              "transposed, dw reads x transposed)")
     return {"rmsnorm_backward": bwd_rows, "flash_attention_backward": flash_rows,
             "selective_scan_backward": scan_rows}
 
@@ -1983,7 +2010,7 @@ SOURCES = {
 _SUMMARY_KEYS = ("shape", "dtype", "role", "max_abs_err", "rel_err", "ms", "plain_ms", "bound_ms",
                  "bound_by", "library_ms", "vs_library", "achieved_tflops", "device_ms",
                  "library_device_ms", "exp_bound_ms", "kernel_launches_per_call", "fwd_bwd_ms",
-                 "fwd_bwd_vs_library")
+                 "fwd_bwd_vs_library", "library_bwd_ms", "bwd_vs_library", "bit_equal")
 
 
 def _summary_row(n: str, rows: list, launches: int) -> dict:
@@ -2080,7 +2107,8 @@ def main() -> int:
     _build.build(LIBRARIES)
     ptxas = {n: ptxas_lines(_build.ptxas_report(n)) for n in LIBRARIES}
     # the TMA -> wgmma kernels: registers and spill bytes of every instantiation
-    bf16 = [k for n in ("flash_attention", "moe_gemm") for k in ptxas[n] if "bf16" in k["kernel"]]
+    bf16 = [k for n in ("flash_attention", "flash_attention_backward", "moe_gemm") for k in ptxas[n]
+            if "bf16" in k["kernel"]]
     emit("build", seconds=time.perf_counter() - t0, flags=" ".join(_build.NVCC_FLAGS), ptxas=ptxas,
          bf16_registers={k["kernel"]: k.get("registers") for k in bf16},
          bf16_spill_bytes={k["kernel"]: k.get("spill_stores", 0) + k.get("spill_loads", 0) for k in bf16})

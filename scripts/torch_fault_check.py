@@ -11,7 +11,7 @@ in ``models/attention.py``); the copy builds its
 own kernels and runs, in a fresh process, the ``chip_smoke`` phase that must
 catch it: the file's phase, or the case's own where it names one (the
 unedited control runs every phase named below).  The control must pass
-and every mutant (eighteen of them) must fail.  Prints one JSON line per
+and every mutant (twenty of them) must fail.  Prints one JSON line per
 case (with the failing check's numbers) and exits 1 if any case went the
 other way.
 """
@@ -104,21 +104,39 @@ CASES = {
         "  const int steps = nq;",
     )]),
     # the flash backward reads the forward's lse (natural log) as if it were
-    # in log2 units
-    "flash_backward_lse_read_as_log2": ("kernels/csrc/flash_attention_backward.cu", [(
-        "  return l == -INFINITY ? INFINITY : l * kLog2e;",
-        "  return l == -INFINITY ? INFINITY : l;",
+    # in log2 units (the dQ kernel, which hands it to the dK/dV kernel)
+    "flash_backward_lse_read_as_log2": ("kernels/csrc/flash_attention_backward.cu", [
+        ("la == -INFINITY ? INFINITY : la * kLog2e;", "la == -INFINITY ? INFINITY : la;"),
+        ("lb == -INFINITY ? INFINITY : lb * kLog2e;", "lb == -INFINITY ? INFINITY : lb;"),
+    ]),
+    # the dK/dV kernel's dV += P^T.dO reads dO, stored [rows][D] and so
+    # MN-major, without the wgmma transpose bit (and its descriptor): as if
+    # it were K-major (at the main path's 64 rows x 64 the reads stay in the
+    # tile and give dO^T)
+    "flash_backward_dv_transpose_bit_dropped": ("kernels/csrc/flash_attention_backward.cu", [(
+        "        product_rows<D, BQ>(adv, pa, osm);\n",
+        "        for (int kk = 0; kk < BQ / 16; ++kk)\n"
+        "          sm90::wgmma_rs<0>(adv, pa[kk], sm90::make_desc(osm + kk * 32, 16, 8 * K::kSpan,\n"
+        "                            sm90::swizzle_code(K::kSpan)), 1);\n",
     )]),
     # the scan backward never folds the adjoint carried in from later
     # chunks: each chunk's walk starts from zero
     "scan_backward_skips_reverse_fold": ("kernels/csrc/selective_scan.cu", [(
-        "    float gnext = (st && c < nC - 1) ? adj[state_at(b, c + 1, n, d, nC, N, Di)] : 0.f;",
-        "    float gnext = 0.f;",
+        "      gn[j] = (st && c < nC - 1) ? adj[state_at(b, c + 1, n0 + j, d, nC, N, Di)] : 0.f;",
+        "      gn[j] = 0.f;",
     )], "phase_grad"),
     # the scan backward's du leaves out the skip term D * gy
     "scan_backward_du_drops_d_gy": ("kernels/csrc/selective_scan.cu", [(
-        "from_f32<T>(fmaf(dskip, gyv, s_du));",
-        "from_f32<T>(s_du);",
+        "if (q == 0) in[i * kBwdCh + ch] = fmaf(dskip, gyv, r);",
+        "if (q == 0) in[i * kBwdCh + ch] = r;",
+    )], "phase_grad"),
+    # the last level of the scan backward's transposing reduction over the
+    # warp's channels drops the partner lane's half for the dB sums (lanes
+    # 0-15): dB misses four of each warp's eight channels
+    "scan_backward_db_reduction_drops_a_lane": ("kernels/csrc/selective_scan.cu", [(
+        "  return (u4 ? z[1] : z[0]) + __shfl_xor_sync(0xffffffffu, u4 ? z[0] : z[1], 4);",
+        "  const float o = __shfl_xor_sync(0xffffffffu, u4 ? z[0] : z[1], 4);\n"
+        "  return (u4 ? z[1] : z[0]) + ((lane & 16) ? o : 0.f);",
     )], "phase_grad"),
     # a row spread over a group of warps (d >= 4096 in bf16) normalises by
     # its own warp's sum of squares, not the group's

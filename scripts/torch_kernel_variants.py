@@ -30,7 +30,11 @@ earlier form of one part of the design:
   chain of dependent FMAs, and no bound of 64 registers (68 then, three
   blocks an SM);
 * ``scan_exact_exp2``: the scan's ``ex2.approx.ftz`` replaced by the exact
-  ``exp2f``.
+  ``exp2f``;
+* ``scan_bwd_span8``: the scan backward's output pass reruns 8-step spans
+  into registers (checkpoints every 8 steps) instead of 4-step ones;
+* ``scan_bwd_one_block_an_sm``: the output pass without its bound of 128
+  registers (about 195 then, one block an SM instead of two).
 
 Prints one JSON line per variant and shape: ms, library ms, ``vs_library``,
 ``device_ms`` where taken, the plain-version error, and the host's
@@ -39,8 +43,11 @@ synchronisation, over their count; the least of five such runs, since
 the host is shared).  Rows: flash and moe_gemm (prefill and
 decode), rmsnorm forward at the three prefill widths and decode, rmsnorm
 forward + backward at granite-moe's training shape, the backward alone
-where the tree has it, and the scan at falcon-mamba's prefill shape at
-each ``scan_chunk`` option (a chunk the tree refuses is reported so).
+where the tree has it, the scan at falcon-mamba's prefill shape at
+each ``scan_chunk`` option (a chunk the tree refuses is reported so), and
+the two backward kernels alone at the training paths' shapes (flash at
+``(1,16,8,4096,4096,64)`` against SDPA's backward alone, with the fwd+bwd
+beside it; the scan at ``(1,4096,8192,16)``, each ``scan_chunk`` option).
 """
 from __future__ import annotations
 
@@ -73,8 +80,8 @@ _DIRECT = """#pragma unroll
       constexpr int kPitch = BN + 8;
       sm90::named_barrier_sync(1, 128 * consumers);"""
 
-# variant -> (file under src/repro_torch/kernels, [(text, replacement), ...]):
-# every occurrence of each text is replaced
+# variant -> (file under src/repro_torch/kernels, [(text, replacement), ...]),
+# or a list of such: every occurrence of each text is replaced
 VARIANTS = {
     "control": None,
     "flash_exact_exp2": ("csrc/flash_attention.cu", [(
@@ -99,6 +106,13 @@ VARIANTS = {
     ]),
     "scan_exact_exp2": ("csrc/selective_scan.cu", [(
         '  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));\n', "  y = exp2f(x);\n")]),
+    "scan_bwd_span8": [
+        ("csrc/selective_scan.cu", [("constexpr int kBwdSpan = 4; ", "constexpr int kBwdSpan = 8; "),
+                                    ("constexpr int kBwdCkpts = 16;", "constexpr int kBwdCkpts = 8;")]),
+        ("geometry.py", [("SCAN_BWD_SPAN = 4 ", "SCAN_BWD_SPAN = 8 ")]),
+    ],
+    "scan_bwd_one_block_an_sm": ("csrc/selective_scan.cu", [(
+        "__global__ void __launch_bounds__(kBwdThreads, 2)", "__global__ void __launch_bounds__(kBwdThreads, 1)")]),
 }
 
 RUN = """
@@ -188,6 +202,36 @@ for ch in (64, 128, 256):
     out.append({"kernel": "selective_scan", "shape": [B, L, Di, N], "chunk": ch, "rel_err": rel(got, exp),
                 **cs.timed(torch, run, None, B * L * Di * (7 * N + 3), iters=10),
                 "host_us": host_us(run, n=20)})
+if hasattr(fa, "BWD_LAUNCHES"):  # the backward kernels, where the tree has them
+    from repro_torch.kernels import ref
+    q, k, v = (torch.randn((1, h, 4096, 64), generator=gen, device="cuda").bfloat16() for h in (16, 8, 8))
+    do = torch.randn((1, 16, 4096, 64), generator=gen, device="cuda").bfloat16()
+    _, lse = fa._launch(q, k, v, True, fa.flash_launch(1, 16, 4096, 4096, 64, "bfloat16", 256, 256),
+                        with_lse=True)
+    bwd = fa.flash_backward_launch(1, 16, 8, 4096, 4096, 64, "bfloat16")
+    run = lambda: fa._launch_backward(q, k, v, lse, do, True, bwd)
+    exp = fa.attention_backward_plain(q, k, v, lse, do)
+    xs = [t.clone().requires_grad_() for t in (q, k, v)]
+    ys = F.scaled_dot_product_attention(*xs, is_causal=True, enable_gqa=True)
+    ops = 10 * 64 * cs._visible_pairs(4096, 4096, True) * 16
+    out.append({"kernel": "flash_attention_backward", "shape": [1, 16, 8, 4096, 4096, 64],
+                "rel_err": max(rel(a, b) for a, b in zip(run(), exp)),
+                **cs.timed(torch, run, lambda: torch.autograd.grad(ys, xs, do, retain_graph=True), ops,
+                           iters=10),
+                "fwd_bwd_ms": cs.cuda_ms(torch, lambda: torch.autograd.grad(
+                    fa.flash_attention(*xs, block_q=256, block_kv=256), xs, do), iters=10),
+                "host_us": host_us(run, n=20)})
+    del ys, xs
+    for ch in (64, 128, 256):
+        launch = ss.scan_launch(B, L, Di, N, "bfloat16", ch, 256)
+        bwd = ss.scan_backward_launch(B, L, Di, N, "bfloat16", ch, 256)
+        _, states = ss._launch(u, delta, A, Bm, Cm, D, launch)
+        run = lambda: ss._launch_backward(u, delta, A, Bm, Cm, D, states, u, bwd)
+        row = {"kernel": "selective_scan_backward", "shape": [B, L, Di, N], "chunk": ch}
+        if ch == 128:
+            exp = ref.selective_scan_chunked_backward(u, delta, A, Bm, Cm, D, u, ch)
+            row["rel_err"] = max(rel(a, b) for a, b in zip(run(), exp))
+        out.append({**row, **cs.timed(torch, run, None, 25 * B * L * Di * N, iters=10)})
 print(json.dumps(out))
 """
 
@@ -197,8 +241,7 @@ def run_variant(base: Path, name: str, edit, src: Path = ROOT / "src") -> list:
     shutil.rmtree(work, ignore_errors=True)
     shutil.copytree(src, work / "src", ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy2(ROOT / "chip_smoke.py", work / "chip_smoke.py")
-    if edit is not None:
-        rel, pairs = edit
+    for rel, pairs in ([] if edit is None else edit if isinstance(edit, list) else [edit]):
         path = work / KERNELS / rel
         text = path.read_text()
         for old, new in pairs:

@@ -15,43 +15,62 @@
 // Delta is summed from the P and dP the kernel itself computes, not taken
 // as rowsum(dout * o) from the bf16 output: o rounded to bf16 (and P rounded
 // to bf16 in the forward's second product) moves Delta by ~2^-9 of dP, and
-// on a row whose softmax is near one-hot dP - Delta is smaller than that.
+// on a row whose softmax is near one-hot dP - Delta is smaller than that
+// (a row error of 0.996 when it was tried).
 //
 // Bound: operations.  The five products do 10 * D operations a visible
 // (query, key) pair a q-head: at (1,16,8,4096,4096,64) causal 85.9 GFLOP,
-// 0.087 ms at 989 TFLOP/s bf16 (2.5x the forward's).
+// 0.087 ms at 989 TFLOP/s bf16.  This design runs nine (below), 0.156 ms
+// at that rate.
 //
-// Design (FlashAttention-2's split), two launches on one stream, no atomics,
-// so the result is deterministic:
-//   1. the dQ kernel runs one block a (64-row q tile, q head, batch) over
-//      the kv tiles up to the causal diagonal, twice: the first walk sums
-//      Delta (S and dP), which it also writes (B,Hq,Sq) f32 for step 2;
-//      the second recomputes S and dP and sums dQ;
-//   2. the dK/dV kernel runs one block a (64-key tile, kv head, batch).  It
-//      loops over the group's Hq/Hkv q-heads and over their q tiles from the
-//      causal diagonal down, and sums the group's dk and dv in registers, so
-//      each output element has one writer.
-//   Nine products in all against the minimum five: the price of Delta
-//   from P and dP and of dQ without atomics.
-//  * bf16: four warps a block, each owning 16 rows (keys in 2, queries in 1)
-//    of mma.sync m16n8k16 tiles with f32 accumulators.  The block's own rows
-//    are staged in shared memory once; the other side's tiles are double-
-//    buffered, the next one loading by cp.async while this one is used.
-//    Rows are padded by 16 bytes so that the fragment loads (ldmatrix;
-//    .trans for the products over rows) meet no bank conflict; P and dS go
-//    from the accumulator
-//    fragment to the next product's A fragment in registers (rounded to
-//    bf16, as the forward rounds P); exps on ex2.approx with lse taken to
-//    log2 units once a row.  At head_dim 128 the staged side is 32 rows, to
-//    keep the accumulators in registers.
+// Design (FlashAttention-2's split of the work, FlashAttention-3's pipeline),
+// two launches on one stream, no atomics, so two calls give bit-equal
+// gradients:
+//   1. the dQ kernel, a block a 128-row q tile of a q head (two consumer
+//      warpgroups of 64 rows), walks the kv tiles up to the causal diagonal
+//      twice: walk 1 takes S = Q.K^T and dP = dO.V^T and sums Delta =
+//      rowsum(P * dP) on the accumulator fragment (quad shuffles), then
+//      writes Delta and lse in log2 units to a scratch padded to 64 rows a
+//      head (+inf and 0 past Sq); walk 2 takes S and dP again, dS = P (dP -
+//      Delta) and dQ += dS.K;
+//   2. the dK/dV kernel, a block a 128-key tile of a kv head (two consumer
+//      warpgroups of 64 keys), holds K and V and walks the group's q-heads
+//      and their q tiles from the causal diagonal down: S^T = K.Q^T and
+//      dP^T = V.dO^T, P^T and dS^T = P^T (dP^T - Delta) with lse and Delta a
+//      column each, then dV += P^T.dO and dK += dS^T.Q; the group's sum
+//      stays in registers and each output element has one writer.
+//   Nine products in all against the minimum five: the price of Delta from
+//   P and dP and of dQ without atomics.
+//  * bf16: both kernels are TMA -> wgmma pipelines on csrc/sm90.cuh, shaped
+//    as the forward: one producer warpgroup (one thread issues every load)
+//    loads the block's own rows once (Q and dO, or K and V) and streams the
+//    other side through a ring of four stages under full / empty mbarriers
+//    (dQ: K and V 64 keys a stage; dK/dV: Q, dO and, by a bulk copy, their
+//    rows' lse and Delta from the scratch); setmaxnreg moves its registers to
+//    the two consumers (40 -> 232).  Products with both operands as stored
+//    are wgmma_ss (K-major: K, Q, V and dO rows over the head dimension);
+//    the products over rows take P, P^T, dS or dS^T from registers, where
+//    the accumulator fragment is the A fragment (rounded to bf16, as the
+//    forward rounds P), and read dO, Q or K [rows][D] as stored through the
+//    descriptor's transpose bit (wgmma_rs).  3D tensor maps over (D, S,
+//    B*H) zero-fill rows past the sequence without crossing into the next
+//    head.  A warpgroup skips the tiles wholly beyond its diagonal and masks
+//    only the tiles that cross it.  The causally heavy tiles launch first:
+//    the tile index is the grid's slowest axis, reversed for the dQ kernel
+//    (its last q tiles see the most keys).  At head_dim 128 the dK/dV ring
+//    stages 16 q rows, so that dK and dV (64 registers each), S^T and dP^T
+//    fit the 168 registers ptxas allocates a thread (the launch bound's
+//    share: a consumer's setmaxnreg does not raise what it compiles for).
 //  * f32: true f32 on the CUDA cores (no TF32), a thread a key (dK/dV) or a
 //    query row (dQ), the other side staged 16 rows at a time.
-// What bounds this body, and why a wgmma one is later work: mma.sync is
-// run a warp at a time and does not reach the tensor cores' wgmma rate,
-// its fragments cost registers (the dK/dV kernel holds two blocks an SM),
-// and the dQ kernel computes S and dP twice.  A wgmma body on csrc/sm90.cuh
-// (64-row warpgroup tiles with accumulators in registers, Q/dO or K/V
-// streamed by TMA into a ring, as in the forward) would lift the first two.
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W, in one call of
+// scripts/torch_kernel_variants.py: 0.421 ms at (1,16,8,4096,4096,64) (the
+// five products' minimum work at 204 TFLOP/s), against PR 20's mma.sync
+// body's 0.950 and SDPA's backward alone 0.39.
+// What bounds it now: each consumer waits on its own products (no overlap
+// of one tile's softmax with the next tile's wgmma inside a warpgroup), and
+// the dQ kernel computes S and dP twice.
 //
 // The tiles are the kernel's own (kernels/geometry.py flash_backward_tiles:
 // the plan tunes only the forward's); the launcher checks the wrapper's
@@ -61,28 +80,50 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
 
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kPad = 8;            // bf16: elements a staged row is padded by
-constexpr int kThreadsBf16 = 128;  // four warps of 16 rows
-constexpr int kOwnBf16 = 64;       // rows a bf16 block owns
-constexpr int kThreadsF32 = 64;    // a thread a row
-constexpr int kStagedF32 = 16;     // f32: rows of the other side staged at a time
+constexpr int kRows = 64;         // bf16: rows of a consumer warpgroup (keys in dK/dV, queries in dQ); keys a dQ stage
+constexpr int kConsumers = 2;     // bf16: consumer warpgroups a block
+constexpr int kBlockRows = kRows * kConsumers;        // keys (dK/dV) or query rows (dQ) a block
+constexpr int kThreadsBf16 = 128 * (kConsumers + 1);  // and one producer warpgroup
+constexpr int kRegs = 168;        // 65,536 / 384, rounded down to 8: the launch bound's share
+constexpr int kProducerRegs = 40;  // its loop over q-heads and tiles needs more than 24
+constexpr int kConsumerRegs = 232;
+constexpr int kStages = 4;        // bf16: ring stages
+static_assert(kProducerRegs * 128 + kConsumerRegs * 128 * kConsumers <= kRegs * kThreadsBf16,
+              "setmaxnreg asks for more registers than the block holds");
+constexpr int kThreadsF32 = 64;   // a thread a row
+constexpr int kStagedF32 = 16;    // f32: rows of the other side staged at a time
 constexpr int kSmemPerBlock = 232448;
 constexpr int kSmemDefault = 48 * 1024;
 
-__host__ __device__ constexpr int staged_bf16(int D) { return D <= 64 ? 64 : 32; }
+__host__ __device__ constexpr int q_rows_bf16(int D) { return D <= 64 ? 64 : 16; }
+__host__ __device__ __forceinline__ int cdiv(int x, int m) { return (x + m - 1) / m; }
+__host__ __device__ __forceinline__ int pad_rows(int S) { return cdiv(S, kRows) * kRows; }
 
-// the blocks' shared memory, as kernels/geometry.py computes it
-// (bf16: the block's own K and V, or Q and dO, once; the other side's tiles
-// and, for dK/dV, their lse and Delta, twice: a tile in use, the next in flight)
+// The bf16 kernels' tiles at head_dim D.
+template <int D>
+struct Bwd {
+  static constexpr int kSpan = D >= 64 ? 128 : 2 * D;  // bytes of a swizzled row chunk
+  static constexpr int kW = kSpan / 2;                 // head-dim elements of a row chunk
+  static constexpr int kBQ = q_rows_bf16(D);           // dK/dV: q rows a ring stage
+  static constexpr int kTile = kRows * D * 2;          // bytes of 64 rows
+  static constexpr int kQTile = kBQ * D * 2;           // bytes of a dK/dV stage's Q (or dO)
+};
+
+// the blocks' shared memory, as kernels/geometry.py computes it: alignment
+// slack, the block's own rows, the ring and three barriers a stage's worth
+// (one for the own rows, full and empty a stage)
 int smem_dkdv_bf16(int D) {
-  return 2 * (kOwnBf16 + 2 * staged_bf16(D)) * (D + kPad) * 2 + 2 * 2 * staged_bf16(D) * 4;
+  const int bq = q_rows_bf16(D);
+  return 1024 + 2 * kBlockRows * D * 2 + kStages * (2 * bq * D * 2 + 2 * bq * 4) + 8 * (1 + 2 * kStages);
 }
-int smem_dq_bf16(int D) { return 2 * (kOwnBf16 + 2 * staged_bf16(D)) * (D + kPad) * 2 + 2 * kOwnBf16 * 4; }
+int smem_dq_bf16(int D) { return 1024 + 2 * kBlockRows * D * 2 + kStages * 2 * kRows * D * 2 + 8 * (1 + 2 * kStages); }
 int smem_dq_f32(int D) { return 2 * kThreadsF32 * (D + 1) * 4 + 2 * kStagedF32 * D * 4; }
 int smem_dkdv_f32(int D) { return smem_dq_f32(D) + 2 * kStagedF32 * 4; }
 
@@ -102,388 +143,376 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// c += a . b, m16n8k16, bf16 inputs, f32 accumulators.  Lane = 4 g + t:
-// a holds rows g and g+8, columns 2t, 2t+1 (+8); b holds k rows 2t, 2t+1
-// (+8) of column g; c holds rows g (c0, c1) and g+8 (c2, c3), columns 2t, 2t+1.
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 bf16 matrices from shared memory, lane l giving a row address of
-// matrix l / 8; .trans hands each thread the transposed matrix's fragment.
-template <bool TRANS>
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const bf16* p) {
-  if constexpr (TRANS)
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
-  else
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
-}
-
-// A fragment: rows r0..r0+15, columns k0..k0+15 of a row-major tile
-__device__ __forceinline__ void load_a(uint32_t* a, const bf16* x, int ld, int r0, int k0, int lane) {
-  ldmatrix_x4<false>(a, x + (r0 + (lane & 15)) * ld + k0 + (lane >> 4) * 8);
-}
-
-// B fragments (k0..k0+15) of the n-blocks n0 and n0+8 of B = Y^T, Y
-// row-major [n][k] (K, V, Q or dO as stored, in a product over the head
-// dimension): b[0], b[1] for n0, b[2], b[3] for n0+8
-__device__ __forceinline__ void load_bt2(uint32_t* b, const bf16* y, int ld, int n0, int k0, int lane) {
-  ldmatrix_x4<false>(b, y + (n0 + (lane & 7) + (lane >> 4) * 8) * ld + k0 + ((lane >> 3) & 1) * 8);
-}
-
-// B fragments (k0..k0+15) of the n-blocks n0 and n0+8 of B = Z, Z row-major
-// [k][n] (a product over rows: P^T dO, dS^T Q, dS K), read transposed
-__device__ __forceinline__ void load_b2(uint32_t* b, const bf16* z, int ld, int k0, int n0, int lane) {
-  ldmatrix_x4<true>(b, z + (k0 + (lane & 15)) * ld + n0 + (lane >> 4) * 8);
-}
-
-// rows [r0, r0 + n) of one head's (S, D) rows into a [n][D + kPad] tile,
-// zero past S, in 16-byte vectors
+// Byte offset of k-step kk (16 head-dim elements) in a K-major tile of
+// `rows` rows, stored as row chunks of kW elements (each rows x kSpan bytes).
 template <int D>
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, int r0, int n, int S) {
-  constexpr int V = D / 8;
-  for (int i = threadIdx.x; i < n * V; i += blockDim.x) {
-    const int r = i / V, c = (i % V) * 8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < S) x = *reinterpret_cast<const uint4*>(src + static_cast<long long>(r0 + r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * (D + kPad) + c) = x;
-  }
+__device__ __forceinline__ int kstep(int kk, int rows) {
+  using K = Bwd<D>;
+  return kk * 16 / K::kW * rows * K::kSpan + kk * 16 % K::kW * 2;
 }
 
-// the same with cp.async (16 bytes a copy, zero-filled past S), so that the
-// next tile loads while this one is multiplied; the caller commits the group
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 16 : 0));
+// d (64 x N) = A . B^T over the head dimension, both K-major tiles in shared
+// memory: A of 64 rows, B of N = 2 * R rows (R: the accumulator's floats).
+template <int D, int R>
+__device__ __forceinline__ void product_hd(float (&d)[R], const unsigned char* a, const unsigned char* b) {
+  using K = Bwd<D>;
+  constexpr uint32_t swz = sm90::swizzle_code(K::kSpan);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    sm90::wgmma_ss<0, 0>(d, sm90::make_desc(a + kstep<D>(kk, kRows), 16, 8 * K::kSpan, swz),
+                         sm90::make_desc(b + kstep<D>(kk, 2 * R), 16, 8 * K::kSpan, swz), kk > 0);
 }
 
+// d (64 x D) += A . B over `rows` rows: A the bf16 fragments of a 64 x rows
+// accumulator, B a [rows][D] tile as stored (MN-major: the transpose bit).
+template <int D, int ROWS>
+__device__ __forceinline__ void product_rows(float (&d)[D / 2], const uint32_t (&a)[ROWS / 16][4],
+                                             const unsigned char* b) {
+  using K = Bwd<D>;
+  constexpr uint32_t swz = sm90::swizzle_code(K::kSpan);
+#pragma unroll
+  for (int kk = 0; kk < ROWS / 16; ++kk)
+    sm90::wgmma_rs<1>(d, a[kk], sm90::make_desc(b + kk * 16 * K::kSpan, ROWS * K::kSpan, 8 * K::kSpan, swz), 1);
+}
+
+// The accumulator fragment of 64 x 2R as the A fragments of its R / 8 k-steps
+template <int R>
+__device__ __forceinline__ void to_a(uint32_t (&a)[R / 8][4], const float (&x)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; i += 2) a[i / 8][i % 8 / 2] = pack_bf16(x[i], x[i + 1]);
+}
+
+// One thread issues a stage's loads of `n_chunks` row chunks of a 3D map
 template <int D>
-__device__ __forceinline__ void stage_rows_async(bf16* dst, const bf16* src, int r0, int n, int S) {
-  constexpr int V = D / 8;
-  for (int i = threadIdx.x; i < n * V; i += blockDim.x) {
-    const int r = i / V, c = (i % V) * 8;
-    const bool in = r0 + r < S;
-    cp_async16(dst + r * (D + kPad) + c, src + (in ? static_cast<long long>(r0 + r) * D + c : 0), in);
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// lse of a row in log2 units, +inf for a row that sees no key (or past Sq):
-// exp2(s - that) is then 0
-__device__ __forceinline__ float lse_log2(const float* lse, long long at, bool in) {
-  const float l = in ? lse[at] : -INFINITY;
-  return l == -INFINITY ? INFINITY : l * kLog2e;
+__device__ __forceinline__ void load_rows(unsigned char* dst, const CUtensorMap* map, uint64_t* bar, int rows,
+                                          int row0, int plane) {
+  using K = Bwd<D>;
+#pragma unroll
+  for (int c = 0; c < D / K::kW; ++c) sm90::tma_load_3d(dst + c * rows * K::kSpan, map, bar, c * K::kW, row0, plane);
 }
 
 // ---------------------------------------------------------------------------
-// bf16 dK / dV: one block a (64-key tile, kv head, batch)
+// bf16 dQ (and Delta): a block a (128-row q tile, q head, batch).  Shared
+// memory: Q and dO of every consumer, the ring (each stage K then V, 64
+// keys), barriers.
 // ---------------------------------------------------------------------------
 template <int D>
-__global__ void __launch_bounds__(kThreadsBf16)
-flash_bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    bf16* __restrict__ dk, bf16* __restrict__ dv, int Hq, int Hkv, int Sq, int Skv,
-                    int causal, float scale) {
-  constexpr int BC = kOwnBf16, BR = staged_bf16(D), LD = D + kPad, NB = BR / 8, ND = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + BC * LD;
-  bf16* Qs = Vs + BC * LD;      // two buffers of BR rows
-  bf16* Os = Qs + 2 * BR * LD;  // dout, two buffers
-  float* Ls = reinterpret_cast<float*>(Os + 2 * BR * LD);
-  float* Ds = Ls + 2 * BR;
-
-  const int hk = blockIdx.y, b = blockIdx.z, k0 = blockIdx.x * BC;
-  const int groups = Hq / Hkv, q_off = Skv - Sq;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int kw = k0 + warp * 16;  // the warp's first key
-  const long long kvbase = static_cast<long long>(b * Hkv + hk) * Skv * D;
-  stage_rows<D>(Ks, k + kvbase, k0, BC, Skv);
-  stage_rows<D>(Vs, v + kvbase, k0, BC, Skv);
-
-  float ak[ND][4], av[ND][4];  // dK, dV of the warp's 16 keys
-#pragma unroll
-  for (int i = 0; i < ND; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) ak[i][e] = av[i][e] = 0.f;
-  const float sl2 = scale * kLog2e;
-  // the q tiles from the first one with a row that sees key k0 (the causal
-  // diagonal) to the end, for each of the group's q-heads: the group's sum
-  const int qt0 = (causal ? max(0, k0 - q_off) : 0) / BR;
-  const int nq = max(0, (Sq + BR - 1) / BR - qt0);
-  const int steps = groups * nq;
-  auto prefetch = [&](int it) {  // step it's Q, dO, lse and Delta into buffer it % 2
-    const int buf = it & 1, q0 = (qt0 + it % nq) * BR;
-    const long long qrow = static_cast<long long>(b * Hq + hk * groups + it / nq) * Sq;
-    stage_rows_async<D>(Qs + buf * BR * LD, q + qrow * D, q0, BR, Sq);
-    stage_rows_async<D>(Os + buf * BR * LD, dout + qrow * D, q0, BR, Sq);
-    cp_async_commit();
-    for (int i = threadIdx.x; i < BR; i += blockDim.x) {
-      const bool in = q0 + i < Sq;
-      Ls[buf * BR + i] = lse_log2(lse, qrow + q0 + i, in);
-      Ds[buf * BR + i] = in ? delta[qrow + q0 + i] : 0.f;
-    }
-  };
-
-  if (steps > 0) prefetch(0);
-  for (int it = 0; it < steps; ++it) {
-    if (it + 1 < steps) {  // buffer (it + 1) % 2 was last read in step it - 1
-      prefetch(it + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int buf = it & 1, q0 = (qt0 + it % nq) * BR;
-    const bf16* Qb = Qs + buf * BR * LD;
-    const bf16* Ob = Os + buf * BR * LD;
-    const float* Lb = Ls + buf * BR;
-    const float* Db = Ds + buf * BR;
-    const bool masked = (causal && q_off + q0 < k0 + BC - 1) || q0 + BR > Sq || k0 + BC > Skv;
-
-    float s[NB][4], dp[NB][4];  // S^T and dP^T: the warp's 16 keys x BR query rows
-#pragma unroll
-    for (int i = 0; i < NB; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ka[4], va[4];
-      load_a(ka, Ks, LD, warp * 16, kk * 16, lane);
-      load_a(va, Vs, LD, warp * 16, kk * 16, lane);
-#pragma unroll
-      for (int nb = 0; nb < NB; nb += 2) {
-        uint32_t bb[4];
-        load_bt2(bb, Qb, LD, nb * 8, kk * 16, lane);
-        mma16816(s[nb], ka, bb[0], bb[1]);
-        mma16816(s[nb + 1], ka, bb[2], bb[3]);
-        load_bt2(bb, Ob, LD, nb * 8, kk * 16, lane);
-        mma16816(dp[nb], va, bb[0], bb[1]);
-        mma16816(dp[nb + 1], va, bb[2], bb[3]);
-      }
-    }
-    // P^T = exp(S^T - lse), then dS^T = P^T (dP^T - Delta)
-#pragma unroll
-    for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = nb * 8 + 2 * t + (e & 1);  // query row in the tile
-        const int key = kw + g + (e >> 1) * 8;
-        float p = fast_exp2(fmaf(s[nb][e], sl2, -Lb[r]));
-        if (masked && (key >= Skv || q0 + r >= Sq || (causal && key > q_off + q0 + r))) p = 0.f;
-        s[nb][e] = p;
-        dp[nb][e] = p * (dp[nb][e] - Db[r]);
-      }
-    // dV += P^T dout and dK += dS^T q: the accumulator fragments of query
-    // rows 16kk..16kk+15 are the A fragments of k-step kk
-#pragma unroll
-    for (int kk = 0; kk < BR / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const uint32_t da[4] = {pack_bf16(dp[2 * kk][0], dp[2 * kk][1]), pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
-                              pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
-                              pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
-#pragma unroll
-      for (int nd = 0; nd < ND; nd += 2) {
-        uint32_t bb[4];
-        load_b2(bb, Ob, LD, kk * 16, nd * 8, lane);
-        mma16816(av[nd], pa, bb[0], bb[1]);
-        mma16816(av[nd + 1], pa, bb[2], bb[3]);
-        load_b2(bb, Qb, LD, kk * 16, nd * 8, lane);
-        mma16816(ak[nd], da, bb[0], bb[1]);
-        mma16816(ak[nd + 1], da, bb[2], bb[3]);
-      }
-    }
-    __syncthreads();  // this step's buffer is free for step it + 2
-  }
-
-  const int ra = kw + g, rb = ra + 8;
-#pragma unroll
-  for (int nd = 0; nd < ND; ++nd) {
-    const int c = nd * 8 + 2 * t;
-    if (ra < Skv) {
-      *reinterpret_cast<uint32_t*>(dk + kvbase + static_cast<long long>(ra) * D + c) =
-          pack_bf16(ak[nd][0] * scale, ak[nd][1] * scale);
-      *reinterpret_cast<uint32_t*>(dv + kvbase + static_cast<long long>(ra) * D + c) =
-          pack_bf16(av[nd][0], av[nd][1]);
-    }
-    if (rb < Skv) {
-      *reinterpret_cast<uint32_t*>(dk + kvbase + static_cast<long long>(rb) * D + c) =
-          pack_bf16(ak[nd][2] * scale, ak[nd][3] * scale);
-      *reinterpret_cast<uint32_t*>(dv + kvbase + static_cast<long long>(rb) * D + c) =
-          pack_bf16(av[nd][2], av[nd][3]);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bf16 dQ (and Delta): one block a (64-row q tile, q head, batch)
-// ---------------------------------------------------------------------------
-// P (masked, in s) and dP of the warp's 16 rows against the staged keys k0..
-template <int D, int BC>
-__device__ __forceinline__ void scores_dq(float (&s)[BC / 8][4], float (&dp)[BC / 8][4],
-                                          const bf16* Qs, const bf16* Os, const bf16* Ks,
-                                          const bf16* Vs, const float* Ls, int rw, int g, int t,
-                                          float sl2, bool masked, int k0, int q0, int q_off, int Sq,
-                                          int Skv, int causal) {
-  constexpr int LD = D + kPad, NB = BC / 8;
-#pragma unroll
-  for (int i = 0; i < NB; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t qa[4], oa[4];
-    load_a(qa, Qs, LD, rw, kk * 16, g * 4 + t);
-    load_a(oa, Os, LD, rw, kk * 16, g * 4 + t);
-#pragma unroll
-    for (int nb = 0; nb < NB; nb += 2) {
-      uint32_t bb[4];
-      load_bt2(bb, Ks, LD, nb * 8, kk * 16, g * 4 + t);
-      mma16816(s[nb], qa, bb[0], bb[1]);
-      mma16816(s[nb + 1], qa, bb[2], bb[3]);
-      load_bt2(bb, Vs, LD, nb * 8, kk * 16, g * 4 + t);
-      mma16816(dp[nb], oa, bb[0], bb[1]);
-      mma16816(dp[nb + 1], oa, bb[2], bb[3]);
-    }
-  }
-#pragma unroll
-  for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = rw + g + (e >> 1) * 8;  // row in the tile
-      const int key = k0 + nb * 8 + 2 * t + (e & 1);
-      float p = fast_exp2(fmaf(s[nb][e], sl2, -Ls[r]));
-      if (masked && (key >= Skv || q0 + r >= Sq || (causal && key > q_off + q0 + r))) p = 0.f;
-      s[nb][e] = p;
-    }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreadsBf16)
-flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                  const float* __restrict__ lse, float* __restrict__ delta,
+__global__ void __launch_bounds__(kThreadsBf16, 1)
+flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap omap,
+                  const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+                  const float* __restrict__ lse, float* __restrict__ lse2, float* __restrict__ delta,
                   bf16* __restrict__ dq, int Hq, int Hkv, int Sq, int Skv, int causal, float scale) {
-  constexpr int BR = kOwnBf16, BC = staged_bf16(D), LD = D + kPad, NB = BC / 8, ND = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Os = Qs + BR * LD;      // dout
-  bf16* Ks = Os + BR * LD;      // two buffers of BC keys
-  bf16* Vs = Ks + 2 * BC * LD;  // two buffers
-  float* Ls = reinterpret_cast<float*>(Vs + 2 * BC * LD);
-  float* Ds = Ls + BR;
+  using K = Bwd<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = sm90::align1024(smem_raw);
+  unsigned char* os = qs + kConsumers * K::kTile;
+  unsigned char* ring = os + kConsumers * K::kTile;
+  uint64_t* own_full = reinterpret_cast<uint64_t*>(ring + kStages * 2 * K::kTile);
+  uint64_t* full = own_full + 1;
+  uint64_t* empty = full + kStages;
 
-  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * BR;
+  const int h = blockIdx.x, b = blockIdx.y;
   const int hk = h / (Hq / Hkv), q_off = Skv - Sq;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int rw = warp * 16;  // the warp's first row in the tile
-  const long long qrow = static_cast<long long>(b * Hq + h) * Sq;
-  const long long kvbase = static_cast<long long>(b * Hkv + hk) * Skv * D;
-  stage_rows<D>(Qs, q + qrow * D, q0, BR, Sq);
-  stage_rows<D>(Os, dout + qrow * D, q0, BR, Sq);
-  for (int i = threadIdx.x; i < BR; i += blockDim.x) Ls[i] = lse_log2(lse, qrow + q0 + i, q0 + i < Sq);
-  const float sl2 = scale * kLog2e;
-  // kv tiles the q tile sees: up to its last row's diagonal
-  const int kv_end = causal ? min(Skv, max(q_off + min(q0 + BR, Sq), 0)) : Skv;
-  const int tiles = (kv_end + BC - 1) / BC;
-  auto prefetch = [&](int it) {  // kv tile it into buffer it % 2
-    stage_rows_async<D>(Ks + (it & 1) * BC * LD, k + kvbase, it * BC, BC, Skv);
-    stage_rows_async<D>(Vs + (it & 1) * BC * LD, v + kvbase, it * BC, BC, Skv);
-    cp_async_commit();
-  };
-  // one walk over the kv tiles, loading tile it + 1 while tile it is used
-  auto walk = [&](auto&& body) {
-    if (tiles > 0) prefetch(0);
-    for (int it = 0; it < tiles; ++it) {
-      if (it + 1 < tiles) {  // buffer (it + 1) % 2 was last read in step it - 1
-        prefetch(it + 1);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      body(it * BC, Ks + (it & 1) * BC * LD, Vs + (it & 1) * BC * LD);
-      __syncthreads();
-    }
-  };
-  float s[NB][4], dp[NB][4];  // P and dP: the warp's 16 rows x BC keys
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBlockRows;  // the last q tiles, which see the most keys, first
+  const int q_end = min(q0 + kBlockRows, Sq);
+  const int kv_end = causal ? min(Skv, max(q_off + q_end, 0)) : Skv;  // up to the last row's diagonal
+  const int n_sub = cdiv(kv_end, kRows);
 
-  // walk 1: Delta = rowsum(P * dP) of rows g and g + 8
-  float dl_a = 0.f, dl_b = 0.f;
-  walk([&](int k0, const bf16* Kb, const bf16* Vb) {
-    const bool masked = (causal && k0 + BC - 1 > q_off + q0) || k0 + BC > Skv || q0 + BR > Sq;
-    scores_dq<D, BC>(s, dp, Qs, Os, Kb, Vb, Ls, rw, g, t, sl2, masked, k0, q0, q_off, Sq, Skv, causal);
-#pragma unroll
-    for (int nb = 0; nb < NB; ++nb) {
-      dl_a = fmaf(s[nb][0], dp[nb][0], fmaf(s[nb][1], dp[nb][1], dl_a));
-      dl_b = fmaf(s[nb][2], dp[nb][2], fmaf(s[nb][3], dp[nb][3], dl_b));
+  if (threadIdx.x == 0) {
+    sm90::tma_prefetch_map(&qmap);
+    sm90::tma_prefetch_map(&omap);
+    sm90::tma_prefetch_map(&kmap);
+    sm90::tma_prefetch_map(&vmap);
+    sm90::mbar_init(own_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 4 * kConsumers);  // one arrival per consumer warp
     }
-  });
-  dl_a = quad_sum(dl_a);
-  dl_b = quad_sum(dl_b);
-  if (t == 0) {  // one writer a row: the dK/dV kernel reads Delta from device memory
-    Ds[rw + g] = dl_a;
-    Ds[rw + g + 8] = dl_b;
-    if (q0 + rw + g < Sq) delta[qrow + q0 + rw + g] = dl_a;
-    if (q0 + rw + g + 8 < Sq) delta[qrow + q0 + rw + g + 8] = dl_b;
+    sm90::fence_barrier_init();
   }
+  __syncthreads();
 
-  // walk 2: dS = P (dP - Delta), dQ += dS k
-  float acc[ND][4];
-#pragma unroll
-  for (int i = 0; i < ND; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
-  walk([&](int k0, const bf16* Kb, const bf16* Vb) {
-    const bool masked = (causal && k0 + BC - 1 > q_off + q0) || k0 + BC > Skv || q0 + BR > Sq;
-    scores_dq<D, BC>(s, dp, Qs, Os, Kb, Vb, Ls, rw, g, t, sl2, masked, k0, q0, q_off, Sq, Skv, causal);
-#pragma unroll
-    for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dp[nb][e] = s[nb][e] * (dp[nb][e] - Ds[rw + g + (e >> 1) * 8]);
-    // the fragments of keys 16kk..16kk+15 are k-step kk's A
-#pragma unroll
-    for (int kk = 0; kk < BC / 16; ++kk) {
-      const uint32_t da[4] = {pack_bf16(dp[2 * kk][0], dp[2 * kk][1]), pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
-                              pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
-                              pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
-#pragma unroll
-      for (int nd = 0; nd < ND; nd += 2) {
-        uint32_t bb[4];
-        load_b2(bb, Kb, LD, kk * 16, nd * 8, lane);
-        mma16816(acc[nd], da, bb[0], bb[1]);
-        mma16816(acc[nd + 1], da, bb[2], bb[3]);
+  if (threadIdx.x < 128) {  // producer warpgroup: one thread issues every load
+    sm90::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      sm90::mbar_arrive_expect_tx(own_full, 2 * kConsumers * K::kTile);
+      for (int w = 0; w < kConsumers; ++w) {
+        load_rows<D>(qs + w * K::kTile, &qmap, own_full, kRows, q0 + w * kRows, b * Hq + h);
+        load_rows<D>(os + w * K::kTile, &omap, own_full, kRows, q0 + w * kRows, b * Hq + h);
+      }
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int it = 0; it < 2 * n_sub; ++it) {  // the keys twice: walk 1, then walk 2
+        const int s = it < n_sub ? it : it - n_sub;
+        sm90::mbar_wait(&empty[stage], phase ^ 1);
+        unsigned char* ks = ring + stage * 2 * K::kTile;
+        sm90::mbar_arrive_expect_tx(&full[stage], 2 * K::kTile);
+        load_rows<D>(ks, &kmap, &full[stage], kRows, s * kRows, b * Hkv + hk);
+        load_rows<D>(ks + K::kTile, &vmap, &full[stage], kRows, s * kRows, b * Hkv + hk);
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
       }
     }
-  });
+  } else {  // consumer warpgroups: 64 query rows each
+    sm90::setmaxnreg_inc<kConsumerRegs>();
+    const int cw = threadIdx.x / 128 - 1;
+    const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+    const int w0 = q0 + cw * kRows;  // first query row of this warpgroup
+    const int ra = w0 + (threadIdx.x / 32) % 4 * 16 + g, rb = ra + 8;
+    const int w_last = min(w0 + kRows, q_end) - 1;  // its last row that is the block's
+    const int w_kv_end = w_last < w0 ? 0 : causal ? min(kv_end, q_off + w_last + 1) : kv_end;
+    const long long qrow = static_cast<long long>(b * Hq + h) * Sq;
+    // lse in log2 units; +inf (so P = 0) past Sq and for a row that sees no key
+    const float la = ra < Sq ? lse[qrow + ra] : -INFINITY, lb = rb < Sq ? lse[qrow + rb] : -INFINITY;
+    const float l2a = la == -INFINITY ? INFINITY : la * kLog2e;
+    const float l2b = lb == -INFINITY ? INFINITY : lb * kLog2e;
+    const unsigned char* qw = qs + cw * K::kTile;
+    const unsigned char* ow = os + cw * K::kTile;
+    const float sl2 = scale * kLog2e;
 
-  const int ra = q0 + rw + g, rb = ra + 8;
+    float acc[D / 2];
 #pragma unroll
-  for (int nd = 0; nd < ND; ++nd) {
-    const int c = nd * 8 + 2 * t;
-    if (ra < Sq)
-      *reinterpret_cast<uint32_t*>(dq + (qrow + ra) * D + c) = pack_bf16(acc[nd][0] * scale, acc[nd][1] * scale);
-    if (rb < Sq)
-      *reinterpret_cast<uint32_t*>(dq + (qrow + rb) * D + c) = pack_bf16(acc[nd][2] * scale, acc[nd][3] * scale);
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float dl_a = 0.f, dl_b = 0.f;  // Delta of rows ra and rb
+    sm90::mbar_wait(own_full, 0);
+    int stage = 0;
+    uint32_t phase = 0;
+    // P (in sc) and dP of the warpgroup's rows against the stage's keys
+    float sc[kRows / 2], dp[kRows / 2];
+    auto scores = [&](int key0, const unsigned char* ks) {
+      sm90::wgmma_fence();
+      product_hd<D>(sc, qw, ks);
+      product_hd<D>(dp, ow, ks + K::kTile);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(sc);
+      sm90::fence_regs(dp);
+      const bool masked = key0 + kRows > Skv || (causal && key0 + kRows - 1 > q_off + w0);
+#pragma unroll
+      for (int i = 0; i < kRows / 2; ++i) {
+        float p = fast_exp2(fmaf(sc[i], sl2, (i & 2) ? -l2b : -l2a));
+        if (masked) {
+          const int key = key0 + i / 4 * 8 + 2 * t4 + (i & 1);
+          if (key >= Skv || (causal && key > q_off + ((i & 2) ? rb : ra))) p = 0.f;
+        }
+        sc[i] = p;
+      }
+    };
+    auto release = [&]() {
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(&empty[stage]);
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    };
+
+    // walk 1: Delta = rowsum(P * dP)
+    for (int s = 0; s < n_sub; ++s) {
+      sm90::mbar_wait(&full[stage], phase);
+      if (s * kRows < w_kv_end) {  // tiles right of this warpgroup's rows are skipped
+        scores(s * kRows, ring + stage * 2 * K::kTile);
+#pragma unroll
+        for (int j = 0; j < kRows / 8; ++j) {
+          dl_a = fmaf(sc[4 * j], dp[4 * j], fmaf(sc[4 * j + 1], dp[4 * j + 1], dl_a));
+          dl_b = fmaf(sc[4 * j + 2], dp[4 * j + 2], fmaf(sc[4 * j + 3], dp[4 * j + 3], dl_b));
+        }
+      }
+      release();
+    }
+    dl_a = quad_sum(dl_a);
+    dl_b = quad_sum(dl_b);
+    if (t4 == 0 && w0 < Sq) {  // one writer a row, every row below the 64-row padding
+      const long long prow = static_cast<long long>(b * Hq + h) * pad_rows(Sq);
+      lse2[prow + ra] = l2a;
+      lse2[prow + rb] = l2b;
+      delta[prow + ra] = dl_a;
+      delta[prow + rb] = dl_b;
+    }
+
+    // walk 2: dS = P (dP - Delta), dQ += dS.K
+    for (int s = 0; s < n_sub; ++s) {
+      sm90::mbar_wait(&full[stage], phase);
+      if (s * kRows < w_kv_end) {
+        const unsigned char* ks = ring + stage * 2 * K::kTile;
+        scores(s * kRows, ks);
+#pragma unroll
+        for (int i = 0; i < kRows / 2; ++i) sc[i] *= dp[i] - ((i & 2) ? dl_b : dl_a);
+        uint32_t da[kRows / 16][4];
+        to_a(da, sc);
+        sm90::wgmma_fence();
+        product_rows<D, kRows>(acc, da, ks);
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(acc);
+      }
+      release();
+    }
+
+    bf16* out = dq + qrow * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int c = j * 8 + 2 * t4;
+      if (ra < Sq)
+        *reinterpret_cast<uint32_t*>(out + static_cast<long long>(ra) * D + c) =
+            pack_bf16(acc[4 * j] * scale, acc[4 * j + 1] * scale);
+      if (rb < Sq)
+        *reinterpret_cast<uint32_t*>(out + static_cast<long long>(rb) * D + c) =
+            pack_bf16(acc[4 * j + 2] * scale, acc[4 * j + 3] * scale);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 dK / dV: a block a (128-key tile, kv head, batch).  Shared memory: K
+// and V of every consumer, the ring (each stage Q then dO, BQ rows), the
+// ring's lse and Delta (a stage: BQ of each), barriers.
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(kThreadsBf16, 1)
+flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+                    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap omap,
+                    const float* __restrict__ lse2, const float* __restrict__ delta, bf16* __restrict__ dk,
+                    bf16* __restrict__ dv, int Hq, int Hkv, int Sq, int Skv, int causal, float scale) {
+  using K = Bwd<D>;
+  constexpr int BQ = K::kBQ;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ks = sm90::align1024(smem_raw);
+  unsigned char* vs = ks + kConsumers * K::kTile;
+  unsigned char* ring = vs + kConsumers * K::kTile;
+  float* lsd = reinterpret_cast<float*>(ring + kStages * 2 * K::kQTile);
+  uint64_t* own_full = reinterpret_cast<uint64_t*>(lsd + kStages * 2 * BQ);
+  uint64_t* full = own_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * kBlockRows;  // kv tile 0, which every q tile sees, first
+  const int groups = Hq / Hkv, q_off = Skv - Sq;
+  // the q tiles from the first with a row that sees key k0 (the causal
+  // diagonal) to the end, for each of the group's q-heads: the group's sum
+  const int qt0 = (causal ? max(0, k0 - q_off) : 0) / BQ;
+  const int nq = max(0, cdiv(Sq, BQ) - qt0);
+  const int steps = groups * nq;
+
+  if (threadIdx.x == 0) {
+    sm90::tma_prefetch_map(&kmap);
+    sm90::tma_prefetch_map(&vmap);
+    sm90::tma_prefetch_map(&qmap);
+    sm90::tma_prefetch_map(&omap);
+    sm90::mbar_init(own_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 4 * kConsumers);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    sm90::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      sm90::mbar_arrive_expect_tx(own_full, 2 * kConsumers * K::kTile);
+      for (int w = 0; w < kConsumers; ++w) {
+        load_rows<D>(ks + w * K::kTile, &kmap, own_full, kRows, k0 + w * kRows, b * Hkv + hk);
+        load_rows<D>(vs + w * K::kTile, &vmap, own_full, kRows, k0 + w * kRows, b * Hkv + hk);
+      }
+      const int q_pad = pad_rows(Sq);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int it = 0; it < steps; ++it) {
+        const int hq = b * Hq + hk * groups + it / nq, qr0 = (qt0 + it % nq) * BQ;
+        sm90::mbar_wait(&empty[stage], phase ^ 1);
+        unsigned char* qsm = ring + stage * 2 * K::kQTile;
+        sm90::mbar_arrive_expect_tx(&full[stage], 2 * K::kQTile + 2 * BQ * 4);
+        load_rows<D>(qsm, &qmap, &full[stage], BQ, qr0, hq);
+        load_rows<D>(qsm + K::kQTile, &omap, &full[stage], BQ, qr0, hq);
+        const long long at = static_cast<long long>(hq) * q_pad + qr0;
+        sm90::bulk_load(lsd + stage * 2 * BQ, lse2 + at, BQ * 4, &full[stage]);
+        sm90::bulk_load(lsd + stage * 2 * BQ + BQ, delta + at, BQ * 4, &full[stage]);
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {  // consumer warpgroups: 64 keys each
+    sm90::setmaxnreg_inc<kConsumerRegs>();
+    const int cw = threadIdx.x / 128 - 1;
+    const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+    const int wk0 = k0 + cw * kRows;  // first key of this warpgroup
+    const int ra = wk0 + (threadIdx.x / 32) % 4 * 16 + g, rb = ra + 8;
+    const unsigned char* kw = ks + cw * K::kTile;
+    const unsigned char* vw = vs + cw * K::kTile;
+    const float sl2 = scale * kLog2e;
+
+    float adk[D / 2], adv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) adk[i] = adv[i] = 0.f;
+    sm90::mbar_wait(own_full, 0);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int it = 0; it < steps; ++it) {
+      const int qr0 = (qt0 + it % nq) * BQ;
+      sm90::mbar_wait(&full[stage], phase);
+      // tiles whose rows all lie above this warpgroup's keys' diagonal, and
+      // keys past Skv, are skipped
+      if (wk0 < Skv && (!causal || q_off + qr0 + BQ - 1 >= wk0)) {
+        const unsigned char* qsm = ring + stage * 2 * K::kQTile;
+        const unsigned char* osm = qsm + K::kQTile;
+        const float* lsm = lsd + stage * 2 * BQ;  // lse2 (+inf past Sq), then Delta (0 past Sq)
+        float st[BQ / 2], dpt[BQ / 2];  // S^T and dP^T: 64 keys x BQ query rows
+        sm90::wgmma_fence();
+        product_hd<D>(st, kw, qsm);
+        product_hd<D>(dpt, vw, osm);
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(st);
+        sm90::fence_regs(dpt);
+        const bool masked = causal && q_off + qr0 < wk0 + kRows - 1;
+#pragma unroll
+        for (int i = 0; i < BQ / 2; ++i) {
+          const int col = i / 4 * 8 + 2 * t4 + (i & 1);  // query row in the tile
+          float p = fast_exp2(fmaf(st[i], sl2, -lsm[col]));
+          if (masked && ((i & 2) ? rb : ra) > q_off + qr0 + col) p = 0.f;
+          st[i] = p;
+          dpt[i] = p * (dpt[i] - lsm[BQ + col]);
+        }
+        uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+        to_a(pa, st);
+        to_a(da, dpt);
+        sm90::wgmma_fence();
+        product_rows<D, BQ>(adv, pa, osm);
+        product_rows<D, BQ>(adk, da, qsm);
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(adv);
+        sm90::fence_regs(adk);
+      }
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(&empty[stage]);
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+    const long long kvbase = static_cast<long long>(b * Hkv + hk) * Skv * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int c = j * 8 + 2 * t4;
+      if (ra < Skv) {
+        const long long at = kvbase + static_cast<long long>(ra) * D + c;
+        *reinterpret_cast<uint32_t*>(dk + at) = pack_bf16(adk[4 * j] * scale, adk[4 * j + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dv + at) = pack_bf16(adv[4 * j], adv[4 * j + 1]);
+      }
+      if (rb < Skv) {
+        const long long at = kvbase + static_cast<long long>(rb) * D + c;
+        *reinterpret_cast<uint32_t*>(dk + at) = pack_bf16(adk[4 * j + 2] * scale, adk[4 * j + 3] * scale);
+        *reinterpret_cast<uint32_t*>(dv + at) = pack_bf16(adv[4 * j + 2], adv[4 * j + 3]);
+      }
+    }
   }
 }
 
@@ -647,20 +676,39 @@ cudaError_t allow_smem(Kern kernel, int smem) {
 template <int D>
 cudaError_t launch_bf16(int B, int Hq, int Hkv, int Sq, int Skv, int causal, float scale,
                         cudaStream_t s, const void* q, const void* k, const void* v, const void* dout,
-                        const float* lse, float* delta, void* dq, void* dk, void* dv) {
-  cudaError_t e = allow_smem(flash_bwd_dkdv_bf16<D>, smem_dkdv_bf16(D));
-  if (e == cudaSuccess) e = allow_smem(flash_bwd_dq_bf16<D>, smem_dq_bf16(D));
+                        const float* lse, float* scratch, void* dq, void* dk, void* dv) {
+  using K = Bwd<D>;
+  const uint64_t bhq = static_cast<uint64_t>(B) * Hq, bhkv = static_cast<uint64_t>(B) * Hkv;
+  // boxes of 64 rows x one swizzled row chunk; the dK/dV ring's Q and dO of BQ rows
+  CUtensorMap qmap, omap, kmap, vmap, qmap_bq, omap_bq;
+  cudaError_t e = sm90::encode_bf16_3d(&qmap, q, D, Sq, bhq, K::kW, kRows);
+  if (e == cudaSuccess) e = sm90::encode_bf16_3d(&omap, dout, D, Sq, bhq, K::kW, kRows);
+  if (e == cudaSuccess) e = sm90::encode_bf16_3d(&kmap, k, D, Skv, bhkv, K::kW, kRows);
+  if (e == cudaSuccess) e = sm90::encode_bf16_3d(&vmap, v, D, Skv, bhkv, K::kW, kRows);
+  if (K::kBQ == kRows) {
+    qmap_bq = qmap;
+    omap_bq = omap;
+  } else {
+    if (e == cudaSuccess) e = sm90::encode_bf16_3d(&qmap_bq, q, D, Sq, bhq, K::kW, K::kBQ);
+    if (e == cudaSuccess) e = sm90::encode_bf16_3d(&omap_bq, dout, D, Sq, bhq, K::kW, K::kBQ);
+  }
   if (e != cudaSuccess) return e;
-  const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
-             *vb = static_cast<const bf16*>(v), *ob = static_cast<const bf16*>(dout);
-  flash_bwd_dq_bf16<D><<<dim3((Sq + kOwnBf16 - 1) / kOwnBf16, Hq, B), kThreadsBf16, smem_dq_bf16(D),
-                         s>>>(qb, kb, vb, ob, lse, delta, static_cast<bf16*>(dq), Hq, Hkv, Sq, Skv,
-                              causal, scale);
+  static const cudaError_t ready = [] {  // once per head_dim
+    cudaError_t r = sm90::check_registers(flash_bwd_dq_bf16<D>, kRegs);
+    if (r == cudaSuccess) r = sm90::check_registers(flash_bwd_dkdv_bf16<D>, kRegs);
+    if (r == cudaSuccess) r = allow_smem(flash_bwd_dq_bf16<D>, smem_dq_bf16(D));
+    return r == cudaSuccess ? allow_smem(flash_bwd_dkdv_bf16<D>, smem_dkdv_bf16(D)) : r;
+  }();
+  if (ready != cudaSuccess) return ready;
+  float* lse2 = scratch;  // then Delta: (B, Hq, Sq padded to 64) each
+  float* delta = scratch + bhq * pad_rows(Sq);
+  flash_bwd_dq_bf16<D><<<dim3(Hq, B, cdiv(Sq, kBlockRows)), kThreadsBf16, smem_dq_bf16(D), s>>>(
+      qmap, omap, kmap, vmap, lse, lse2, delta, static_cast<bf16*>(dq), Hq, Hkv, Sq, Skv, causal, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  flash_bwd_dkdv_bf16<D><<<dim3((Skv + kOwnBf16 - 1) / kOwnBf16, Hkv, B), kThreadsBf16,
-                           smem_dkdv_bf16(D), s>>>(qb, kb, vb, ob, lse, delta, static_cast<bf16*>(dk),
-                                                   static_cast<bf16*>(dv), Hq, Hkv, Sq, Skv, causal, scale);
+  flash_bwd_dkdv_bf16<D><<<dim3(Hkv, B, cdiv(Skv, kBlockRows)), kThreadsBf16, smem_dkdv_bf16(D), s>>>(
+      kmap, vmap, qmap_bq, omap_bq, lse2, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), Hq, Hkv, Sq,
+      Skv, causal, scale);
   return cudaGetLastError();
 }
 
@@ -687,14 +735,17 @@ cudaError_t launch_f32(int B, int Hq, int Hkv, int Sq, int Skv, int causal, floa
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (of q, k, v, dout, dq, dk, dv; lse and
-// delta are f32).  delta: scratch of B * Hq * Sq floats, allocated by the
-// wrapper, which the dQ kernel fills for the dK/dV kernel.  The tiles (dK/dV:
-// keys a block, query rows staged; dQ: query rows a block, keys staged),
-// threads and shared-memory sizes come from kernels/geometry.py; any that
-// disagrees with this file's arithmetic is refused.  Launches two kernels on
-// `stream`; returns cudaGetLastError() after the last.
+// the scratch are f32).  scratch: allocated by the wrapper, of the floats
+// kernels/geometry.py flash_backward_scratch_floats gives (bf16: lse in log2
+// units and Delta, each (B, Hq, Sq rounded up to 64); f32: Delta (B, Hq,
+// Sq)), which the dQ kernel fills for the dK/dV kernel.  The tiles (dK/dV:
+// keys a block, query rows a ring stage or staged; dQ: query rows a block,
+// keys a stage), threads and shared-memory sizes come from
+// kernels/geometry.py; any that disagrees with this file's arithmetic is
+// refused.  Launches two kernels on `stream`; returns cudaGetLastError()
+// after the last.
 extern "C" int flash_attention_backward_launch(
-    const void* q, const void* k, const void* v, const void* lse, const void* dout, void* delta,
+    const void* q, const void* k, const void* v, const void* lse, const void* dout, void* scratch,
     void* dq, void* dk, void* dv, int B, int Hq, int Hkv, int Sq, int Skv, int D, int dkdv_keys,
     int dkdv_rows, int dq_rows, int dq_keys, int threads, int dkdv_smem, int dq_smem, int causal,
     float scale, int dtype, void* stream) {
@@ -704,23 +755,23 @@ extern "C" int flash_attention_backward_launch(
     return static_cast<int>(cudaErrorInvalidValue);
   const bool ok =
       dtype == 1
-          ? dkdv_keys == kOwnBf16 && dkdv_rows == staged_bf16(D) && dq_rows == kOwnBf16 &&
-                dq_keys == staged_bf16(D) && threads == kThreadsBf16 &&
-                dkdv_smem == smem_dkdv_bf16(D) && dq_smem == smem_dq_bf16(D)
+          ? dkdv_keys == kBlockRows && dkdv_rows == q_rows_bf16(D) && dq_rows == kBlockRows &&
+                dq_keys == kRows && threads == kThreadsBf16 && dkdv_smem == smem_dkdv_bf16(D) &&
+                dq_smem == smem_dq_bf16(D)
           : dkdv_keys == kThreadsF32 && dkdv_rows == kStagedF32 && dq_rows == kThreadsF32 &&
                 dq_keys == kStagedF32 && threads == kThreadsF32 && dkdv_smem == smem_dkdv_f32(D) &&
                 dq_smem == smem_dq_f32(D);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* lf = static_cast<const float*>(lse);
-  float* dl = static_cast<float*>(delta);
+  float* sc = static_cast<float*>(scratch);
   cudaError_t e = cudaErrorInvalidValue;
 #define REPRO_FLASH_BWD_CASE(DIM)                                                                \
   case DIM:                                                                                      \
     e = dtype == 1 ? launch_bf16<DIM>(B, Hq, Hkv, Sq, Skv, causal, scale, s, q, k, v, dout, lf, \
-                                      dl, dq, dk, dv)                                            \
+                                      sc, dq, dk, dv)                                            \
                    : launch_f32<DIM>(B, Hq, Hkv, Sq, Skv, causal, scale, s, q, k, v, dout, lf,  \
-                                     dl, dq, dk, dv);                                            \
+                                     sc, dq, dk, dv);                                            \
     break;
   switch (D) {
     REPRO_FLASH_BWD_CASE(16)

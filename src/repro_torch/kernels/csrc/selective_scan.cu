@@ -44,30 +44,46 @@
 // g_{t+1}, and dC_t = sum_d gy_t h_t, dB_t = sum_d g_t dt_t u_t, du_t =
 // sum_n g_t dt_t B_t + D gy_t, ddt_t = sum_n g_t (A a_t h_{t-1} + u_t B_t),
 // dA = sum_{b,t} g_t dt_t a_t h_{t-1}, dD = sum_{b,t} gy_t u_t.  It reads
-// the forward's scratch after pass 2 (each chunk's carry-in) and runs one
-// thread a (channel, state): a block of 256 threads is 16 channels of 16
-// state lanes and walks its d_block channels 16 at a time, so a thread's
-// state is one float and the sums over n are shuffles within 16 lanes.
-// Four launches (two when chunk == L), deterministic (no atomics):
-//   1. chunk pass, grid (B, Di/d_block, L/chunk - 1): each chunk but the
-//      first walks the adjoint back from zero, writing L_c = a_{t0} g_{t0}
-//      at its first step t0 and sum(dt) over it;
+// the forward's scratch after pass 2 (each chunk's carry-in).  Four launches
+// (two when chunk == L), deterministic (no atomics; every sum in a fixed
+// order, so two calls give bit-equal gradients):
+//   1. chunk pass, grid (B, Di/d_block, L/chunk - 1), a thread a channel
+//      with its N states in registers: each chunk but the first walks the
+//      adjoint back from zero, writing L_c = a_{t0} g_{t0} at its first step
+//      t0 and sum(dt) over it;
 //   2. carry pass, one thread a (b, n, channel): R_{c-1} = L_c +
 //      exp(A sum(dt)_c) R_c from R_last = 0, over the chunks in reverse,
 //      R_c written to slot c + 1;
-//   3. output pass, grid (B, Di/d_block, L/chunk): each chunk's states are
-//      recomputed from its carry-in, checkpointed every 16 steps in shared
-//      memory (the recurrence is never inverted: a_t underflows to 0 at large
-//      dt), and each 16-step span is recomputed into registers and walked
-//      back from R_c, writing du and ddt; dB and dC are summed over the
-//      block's channels through per-warp slots folded in a fixed order, and
-//      written as one partial row a channel block; dA and dD as one partial
-//      a chunk;
+//   3. output pass, grid (B, Di/d_block, L/chunk) of 256 threads: a thread
+//      holds 4 of a channel's states, 64 channels in flight, the tile's
+//      d_block channels 64 at a time.  Each chunk's states are rerun from
+//      its carry-in (the recurrence is never inverted: a_t underflows to 0
+//      at large dt), once over the chunk to keep each 64-step segment's
+//      start, then a segment at a time, the last first: checkpointed every
+//      4 steps in shared memory, each 4-step span rerun into registers
+//      (states and decays) and walked back from R_c, writing du and ddt.
+//      The sums over a channel's states (du, ddt) take four registers and
+//      two shuffles; the sums over the block's channels (dB, dC) a
+//      transposing warp reduction (7 shuffles leave each lane one (step,
+//      state) sum of 8 channels), then one fold of the 8 warps' results in
+//      order a span, into one partial row a channel block; dA and dD one
+//      partial a chunk.  A span's dt, u and gy are loaded a span ahead by
+//      the whole block into shared memory, du and ddt leave through the
+//      same buffer a row at a time, and the walks load 8 steps ahead;
 //   4. reduce pass: the partials summed over channel blocks (dB, dC) and
 //      over batch and chunks (dA, dD).
-// Bound: by bytes on paper (u, dt and gy read, du and ddt written: ~0.34 GB
-// at (1,4096,8192,16) bf16, 0.10 ms); by the exps in practice, three a state
-// update (passes 1 and 3's two walks), 0.128 ms a pass at that shape.
+// Bound: by operations, ~25 f32 operations a state update (0.200 ms at
+// (1,4096,8192,16), bytes 0.10 ms); the SFU's exps, one a state update in
+// pass 1 and two and a half in pass 3 at chunk 128 (the segment starts'
+// walk, the checkpoint walk, the span rerun), take ~0.45 ms at that shape.
+// What bounds this body is instruction count and latency at 16 warps an SM:
+// 128 registers a thread hold two blocks an SM; one block an SM with the
+// registers it would take is 39 % slower, and 8-step spans, which spill,
+// 58 % (scripts/torch_kernel_variants.py, chunk 128).  Measured on an NVIDIA H100
+// 80GB HBM3 at 700 W (that script, one call): 1.93 / 2.22 / 2.45 ms at
+// chunk 64 / 128 / 256, where PR 20's body (a thread a (channel, state),
+// 16 channels in flight, ten shuffles a state update) took 3.41 / 3.38 /
+// 5.13.
 //
 // The tile is the caller's (the plan's): chunk, d_block (= the block's
 // threads) and the shared-memory size come from kernels/geometry.py and the
@@ -84,6 +100,7 @@ constexpr int kMaxThreads = 512;  // d_block: one thread per channel
 constexpr int kMaxN = 16;         // states per channel in registers
 constexpr int kCarryThreads = 256;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
@@ -238,75 +255,74 @@ cudaError_t scan_dispatch(int Bsz, int L, int Di, int N, int chunk, int d_block,
 }
 
 // ---------------------------------------------------------------------------
-// Backward.  Thread layout: lane n (= threadIdx.x % 16) is state n, the
-// block's 16 channels are threadIdx.x / 16; a state n >= N idles with zero
-// inputs.  Scratch (f32): the adjoint carries [B][nC][N][Di] and sums of dt
-// [B][nC][Di] (when nC > 1), then the partial dB and dC rows [B][L][nblk][N]
-// each, then the partial dA [B][nC][N][Di] and dD [B][nC][Di].
+// Backward.  Scratch (f32): the adjoint carries [B][nC][N][Di] and sums of
+// dt [B][nC][Di] (when nC > 1), then the partial dB and dC rows
+// [B][L][nblk][N] each, then the partial dA [B][nC][N][Di] and dD [B][nC][Di].
 // ---------------------------------------------------------------------------
-constexpr int kBwdThreads = 256;
-constexpr int kBwdLanes = 16;                    // state lanes a channel
-constexpr int kBwdCh = kBwdThreads / kBwdLanes;  // channels a pass of the block
-constexpr int kBwdStep = 16;                     // steps between checkpoints
+constexpr int kBwdThreads = 256;                 // the output pass
+constexpr int kBwdK = 4;                         // states a thread holds
+constexpr int kBwdLanes = kMaxN / kBwdK;         // lanes a channel
+constexpr int kBwdCh = kBwdThreads / kBwdLanes;  // channels in flight
+constexpr int kBwdSpan = 4;                      // steps between checkpoints, rerun into registers
+constexpr int kBwdCkpts = 16;                    // checkpoints a segment
+constexpr int kBwdSeg = kBwdSpan * kBwdCkpts;    // steps a segment
 constexpr int kBwdWarps = kBwdThreads / 32;
 constexpr int kReduceThreads = 256;
+static_assert(kBwdWarps >= kBwdSpan, "the fold gives each warp's threads one step of a span");
+static_assert(8 % kBwdSpan == 0, "a walk's 8-step blocks hold whole spans");
+static_assert(kBwdSpan * kBwdCh % kBwdThreads == 0, "a span's rows spread evenly over the threads");
 
-int bwd_smem_bytes_for(int chunk, int N) {
-  const int ckpts = (chunk + kBwdStep - 1) / kBwdStep * kBwdThreads;
+__host__ __device__ __forceinline__ int cdiv(int x, int m) { return (x + m - 1) / m; }
+
+// The output pass: B and C of a segment (f32, 16 states a step), its
+// checkpoints and the other segments' start states (a float4 a thread
+// each), two buffers of the warps' per-step dB and dC sums over a span and
+// three of a span's dt, u and gy (then du and ddt).
+int bwd_smem_bytes_for(int chunk) {
+  const int seg = chunk < kBwdSeg ? chunk : kBwdSeg, nseg = cdiv(chunk, kBwdSeg);
   return static_cast<int>(sizeof(float)) *
-         (4 * chunk * N + 3 * chunk * kBwdCh + ckpts + 2 * kBwdWarps * kBwdStep * kBwdLanes);
+         (2 * seg * kMaxN + (cdiv(seg, kBwdSpan) + nseg - 1) * kBwdThreads * kBwdK +
+          2 * kBwdWarps * kBwdSpan * 32 + 3 * 3 * kBwdSpan * kBwdCh);
 }
 
-int bwd_chunk_smem_bytes_for(int chunk, int N) {
-  return static_cast<int>(sizeof(float)) * (chunk * N + 2 * chunk * kBwdCh);
-}
-
-// [chunk][16 channels] of a (B, L, Di) input from channel d0 on, as f32, zero
-// past d_end: one load an element, where the 16 state lanes of a channel
-// would each load it
-template <typename T>
-__device__ __forceinline__ void stage_channels(float* dst, const T* __restrict__ src, long long row0,
-                                               int chunk, int Di, int d0, int d_end) {
-  for (int i = threadIdx.x; i < chunk * kBwdCh; i += blockDim.x) {
-    const int t = i / kBwdCh, d = d0 + i % kBwdCh;
-    dst[i] = d < d_end ? to_f32(src[(row0 + t) * Di + d]) : 0.f;
-  }
-}
-
-// Pass 1: chunk c = blockIdx.z + 1 from a zero adjoint.
-template <typename T>
-__global__ void __launch_bounds__(kBwdThreads)
+// Pass 1: chunk c = blockIdx.z + 1 from a zero adjoint, one thread a channel
+// with its N states in registers (the forward's chunk pass, walked back).
+template <typename T, int NF>
+__global__ void __launch_bounds__(kMaxThreads, 1)
 selective_scan_bwd_chunk_kernel(const T* __restrict__ dt, const float* __restrict__ A,
                                 const T* __restrict__ Cm, const T* __restrict__ gy,
                                 float* __restrict__ adj, float* __restrict__ dtsum, int L, int Di,
-                                int N, int chunk, int nC, int d_block) {
+                                int Nrt, int chunk, int nC) {
   extern __shared__ __align__(16) float smem[];
-  float* Cs = smem;                     // C [chunk][N]
-  float* dts = Cs + chunk * N;          // dt [chunk][16 channels]
-  float* gys = dts + chunk * kBwdCh;    // gy [chunk][16 channels]
+  const int N = NF ? NF : Nrt;
+  float* Cs = smem;  // C [chunk][N] f32
   const int b = blockIdx.x, c = blockIdx.z + 1;
-  const int n = threadIdx.x % kBwdLanes, ch = threadIdx.x / kBwdLanes;
+  const int d = blockIdx.y * blockDim.x + threadIdx.x;
   const long long row0 = static_cast<long long>(b) * L + static_cast<long long>(c) * chunk;
   for (int i = threadIdx.x; i < chunk * N; i += blockDim.x) Cs[i] = to_f32(Cm[row0 * N + i]);
-  const int d_end = (blockIdx.y + 1) * d_block;
-  for (int d0 = blockIdx.y * d_block; d0 < d_end; d0 += kBwdCh) {
-    __syncthreads();  // the last group's reads are done
-    stage_channels(dts, dt, row0, chunk, Di, d0, d_end);
-    stage_channels(gys, gy, row0, chunk, Di, d0, d_end);
-    __syncthreads();
-    const int d = d0 + ch;
-    const bool on = d < d_end, st = on && n < N;
-    const float a2 = st ? A[static_cast<long long>(d) * N + n] * kLog2e : 0.f;
-    float g = 0.f, sdt = 0.f;
-#pragma unroll 8
-    for (int t = chunk - 1; t >= 0; --t) {
-      const float dv = dts[t * kBwdCh + ch];
-      g = ex2(dv * a2) * fmaf(gys[t * kBwdCh + ch], n < N ? Cs[t * N + n] : 0.f, g);  // a_t g_t
-      sdt += dv;
-    }
-    if (st) adj[state_at(b, c, n, d, nC, N, Di)] = g;
-    if (on && n == 0) dtsum[(static_cast<long long>(b) * nC + c) * Di + d] = sdt;
+  float a2[kMaxN], g[kMaxN];
+#pragma unroll
+  for (int n = 0; n < kMaxN; ++n) {
+    a2[n] = n < N ? A[static_cast<long long>(d) * N + n] * kLog2e : 0.f;
+    g[n] = 0.f;
   }
+  __syncthreads();
+  const T* tp = dt + row0 * Di + d;
+  const T* gp = gy + row0 * Di + d;
+  float sdt = 0.f;
+#pragma unroll 4
+  for (int t = chunk - 1; t >= 0; --t) {
+    const float dv = to_f32(tp[static_cast<long long>(t) * Di]);
+    const float gv = to_f32(gp[static_cast<long long>(t) * Di]);
+#pragma unroll
+    for (int n = 0; n < kMaxN; ++n)
+      if (n < N) g[n] = ex2(dv * a2[n]) * fmaf(gv, Cs[t * N + n], g[n]);  // a_t g_t
+    sdt += dv;
+  }
+#pragma unroll
+  for (int n = 0; n < kMaxN; ++n)
+    if (n < N) adj[state_at(b, c, n, d, nC, N, Di)] = g[n];
+  dtsum[(static_cast<long long>(b) * nC + c) * Di + d] = sdt;
 }
 
 // Pass 2: one thread a (b, n, channel), the chunks in reverse.  Slot c holds
@@ -328,7 +344,33 @@ selective_scan_bwd_carry_kernel(const float* __restrict__ A, float* __restrict__
   }
 }
 
-// Pass 3: chunk c = blockIdx.z rerun from its carry-in and walked back.
+// Sums each of x's 8 values over the 8 lanes of the warp that share lane % 4
+// (the warp's 8 channels) and leaves lane l holding value (l >> 2) of that
+// sum: a transposing butterfly, 7 shuffles where 8 all-reduces take 24.
+__device__ __forceinline__ float reduce_scatter8(const float (&x)[8], int lane) {
+  float y[4], z[2];
+  const bool u16 = lane & 16, u8 = lane & 8, u4 = lane & 4;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    y[j] = (u16 ? x[j + 4] : x[j]) + __shfl_xor_sync(0xffffffffu, u16 ? x[j] : x[j + 4], 16);
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+    z[j] = (u8 ? y[j + 2] : y[j]) + __shfl_xor_sync(0xffffffffu, u8 ? y[j] : y[j + 2], 8);
+  return (u4 ? z[1] : z[0]) + __shfl_xor_sync(0xffffffffu, u4 ? z[0] : z[1], 4);
+}
+
+// Pass 3: chunk c = blockIdx.z rerun from its carry-in and walked back.  A
+// thread holds kBwdK states of one channel (lane q = threadIdx.x % 4: states
+// 4q..4q+3, zero past N), 64 channels in flight, the block's d_block
+// channels 64 at a time.  For each group the chunk is walked once from its
+// carry-in to keep each 64-step segment's start state, then taken a segment
+// at a time, the last first: the segment walked again from its start,
+// checkpointed every 4 steps in shared memory, and each 4-step span rerun
+// into registers (states and decays) and walked back from the adjoint
+// carried in.  Loads run ahead of their use: a walk's u and dt 8 steps ahead
+// in registers, a span's dt, u and gy one span ahead, spread over the block's
+// threads and staged in shared memory; du and ddt leave through the same
+// buffer, a row of channels at a time.
 template <typename T>
 __global__ void __launch_bounds__(kBwdThreads, 2)
 selective_scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
@@ -339,131 +381,241 @@ selective_scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
                           float* __restrict__ pdB, float* __restrict__ pdC, float* __restrict__ pdA,
                           float* __restrict__ pdD, int L, int Di, int N, int chunk, int nC,
                           int d_block) {
+  constexpr int kIn = 3 * kBwdSpan * kBwdCh;  // a span's dt, u and gy of the channels in flight
+  constexpr int kWalk = 8;                    // steps a walk loads ahead
   extern __shared__ __align__(16) float smem[];
-  const int nsub = (chunk + kBwdStep - 1) / kBwdStep;
-  float* Bs = smem;                       // B [chunk][N]
-  float* Cs = Bs + chunk * N;             // C [chunk][N]
-  float* sB = Cs + chunk * N;             // dB of the chunk over the block's channels [chunk][N]
-  float* sC = sB + chunk * N;             // dC, likewise
-  float* us = sC + chunk * N;             // u, dt, gy of the 16 channels in hand [chunk][16]
-  float* dts = us + chunk * kBwdCh;
-  float* gys = dts + chunk * kBwdCh;
-  float* ck = gys + chunk * kBwdCh;       // checkpoints [nsub][threads]
-  float* slot = ck + nsub * kBwdThreads;  // per warp and step: [2][warps][kBwdStep][lanes]
-  const int b = blockIdx.x, c = blockIdx.z, nblk = gridDim.y;
-  const int n = threadIdx.x % kBwdLanes, ch = threadIdx.x / kBwdLanes, warp = threadIdx.x / 32;
+  const int seg = min(chunk, kBwdSeg), nseg = cdiv(chunk, kBwdSeg);
+  float* Bs = smem;                                               // the segment's B [seg][16]
+  float* Cs = Bs + seg * kMaxN;                                   // and C
+  float4* ck = reinterpret_cast<float4*>(Cs + seg * kMaxN);       // checkpoints [seg / 4][threads]
+  float4* starts = ck + cdiv(seg, kBwdSpan) * kBwdThreads;        // segment start states [nseg - 1][threads]
+  float* slot = reinterpret_cast<float*>(starts + (nseg - 1) * kBwdThreads);  // [2][warps][span][32]
+  float* span_in = slot + 2 * kBwdWarps * kBwdSpan * 32;          // [3][dt | du, u | ddt, gy][span][channel]
+  const int b = blockIdx.x, c = blockIdx.z, blk = blockIdx.y, nblk = gridDim.y;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, q = threadIdx.x % kBwdLanes;
+  const int ch = threadIdx.x / kBwdLanes, n0 = q * kBwdK;  // the thread's channel slot and first state
   const long long row0 = static_cast<long long>(b) * L + static_cast<long long>(c) * chunk;
-  for (int i = threadIdx.x; i < chunk * N; i += blockDim.x) {
-    Bs[i] = to_f32(Bm[row0 * N + i]);
-    Cs[i] = to_f32(Cm[row0 * N + i]);
-    sB[i] = sC[i] = 0.f;
-  }
+  // the (step, state, dB | dC) sum this thread folds: step t0 + warp of a
+  // span, state fold_n, dB or dC by lane / 16 (reduce_scatter8's order)
+  const int fold_n = (lane & 3) * kBwdK + ((lane >> 2) & 3);
+  float* fold_dst = (lane >> 4) ? pdC : pdB;
+  int span_no = 0;  // spans done by the block: picks the slot and input buffers
 
-  const int d_end = (blockIdx.y + 1) * d_block;
-  for (int d0 = blockIdx.y * d_block; d0 < d_end; d0 += kBwdCh) {
-    __syncthreads();  // the last group's reads are done
-    stage_channels(us, u, row0, chunk, Di, d0, d_end);
-    stage_channels(dts, dt, row0, chunk, Di, d0, d_end);
-    stage_channels(gys, gy, row0, chunk, Di, d0, d_end);
-    __syncthreads();
+  const int d_lo = blk * d_block, d_hi = d_lo + d_block;
+  for (int d0 = d_lo; d0 < d_hi; d0 += kBwdCh) {
     const int d = d0 + ch;
-    const bool on = d < d_end, st = on && n < N;
-    const float an = st ? A[static_cast<long long>(d) * N + n] : 0.f;
-    const float a2 = an * kLog2e;
+    const bool on = d < d_hi;
+    float a2[kBwdK], gn[kBwdK], dAacc[kBwdK];
+#pragma unroll
+    for (int j = 0; j < kBwdK; ++j) {
+      const bool st = on && n0 + j < N;
+      a2[j] = st ? A[static_cast<long long>(d) * N + n0 + j] * kLog2e : 0.f;
+      // the adjoint carried into the chunk's end, R_c (slot c + 1 after pass 2)
+      gn[j] = (st && c < nC - 1) ? adj[state_at(b, c + 1, n0 + j, d, nC, N, Di)] : 0.f;
+      dAacc[j] = 0.f;
+    }
     const float dskip = on ? D[d] : 0.f;
-    // B_t[n] times dt_t u_t: the state's input at step t (0 for an idle lane)
-    auto input = [&](int t) {
-      return n < N ? dts[t * kBwdCh + ch] * us[t * kBwdCh + ch] * Bs[t * N + n] : 0.f;
+    float dDacc = 0.f;
+    // u and dt of this channel; an idle channel walks another's (its decay
+    // is 1, and gy, hence its adjoint and every sum it enters, is 0)
+    const T* up = u + row0 * Di + (on ? d : d_lo);
+    const T* tp = dt + row0 * Di + (on ? d : d_lo);
+    // B of the thread's states at step t: staged in shared memory within the
+    // segment from t_b on, read from device memory before it
+    auto b_at = [&](int t, int t_b) {
+      if (t >= t_b) return *reinterpret_cast<const float4*>(Bs + (t - t_b) * kMaxN + n0);
+      float v[kBwdK];
+#pragma unroll
+      for (int j = 0; j < kBwdK; ++j) v[j] = n0 + j < N ? to_f32(Bm[(row0 + t) * N + n0 + j]) : 0.f;
+      return make_float4(v[0], v[1], v[2], v[3]);
     };
-    // the states from the carry-in (the state at the end of chunk c - 1),
-    // a checkpoint every kBwdStep steps
-    float h = (st && c > 0) ? states[state_at(b, c - 1, n, d, nC, N, Di)] : 0.f;
-    for (int s = 0; s < nsub; ++s) {
-      ck[s * kBwdThreads + threadIdx.x] = h;
-      const int t0 = s * kBwdStep;
-      if (chunk - t0 >= kBwdStep) {
+    // h_{t-1} -> h_t over [t_from, t_to), storing (unless dst is null) the
+    // state before each step t_from + k * kBwdSpan in dst[k][thread]
+    auto walk = [&](float (&h)[kBwdK], int t_from, int t_to, float4* dst, int t_b) {
+      float wdt[kWalk], wu[kWalk];
+      auto load = [&](float (&vd)[kWalk], float (&vu)[kWalk], int t) {
 #pragma unroll
-        for (int t = t0; t < t0 + kBwdStep; ++t) h = fmaf(ex2(dts[t * kBwdCh + ch] * a2), h, input(t));
-      } else {
-        for (int t = t0; t < chunk; ++t) h = fmaf(ex2(dts[t * kBwdCh + ch] * a2), h, input(t));
-      }
-    }
-    // the adjoint carried into the chunk's end, R_c (slot c + 1 after pass 2)
-    float gnext = (st && c < nC - 1) ? adj[state_at(b, c + 1, n, d, nC, N, Di)] : 0.f;
-    float dAacc = 0.f, dDacc = 0.f;
-    for (int s = nsub - 1; s >= 0; --s) {
-      const int t0 = s * kBwdStep, len = min(kBwdStep, chunk - t0);
-      float hs[kBwdStep + 1], as[kBwdStep];  // states h_{t-1}, h_t and decays of the span
-      hs[0] = ck[s * kBwdThreads + threadIdx.x];
-      auto fwd = [&](int i) {
-        as[i] = ex2(dts[(t0 + i) * kBwdCh + ch] * a2);
-        hs[i + 1] = fmaf(as[i], hs[i], input(t0 + i));
+        for (int i = 0; i < kWalk; ++i) {
+          const long long at = static_cast<long long>(min(t + i, t_to - 1)) * Di;
+          vd[i] = to_f32(tp[at]);
+          vu[i] = to_f32(up[at]);
+        }
       };
-      auto back = [&](int i) {
-        const int t = t0 + i;
-        const float dv = dts[t * kBwdCh + ch], uv = us[t * kBwdCh + ch], gyv = gys[t * kBwdCh + ch];
-        const float bn = n < N ? Bs[t * N + n] : 0.f;
-        const float g = fmaf(gyv, n < N ? Cs[t * N + n] : 0.f, gnext);  // g_t
-        // over the block's channels: the warp's two, then the warps' slots
-        float vB = g * dv * uv, vC = gyv * hs[i + 1];
-        vB += __shfl_xor_sync(0xffffffffu, vB, 16);
-        vC += __shfl_xor_sync(0xffffffffu, vC, 16);
-        if ((threadIdx.x & 16) == 0) {
-          slot[(warp * kBwdStep + i) * kBwdLanes + n] = vB;
-          slot[((kBwdWarps + warp) * kBwdStep + i) * kBwdLanes + n] = vC;
-        }
-        // over the states: du and ddt of the channel
-        const float gb = g * bn;
-        float s_du = gb * dv, s_dt = fmaf(g * an * as[i], hs[i], gb * uv);
+      if (t_from < t_to) load(wdt, wu, t_from);
+      for (int t = t_from; t < t_to; t += kWalk) {
+        float ndt[kWalk], nu[kWalk];
+        if (t + kWalk < t_to) load(ndt, nu, t + kWalk);
 #pragma unroll
-        for (int off = kBwdLanes / 2; off; off >>= 1) {
-          s_du += __shfl_xor_sync(0xffffffffu, s_du, off);
-          s_dt += __shfl_xor_sync(0xffffffffu, s_dt, off);
-        }
-        if (on && n == 0) {
-          du[(row0 + t) * Di + d] = from_f32<T>(fmaf(dskip, gyv, s_du));
-          ddt[(row0 + t) * Di + d] = from_f32<T>(s_dt);
-        }
-        dAacc = fmaf(g * dv * as[i], hs[i], dAacc);
-        dDacc = fmaf(gyv, uv, dDacc);
-        gnext = as[i] * g;  // a_t g_t
-      };
-      if (len == kBwdStep) {  // a whole span: no guards, so steps overlap
+        for (int i = 0; i < kWalk; ++i) {
+          if (t + i < t_to) {
+            if (dst != nullptr && i % kBwdSpan == 0)
+              dst[(t + i - t_from) / kBwdSpan * kBwdThreads + threadIdx.x] = make_float4(h[0], h[1], h[2], h[3]);
+            const float x = wdt[i] * wu[i];
+            const float4 b4 = b_at(t + i, t_b);
+            const float bb[kBwdK] = {b4.x, b4.y, b4.z, b4.w};
 #pragma unroll
-        for (int i = 0; i < kBwdStep; ++i) fwd(i);
-#pragma unroll
-        for (int i = kBwdStep - 1; i >= 0; --i) back(i);
-      } else {
-#pragma unroll
-        for (int i = 0; i < kBwdStep; ++i)
-          if (i < len) fwd(i);
-#pragma unroll
-        for (int i = kBwdStep - 1; i >= 0; --i)
-          if (i < len) back(i);
-      }
-      __syncthreads();
-      {  // fold the warps' slots in order: thread (i, lane) owns step t0 + i, state lane
-        const int i = threadIdx.x / kBwdLanes, nn = threadIdx.x % kBwdLanes;
-        if (i < len && nn < N) {
-          float sb = 0.f, sc = 0.f;
-          for (int w = 0; w < kBwdWarps; ++w) {
-            sb += slot[(w * kBwdStep + i) * kBwdLanes + nn];
-            sc += slot[((kBwdWarps + w) * kBwdStep + i) * kBwdLanes + nn];
+            for (int j = 0; j < kBwdK; ++j) h[j] = fmaf(ex2(wdt[i] * a2[j]), h[j], x * bb[j]);
           }
-          sB[(t0 + i) * N + nn] += sb;
-          sC[(t0 + i) * N + nn] += sc;
+        }
+#pragma unroll
+        for (int i = 0; i < kWalk; ++i) {
+          wdt[i] = ndt[i];
+          wu[i] = nu[i];
         }
       }
-      __syncthreads();
+    };
+    // a span's inputs, fetched by the whole block: element e = tid + k * threads
+    // of [dt, u, gy][step][channel], 0 past the segment or the channels
+    auto fetch = [&](float (&v)[kIn / kBwdThreads], int t0, int t_hi) {
+#pragma unroll
+      for (int k = 0; k < kIn / kBwdThreads; ++k) {
+        const int e = threadIdx.x + k * kBwdThreads, arr = e / (kBwdSpan * kBwdCh);
+        const int i = e / kBwdCh % kBwdSpan, cc = e % kBwdCh;
+        const T* src = arr == 0 ? dt : arr == 1 ? u : gy;
+        v[k] = (t0 + i < t_hi && d0 + cc < d_hi) ? to_f32(src[(row0 + t0 + i) * Di + d0 + cc]) : 0.f;
+      }
+    };
+    auto stage = [&](const float (&v)[kIn / kBwdThreads], int buf) {
+#pragma unroll
+      for (int k = 0; k < kIn / kBwdThreads; ++k) span_in[buf * kIn + threadIdx.x + k * kBwdThreads] = v[k];
+    };
+
+    {  // the segments' start states, from the carry-in (the state at the end of chunk c - 1)
+      float h[kBwdK];
+#pragma unroll
+      for (int j = 0; j < kBwdK; ++j)
+        h[j] = (on && c > 0 && n0 + j < N) ? states[state_at(b, c - 1, n0 + j, d, nC, N, Di)] : 0.f;
+      for (int sg = 1; sg < nseg; ++sg) {
+        walk(h, (sg - 1) * kBwdSeg, sg * kBwdSeg, nullptr, chunk);  // B from device memory
+        starts[(sg - 1) * kBwdThreads + threadIdx.x] = make_float4(h[0], h[1], h[2], h[3]);
+      }
     }
-    if (st) pdA[state_at(b, c, n, d, nC, N, Di)] = dAacc;
-    if (on && n == 0) pdD[(static_cast<long long>(b) * nC + c) * Di + d] = dDacc;
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < chunk * N; i += blockDim.x) {
-    const long long at = ((row0 + i / N) * nblk + blockIdx.y) * N + i % N;
-    pdB[at] = sB[i];
-    pdC[at] = sC[i];
+    for (int sg = nseg - 1; sg >= 0; --sg) {
+      const int t_lo = sg * kBwdSeg, t_hi = min(chunk, t_lo + kBwdSeg);
+      const int spans = cdiv(t_hi - t_lo, kBwdSpan);
+      float nxt[kIn / kBwdThreads];
+      fetch(nxt, t_lo + (spans - 1) * kBwdSpan, t_hi);  // the segment's last span, under the walk
+      for (int i = threadIdx.x; i < (t_hi - t_lo) * kMaxN; i += blockDim.x) {
+        const int n = i % kMaxN;
+        const long long at = (row0 + t_lo + i / kMaxN) * N + n;
+        Bs[i] = n < N ? to_f32(Bm[at]) : 0.f;
+        Cs[i] = n < N ? to_f32(Cm[at]) : 0.f;
+      }
+      stage(nxt, span_no % 3);
+      __syncthreads();  // the segment's B and C, its first span's inputs
+      float h[kBwdK];
+      if (sg == 0) {
+#pragma unroll
+        for (int j = 0; j < kBwdK; ++j)
+          h[j] = (on && c > 0 && n0 + j < N) ? states[state_at(b, c - 1, n0 + j, d, nC, N, Di)] : 0.f;
+      } else {
+        const float4 s4 = starts[(sg - 1) * kBwdThreads + threadIdx.x];
+        h[0] = s4.x;
+        h[1] = s4.y;
+        h[2] = s4.z;
+        h[3] = s4.w;
+      }
+      walk(h, t_lo, t_hi, ck, t_lo);
+      for (int s = spans - 1; s >= 0; --s) {
+        const int t0 = t_lo + s * kBwdSpan, len = min(kBwdSpan, t_hi - t0);
+        if (s > 0) fetch(nxt, t0 - kBwdSpan, t_hi);  // the next span's, under this one
+        // the fold's running sum over the block's earlier channel groups,
+        // loaded now so that its latency passes under the span's walks
+        const int fi = warp;
+        const bool folds = fi < len && fold_n < N;
+        float* fdst = fold_dst + ((row0 + t0 + fi) * nblk + blk) * N + fold_n;
+        const float before = (folds && d0 != d_lo) ? *fdst : 0.f;
+        float* in = span_in + (span_no % 3) * kIn;
+        float sdt[kBwdSpan], su[kBwdSpan], sgy[kBwdSpan];
+#pragma unroll
+        for (int i = 0; i < kBwdSpan; ++i) {
+          sdt[i] = in[i * kBwdCh + ch];
+          su[i] = in[(kBwdSpan + i) * kBwdCh + ch];
+          sgy[i] = in[(2 * kBwdSpan + i) * kBwdCh + ch];
+        }
+        float hs[kBwdSpan + 1][kBwdK], as[kBwdSpan][kBwdK];  // h_{t-1} (hs[i]), h_t (hs[i + 1]), a_t
+        const float4 c4 = ck[s * kBwdThreads + threadIdx.x];
+        hs[0][0] = c4.x;
+        hs[0][1] = c4.y;
+        hs[0][2] = c4.z;
+        hs[0][3] = c4.w;
+        float* sl = slot + (span_no & 1) * kBwdWarps * kBwdSpan * 32;
+        const float* bs = Bs + (t0 - t_lo) * kMaxN + n0;
+        const float* cs = Cs + (t0 - t_lo) * kMaxN + n0;
+        auto fwd = [&](int i) {
+          const float x = sdt[i] * su[i];
+          const float4 b4 = *reinterpret_cast<const float4*>(bs + i * kMaxN);
+          const float bb[kBwdK] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+          for (int j = 0; j < kBwdK; ++j) {
+            as[i][j] = ex2(sdt[i] * a2[j]);
+            hs[i + 1][j] = fmaf(as[i][j], hs[i][j], x * bb[j]);
+          }
+        };
+        auto back = [&](int i) {
+          const float dv = sdt[i], uv = su[i], gyv = sgy[i], dtu = dv * uv;
+          const float4 b4 = *reinterpret_cast<const float4*>(bs + i * kMaxN);
+          const float4 c4t = *reinterpret_cast<const float4*>(cs + i * kMaxN);
+          const float bb[kBwdK] = {b4.x, b4.y, b4.z, b4.w}, cc[kBwdK] = {c4t.x, c4t.y, c4t.z, c4t.w};
+          float x[2 * kBwdK], sgb = 0.f, sah = 0.f;
+#pragma unroll
+          for (int j = 0; j < kBwdK; ++j) {
+            const float g = fmaf(gyv, cc[j], gn[j]);  // g_t
+            const float ga = g * as[i][j], gah = ga * hs[i][j];
+            x[j] = g * dtu;                     // dB_t over this channel
+            x[kBwdK + j] = gyv * hs[i + 1][j];  // dC_t
+            sgb = fmaf(g, bb[j], sgb);
+            sah = fmaf(a2[j], gah, sah);        // A g a h_{t-1}, in log2(e) units
+            dAacc[j] = fmaf(dv, gah, dAacc[j]);
+            gn[j] = ga;  // a_t g_t
+          }
+          // du and ddt over the channel's 4 lanes: lanes 0, 1 end with du, 2, 3
+          // with ddt; they take the places of dt and u in the span's buffer,
+          // which the warp's lanes have all read (the shuffles hold them)
+          const float pdu = dv * sgb, pdt = fmaf(uv, sgb, sah * kLn2);
+          const bool hi = lane & 2;
+          float r = (hi ? pdt : pdu) + __shfl_xor_sync(0xffffffffu, hi ? pdu : pdt, 2);
+          r += __shfl_xor_sync(0xffffffffu, r, 1);
+          if (q == 0) in[i * kBwdCh + ch] = fmaf(dskip, gyv, r);
+          if (q == 2) in[(kBwdSpan + i) * kBwdCh + ch] = r;
+          dDacc = fmaf(gyv, uv, dDacc);
+          // dB and dC over the warp's 8 channels
+          sl[(warp * kBwdSpan + i) * 32 + lane] = reduce_scatter8(x, lane);
+        };
+        if (len == kBwdSpan) {  // a whole span: no guards, so steps overlap
+#pragma unroll
+          for (int i = 0; i < kBwdSpan; ++i) fwd(i);
+#pragma unroll
+          for (int i = kBwdSpan - 1; i >= 0; --i) back(i);
+        } else {
+#pragma unroll
+          for (int i = 0; i < kBwdSpan; ++i)
+            if (i < len) fwd(i);
+#pragma unroll
+          for (int i = kBwdSpan - 1; i >= 0; --i)
+            if (i < len) back(i);
+        }
+        if (s > 0) stage(nxt, (span_no + 1) % 3);
+        __syncthreads();
+        if (folds) {  // the warps' sums in order, then the channel groups' in order
+          float v = before;
+#pragma unroll
+          for (int w = 0; w < kBwdWarps; ++w) v += sl[(w * kBwdSpan + fi) * 32 + lane];
+          *fdst = v;
+        }
+#pragma unroll
+        for (int k = 0; k < 2 * kBwdSpan * kBwdCh / kBwdThreads; ++k) {  // du, then ddt, a row at a time
+          const int e = threadIdx.x + k * kBwdThreads, i = e / kBwdCh % kBwdSpan, cc = e % kBwdCh;
+          if (i < len && d0 + cc < d_hi)
+            (e < kBwdSpan * kBwdCh ? du : ddt)[(row0 + t0 + i) * Di + d0 + cc] = from_f32<T>(in[e]);
+        }
+        ++span_no;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kBwdK; ++j)
+      if (on && n0 + j < N) pdA[state_at(b, c, n0 + j, d, nC, N, Di)] = dAacc[j];
+    if (on && q == 0) pdD[(static_cast<long long>(b) * nC + c) * Di + d] = dDacc;
   }
 }
 
@@ -506,7 +658,7 @@ selective_scan_bwd_reduce_kernel(const float* __restrict__ pdB, const float* __r
   }
 }
 
-template <typename T>
+template <typename T, int NF>
 cudaError_t scan_backward(int Bsz, int L, int Di, int N, int chunk, int d_block, int smem,
                           cudaStream_t s, const void* u, const void* dt, const float* A,
                           const void* Bm, const void* Cm, const float* D, const void* gy,
@@ -526,16 +678,16 @@ cudaError_t scan_backward(int Bsz, int L, int Di, int N, int chunk, int d_block,
   const T* Tgy = static_cast<const T*>(gy);
   cudaError_t e;
   if (nC > 1) {
-    const int smem1 = bwd_chunk_smem_bytes_for(chunk, N);
+    const int smem1 = chunk * N * static_cast<int>(sizeof(float));
     static int smem1_set = 0;
-    if (smem1 > smem1_set) {
-      e = cudaFuncSetAttribute(selective_scan_bwd_chunk_kernel<T>,
+    if (smem1 > smem1_set) {  // above 48 KB only after this attribute
+      e = cudaFuncSetAttribute(selective_scan_bwd_chunk_kernel<T, NF>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem1);
       if (e != cudaSuccess) return e;
       smem1_set = smem1;
     }
-    selective_scan_bwd_chunk_kernel<T><<<dim3(Bsz, nblk, nC - 1), kBwdThreads, smem1, s>>>(
-        Tdt, A, TC, Tgy, adj, dtsum, L, Di, N, chunk, nC, d_block);
+    selective_scan_bwd_chunk_kernel<T, NF><<<dim3(Bsz, nblk, nC - 1), d_block, smem1, s>>>(
+        Tdt, A, TC, Tgy, adj, dtsum, L, Di, N, chunk, nC);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
     const long long total = static_cast<long long>(Bsz) * N * Di;
@@ -544,12 +696,15 @@ cudaError_t scan_backward(int Bsz, int L, int Di, int N, int chunk, int d_block,
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
-  static int smem_set = 0;
-  if (smem > smem_set) {
-    e = cudaFuncSetAttribute(selective_scan_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    smem_set = smem;
-  }
+  static const cudaError_t ready = [] {  // the output pass: two blocks an SM at every chunk it takes
+    cudaError_t r = cudaFuncSetAttribute(selective_scan_bwd_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+    if (r == cudaSuccess)
+      r = cudaFuncSetAttribute(selective_scan_bwd_kernel<T>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+    return r;
+  }();
+  if (ready != cudaSuccess) return ready;
   selective_scan_bwd_kernel<T><<<dim3(Bsz, nblk, nC), kBwdThreads, smem, s>>>(
       Tu, Tdt, A, static_cast<const T*>(Bm), TC, D, Tgy, states, adj, static_cast<T*>(du),
       static_cast<T*>(ddt), pdB, pdC, pdA, pdD, L, Di, N, chunk, nC, d_block);
@@ -561,6 +716,19 @@ cudaError_t scan_backward(int Bsz, int L, int Di, int N, int chunk, int d_block,
   selective_scan_bwd_reduce_kernel<T><<<blocks, kReduceThreads, 0, s>>>(
       pdB, pdC, pdA, pdD, static_cast<T*>(dB), static_cast<T*>(dC), dA, dD, Bsz, L, Di, N, nC, nblk);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t scan_backward_dispatch(int Bsz, int L, int Di, int N, int chunk, int d_block, int smem,
+                                   cudaStream_t s, const void* u, const void* dt, const float* A,
+                                   const void* Bm, const void* Cm, const float* D, const void* gy,
+                                   const float* states, float* scratch, void* du, void* ddt, float* dA,
+                                   void* dB, void* dC, float* dD) {
+  if (N == kMaxN)
+    return scan_backward<T, kMaxN>(Bsz, L, Di, N, chunk, d_block, smem, s, u, dt, A, Bm, Cm, D, gy, states,
+                                   scratch, du, ddt, dA, dB, dC, dD);
+  return scan_backward<T, 0>(Bsz, L, Di, N, chunk, d_block, smem, s, u, dt, A, Bm, Cm, D, gy, states,
+                             scratch, du, ddt, dA, dB, dC, dD);
 }
 
 }  // namespace
@@ -613,7 +781,7 @@ extern "C" int selective_scan_backward_launch(
       d_block > kMaxThreads || L % chunk || Di % d_block || (dtype != 0 && dtype != 1) ||
       scratch == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (smem_bytes != bwd_smem_bytes_for(chunk, N) || smem_bytes > 232448 ||
+  if (smem_bytes != bwd_smem_bytes_for(chunk) || smem_bytes > 232448 ||
       (L / chunk > 1 && states == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -624,9 +792,9 @@ extern "C" int selective_scan_backward_launch(
   float* dAf = static_cast<float*>(dA);
   float* dDf = static_cast<float*>(dD);
   const cudaError_t e =
-      dtype == 1 ? scan_backward<bf16>(B, L, Di, N, chunk, d_block, smem_bytes, s, u, dt, Af, Bm, Cm,
-                                       Df, gy, st, sc, du, ddt, dAf, dB, dC, dDf)
-                 : scan_backward<float>(B, L, Di, N, chunk, d_block, smem_bytes, s, u, dt, Af, Bm,
-                                        Cm, Df, gy, st, sc, du, ddt, dAf, dB, dC, dDf);
+      dtype == 1 ? scan_backward_dispatch<bf16>(B, L, Di, N, chunk, d_block, smem_bytes, s, u, dt, Af,
+                                                Bm, Cm, Df, gy, st, sc, du, ddt, dAf, dB, dC, dDf)
+                 : scan_backward_dispatch<float>(B, L, Di, N, chunk, d_block, smem_bytes, s, u, dt, Af,
+                                                 Bm, Cm, Df, gy, st, sc, du, ddt, dAf, dB, dC, dDf);
   return static_cast<int>(e);
 }

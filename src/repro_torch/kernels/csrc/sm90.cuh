@@ -1,10 +1,10 @@
 // Building blocks of the port's Hopper (sm_90a) kernels, written once:
 // mbarriers, TMA tile loads, wgmma descriptors and instructions, setmaxnreg,
 // and the host-side encoding of a TMA tensor map.  Included by
-// moe_gemm.cu and flash_attention.cu; every .cu is its own library, so
-// everything here is inline.
+// moe_gemm.cu, flash_attention.cu and flash_attention_backward.cu; every .cu
+// is its own library, so everything here is inline.
 //
-// The pattern both kernels share: a ring of shared-memory stages filled by
+// The pattern the kernels share: a ring of shared-memory stages filled by
 // TMA (cp.async.bulk.tensor) under a "full" mbarrier per stage, drained by
 // consumer warpgroups that run wgmma on the stages that have arrived and
 // free each one on its "empty" mbarrier.  One thread of a producer
@@ -106,6 +106,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// Copies `bytes` (a multiple of 16) of contiguous device memory at src (16-
+// byte aligned) to dst and reports them to `bar`.  One thread issues it.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
@@ -168,6 +178,18 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 // second.  The register A fragment of a k16 step is the same rows, columns
 // 2 (t%4) (+1) and +8 (+9), packed bf16 pairs: a[0] = (r, c), a[1] =
 // (r+8, c), a[2] = (r, c+8), a[3] = (r+8, c+8).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
 template <int TA, int TB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
                                          int scale_d) {
@@ -343,6 +365,17 @@ inline cudaError_t encode_bf16_3d(CUtensorMap* map, const void* base, uint64_t d
   const cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};  // bytes, dims 1 and 2
   const cuuint32_t box[3] = {b0, b1, 1};
   const cuuint32_t step[3] = {1, 1, 1};
+  // A driver call needs a context current on this thread, and a thread whose
+  // first CUDA call this is (autograd's backward thread) has none until a
+  // runtime call sets the device's primary context current.
+  thread_local bool current = false;
+  if (!current) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaSetDevice(dev);
+    if (e != cudaSuccess) return e;
+    current = true;
+  }
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
                         strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -26,7 +26,9 @@ Function saves ``q``, ``k``, ``v`` and ``lse`` (never the ``S x S``
 scores), and its backward launches the backward kernel
 (``csrc/flash_attention_backward.cu``: a dQ kernel that also sums ``Delta
 = rowsum(P * dP)``, then a dK/dV kernel that sums each GQA group in its
-block; deterministic, its tiles its own, ``geometry.flash_backward_launch``).
+block; bf16 both TMA -> wgmma pipelines; deterministic, its tiles its own,
+``geometry.flash_backward_launch``, with an f32 scratch the wrapper
+allocates for the dQ kernel to hand lse and Delta to the dK/dV kernel).
 ``BWD_LAUNCHES`` counts one per backward call, whatever its two kernel
 launches, and records the dK/dV and dQ tiles.  The JAX kernel is
 forward-only: the backward is held to ``jax.vjp`` of the JAX package's
@@ -148,11 +150,12 @@ def _launch_backward(q, k, v, lse, do, causal: bool, bwd):
         raise ValueError(f"flash_attention backward: do must be {tuple(q.shape)} {q.dtype} and lse "
                          f"{(B, Hq, Sq)}; got {tuple(do.shape)} {do.dtype} and {tuple(lse.shape)}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    scratch = torch.empty(bwd.scratch_floats, dtype=torch.float32, device=q.device)
     _check_layout(q=q, k=k, v=v, do=do, lse=lse)
     lib, fn = _build.launcher("flash_attention_backward", "flash_attention_backward_launch", _BWD_ARGS)
     err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(), do.data_ptr(), scratch.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         B, Hq, Hkv, Sq, Skv, D, *bwd.dkdv_tile, *bwd.dq_tile, bwd.threads, bwd.dkdv_smem,
         bwd.dq_smem, int(causal), float(D ** -0.5), _DTYPE_CODES[q.dtype], _build.stream(q),
     )

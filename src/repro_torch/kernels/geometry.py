@@ -182,50 +182,67 @@ def flash_launch(
     return FlashLaunch(bq, bkv, threads, kv_pad, smem, grid)
 
 
-# The backward (csrc/flash_attention_backward.cu): a dQ kernel (one block a
-# q tile of a q head, walking the kv tiles up to the diagonal twice: Delta =
-# rowsum(P * dP), then dQ) and a dK/dV kernel (one block a kv tile of a kv
-# head, looping over the group's q-heads and its q tiles from the diagonal
-# down).  Its tiles are the kernel's own: the plan tunes only the forward's,
-# as in the JAX package.
-FLASH_BWD_THREADS = {"bfloat16": 128, "float32": 64}
-_BWD_PAD = 8  # bf16: elements a staged row is padded by (16 bytes: no bank conflicts)
+# The backward (csrc/flash_attention_backward.cu): a dQ kernel (a block a
+# 128-row q tile of a q head, walking the kv tiles up to the diagonal twice:
+# Delta = rowsum(P * dP), then dQ) and a dK/dV kernel (a block a 128-key tile
+# of a kv head, looping over the group's q-heads and their q tiles from the
+# diagonal down).  bf16: both are TMA -> wgmma pipelines of one producer and
+# two consumer warpgroups (64 rows each) and a ring of four stages; f32: a
+# thread a row.  Its tiles are the kernel's own: the plan tunes only the
+# forward's, as in the JAX package.
+FLASH_BWD_THREADS = {"bfloat16": _WG * 3, "float32": 64}
+FLASH_BWD_STAGES = 4  # bf16: ring stages of either kernel
+FLASH_BWD_REGISTERS = {"launch": 168, "producer": 40, "consumer": 232}  # bf16, a thread
+_BWD_PAD_ROWS = 64  # bf16: the dQ kernel's lse and Delta scratch pads each head's rows to 64
 
 
 @dataclass(frozen=True)
 class FlashBwdLaunch:
-    dkdv_tile: Tuple[int, int]  # (keys a block owns, q rows staged at a time)
-    dq_tile: Tuple[int, int]  # (q rows a block owns, keys staged at a time)
+    dkdv_tile: Tuple[int, int]  # (keys a block owns, q rows a ring stage or staged at a time)
+    dq_tile: Tuple[int, int]  # (q rows a block owns, keys a ring stage or staged at a time)
     threads: int  # of either kernel
     dkdv_smem: int
     dq_smem: int
-    dkdv_grid: Tuple[int, int, int]  # (kv tiles, kv heads, batch)
-    dq_grid: Tuple[int, int, int]  # (q tiles, q heads, batch)
+    dkdv_grid: Tuple[int, int, int]  # (kv heads, batch, kv tiles): heaviest tile first
+    dq_grid: Tuple[int, int, int]  # (q heads, batch, q tiles): the last tile launched first
+    scratch_floats: int  # f32 the wrapper allocates for the dQ kernel to hand the dK/dV kernel
 
 
 def flash_backward_tiles(head_dim: int, dtype: str) -> Tuple[Tuple[int, int], Tuple[int, int]]:
-    """((dk/dv keys, q rows staged), (dq rows, keys staged)).  bf16: a warp
-    owns 16 rows of mma.sync tiles, four warps a block; at head_dim 128 the
-    staged side is halved to keep the accumulators in registers.  f32: a
-    thread a row, 64 a block, 16 rows of the other side staged."""
+    """((dk/dv keys, q rows a stage), (dq rows, keys a stage)).  bf16: two
+    consumer warpgroups of 64 rows a block; the dK/dV ring stages 64 q rows,
+    16 at head_dim 128 (so that dK, dV, S^T and dP^T fit the 168 registers a
+    thread is compiled for); the dQ ring 64 keys.  f32: a thread a row, 64 a block, 16 rows of the other
+    side staged."""
     if dtype == "float32":
         return (64, 16), (64, 16)
-    staged = 64 if head_dim <= 64 else 32
-    return (64, staged), (64, staged)
+    rows = 2 * _WG_ROWS
+    return (rows, 64 if head_dim <= 64 else 16), (rows, _WG_ROWS)
 
 
 def flash_backward_smem_bytes(head_dim: int, dtype: str) -> Tuple[int, int]:
-    """(dk/dv kernel, dq kernel) shared-memory bytes of one block.  bf16: the
-    block's own rows (K and V, or Q and dO) once, the staged side's tiles
-    twice (one in use, the next loading by cp.async), and lse and Delta of
-    the staged (dK/dV) or own (dQ) query rows in f32."""
+    """(dk/dv kernel, dq kernel) shared-memory bytes of one block.  bf16:
+    alignment slack, the block's own rows (K and V, or Q and dO) once, a ring
+    of four stages (dK/dV: Q and dO of a stage's q rows and their lse and
+    Delta in f32; dQ: K and V of 64 keys), and 8-byte mbarriers (one for the
+    own rows, two a stage)."""
     (kc, kr), (qr, qc) = flash_backward_tiles(head_dim, dtype)
     if dtype == "float32":
         own = 2 * 64 * (head_dim + 1) * 4  # the block's K and V (or Q and dO) rows, padded
         staged = 2 * 16 * head_dim * 4
         return own + staged + 2 * 16 * 4, own + staged
-    ld = head_dim + _BWD_PAD
-    return (2 * (kc + 2 * kr) * ld * 2 + 2 * 2 * kr * 4, 2 * (qr + 2 * qc) * ld * 2 + 2 * qr * 4)
+    st, bars = FLASH_BWD_STAGES, _MBARRIER * (1 + 2 * FLASH_BWD_STAGES)
+    dkdv = _ALIGN_SLACK + 2 * kc * head_dim * 2 + st * (2 * kr * head_dim * 2 + 2 * kr * 4) + bars
+    dq = _ALIGN_SLACK + 2 * qr * head_dim * 2 + st * 2 * qc * head_dim * 2 + bars
+    return dkdv, dq
+
+
+def flash_backward_scratch_floats(batch: int, q_heads: int, seq_q: int, dtype: str) -> int:
+    """bf16: lse in log2 units and Delta, each (B, Hq, Sq rounded up to 64);
+    f32: Delta (B, Hq, Sq)."""
+    if dtype == "float32":
+        return batch * q_heads * seq_q
+    return 2 * batch * q_heads * _round_up(seq_q, _BWD_PAD_ROWS)
 
 
 @functools.lru_cache(maxsize=1024)  # called on every launch: pure in its arguments
@@ -246,7 +263,8 @@ def flash_backward_launch(
                          f"{max(s_kv, s_q)} bytes of shared memory; a Hopper block has {SMEM_PER_BLOCK}")
     return FlashBwdLaunch(
         dkdv, dq, FLASH_BWD_THREADS[dtype], s_kv, s_q,
-        (-(-seq_kv // dkdv[0]), kv_heads, batch), (-(-seq_q // dq[0]), q_heads, batch))
+        (kv_heads, batch, -(-seq_kv // dkdv[0])), (q_heads, batch, -(-seq_q // dq[0])),
+        flash_backward_scratch_floats(batch, q_heads, seq_q, dtype))
 
 
 def launchable_attn_blocks(head_dim: int = 64, dtype: str = "bfloat16") -> List[Tuple[int, int]]:
@@ -393,26 +411,33 @@ def scan_launch(
     return ScanLaunch(ch, db, db, smem, (B, Di // db, chunks), scratch)
 
 
-# The backward (the same file): one thread a (channel, state) -- 16 channels
-# of 16 state lanes a block of 256 threads, walking the tile's d_block
-# channels 16 at a time -- at the forward's tile.  Passes: the chunks' local
-# adjoints from zero (grid (B, Di/d_block, L/chunk - 1)), their reverse fold
-# (one thread a (batch, state, channel)), the output pass (grid (B,
-# Di/d_block, L/chunk): each chunk's states recomputed from its carry-in,
-# checkpointed every 16 steps in shared memory, and walked back), and a
-# reduction of the partial dB, dC, dA and dD sums.  Four launches a call,
-# two when chunk == L.
+# The backward (the same file), at the forward's tile.  Passes: the chunks'
+# local adjoints from zero (grid (B, Di/d_block, L/chunk - 1), a thread a
+# channel with its N states), their reverse fold (a thread a (batch, state,
+# channel)), the output pass (grid (B, Di/d_block, L/chunk) of 256 threads:
+# a thread holds 4 states of a channel, 64 channels in flight, the tile's
+# d_block channels 64 at a time; each chunk's states rerun from its carry-in,
+# keeping each 64-step segment's start, then a segment at a time,
+# checkpointed every 4 steps in shared memory, each 4-step span rerun into
+# registers and walked back), and a reduction of
+# the partial dB, dC, dA and dD sums.  Four launches a call, two when chunk
+# == L.
 SCAN_BWD_THREADS = 256
-SCAN_BWD_STEP = 16  # steps between the output pass's checkpoints
+SCAN_BWD_STATES_PER_THREAD = 4
+SCAN_BWD_SPAN = 4  # steps between the output pass's checkpoints
+SCAN_BWD_SEGMENT = 64  # steps whose checkpoints the output pass holds at once
+SCAN_BWD_CHANNELS = SCAN_BWD_THREADS * SCAN_BWD_STATES_PER_THREAD // SCAN_MAX_STATE  # in flight
 _SCAN_BWD_WARPS = SCAN_BWD_THREADS // 32
-_SCAN_BWD_CHANNELS = SCAN_BWD_THREADS // SCAN_MAX_STATE  # channels a pass of the block
+SCAN_BWD_MIN_BLOCKS_PER_SM = 2  # the output pass's __launch_bounds__: <= 128 registers a thread
+SMEM_PER_SM = 233_472  # bytes of shared memory an H100 SM has for blocks (228 KB)
+SMEM_RESERVED_PER_BLOCK = 1_024  # bytes the runtime keeps of it for each resident block
 
 
 @dataclass(frozen=True)
 class ScanBwdLaunch:
     chunk: int
     d_block: int
-    threads: int
+    threads: int  # of the output pass
     smem_bytes: int  # of the output pass
     grid: Tuple[int, int, int]  # the output pass's (batch, channel blocks, chunks)
     scratch_floats: int  # f32 scratch the wrapper allocates
@@ -421,15 +446,24 @@ class ScanBwdLaunch:
     def kernels(self) -> int:
         return 4 if self.grid[2] > 1 else 2
 
+    @property
+    def blocks_per_sm(self) -> int:
+        """Output-pass blocks an SM holds: its registers allow two, its shared
+        memory (each block's plus what the runtime reserves) may allow fewer."""
+        return min(SCAN_BWD_MIN_BLOCKS_PER_SM, SMEM_PER_SM // (self.smem_bytes + SMEM_RESERVED_PER_BLOCK))
 
-def scan_backward_smem_bytes(chunk: int, n_state: int) -> int:
-    """The output pass: B and C of the chunk staged in f32 and the chunk's dB
-    and dC sums over the block's channels, u, dt and gy of the 16 channels
-    in hand, the checkpoints (one float a thread every 16 steps), and each
-    warp's per-step sums of the 16 steps in hand."""
-    ckpts = -(-chunk // SCAN_BWD_STEP) * SCAN_BWD_THREADS
-    slots = 2 * _SCAN_BWD_WARPS * SCAN_BWD_STEP * SCAN_MAX_STATE
-    return 4 * (4 * chunk * n_state + 3 * chunk * _SCAN_BWD_CHANNELS + ckpts + slots)
+
+def scan_backward_smem_bytes(chunk: int) -> int:
+    """The output pass: B and C of a segment (at most 64 steps) staged in f32
+    (16 states a step, zero past N), its checkpoints (4 floats a thread every
+    4 steps) and the chunk's other segments' start states (4 floats a thread
+    each), two buffers of the warps' per-step dB and dC sums over a span (8
+    warps x 4 steps x 32 floats) and three of a span's dt, u and gy in f32
+    (3 x 4 steps x 64 channels)."""
+    seg, segs = min(chunk, SCAN_BWD_SEGMENT), -(-chunk // SCAN_BWD_SEGMENT)
+    per_thread = SCAN_BWD_THREADS * SCAN_BWD_STATES_PER_THREAD
+    return 4 * (2 * seg * SCAN_MAX_STATE + (-(-seg // SCAN_BWD_SPAN) + segs - 1) * per_thread
+                + 2 * _SCAN_BWD_WARPS * SCAN_BWD_SPAN * 32 + 3 * 3 * SCAN_BWD_SPAN * SCAN_BWD_CHANNELS)
 
 
 def scan_backward_scratch_floats(B: int, L: int, Di: int, N: int, chunk: int, d_block: int) -> int:
@@ -449,7 +483,7 @@ def scan_backward_launch(
     """The launch of one ``selective_scan_backward`` call at the forward's
     tile (``scan_launch``'s clamp and checks), or ``ValueError``."""
     fwd = scan_launch(B, L, Di, N, dtype, chunk, d_block)
-    smem = scan_backward_smem_bytes(fwd.chunk, N)
+    smem = scan_backward_smem_bytes(fwd.chunk)
     if smem > SMEM_PER_BLOCK:
         raise ValueError(
             f"scan tile (chunk={fwd.chunk}, d_block={fwd.d_block}) at N={N}: the backward needs "

@@ -144,14 +144,19 @@ def test_flash_backward_launch_matches_the_kernel_layout(head_dim, dtype):
     launch = geometry.flash_backward_launch(2, 16, 8, 4096, 4000, head_dim, dtype)
     (kc, kr), (qr, qc) = launch.dkdv_tile, launch.dq_tile
     if dtype == "bfloat16":
-        # four warps of 16 mma rows; bf16 rows padded by 8 elements, the
-        # block's own side once and the staged side twice (double-buffered),
-        # plus lse and Delta of the staged (dK/dV, twice) or own (dQ) query
-        # rows in f32
-        assert launch.threads == 128 and kc == qr == 64 and kr == qc == (64 if head_dim <= 64 else 32)
-        ld = head_dim + 8
-        assert launch.dkdv_smem == 2 * (kc + 2 * kr) * ld * 2 + 2 * 2 * kr * 4
-        assert launch.dq_smem == 2 * (qr + 2 * qc) * ld * 2 + 2 * qr * 4
+        # a producer and two consumer warpgroups of 64 rows (128 keys or
+        # query rows a block); the dK/dV ring stages 64 q rows (16 at
+        # head_dim 128), the dQ ring 64 keys, four stages each; 1,024 bytes
+        # of alignment slack, the block's own rows once (bf16), the ring
+        # (dK/dV also the stage's lse and Delta in f32), 8-byte mbarriers
+        # (one for the own rows, two a stage)
+        assert launch.threads == 384 and kc == qr == 128 and qc == 64
+        assert kr == (64 if head_dim <= 64 else 16)
+        bars = 8 * (1 + 2 * 4)
+        assert launch.dkdv_smem == 1024 + 2 * kc * head_dim * 2 + 4 * (2 * kr * head_dim * 2 + 2 * kr * 4) + bars
+        assert launch.dq_smem == 1024 + 2 * qr * head_dim * 2 + 4 * 2 * qc * head_dim * 2 + bars
+        # lse (log2 units) and Delta, each of 4096 rows padded to a multiple of 64
+        assert launch.scratch_floats == 2 * 2 * 16 * 4096
     else:
         # a thread a row: its own rows padded to D + 1 floats, 16 of the
         # other side staged, and (dK/dV) their lse and Delta
@@ -159,8 +164,31 @@ def test_flash_backward_launch_matches_the_kernel_layout(head_dim, dtype):
         own = 2 * 64 * (head_dim + 1) * 4
         assert launch.dkdv_smem == own + 2 * 16 * head_dim * 4 + 2 * 16 * 4
         assert launch.dq_smem == own + 2 * 16 * head_dim * 4
+        assert launch.scratch_floats == 2 * 16 * 4096  # Delta
     assert max(launch.dkdv_smem, launch.dq_smem) <= geometry.SMEM_PER_BLOCK
-    assert launch.dkdv_grid == (-(-4000 // kc), 8, 2) and launch.dq_grid == (-(-4096 // qr), 16, 2)
+    # the tile index is the grid's slowest axis: the causally heavy tiles launch first
+    assert launch.dkdv_grid == (8, 2, -(-4000 // kc)) and launch.dq_grid == (16, 2, -(-4096 // qr))
+
+
+@pytest.mark.parametrize("head_dim", geometry.HEAD_DIMS)
+def test_flash_backward_bf16_tiles_threads_ring_and_smem_fit_a_hopper_block(head_dim):
+    launch = geometry.flash_backward_launch(1, 32, 8, 4096, 4096, head_dim, "bfloat16")
+    regs = geometry.FLASH_BWD_REGISTERS
+    assert launch.threads <= geometry.MAX_BLOCK_THREADS
+    # the launch bound's share of the register file, and what setmaxnreg hands
+    # out (one producer warpgroup, two consumers) within it
+    assert regs["launch"] * launch.threads <= geometry.REGISTERS_PER_SM
+    assert regs["launch"] == geometry.REGISTERS_PER_SM // launch.threads // 8 * 8
+    assert regs["producer"] * 128 + regs["consumer"] * 256 <= regs["launch"] * launch.threads
+    assert all(r % 8 == 0 and 24 <= r <= 256 for r in (regs["producer"], regs["consumer"]))
+    (kc, kr), (qr, qc) = launch.dkdv_tile, launch.dq_tile
+    # each consumer's rows are one wgmma M of 64; a stage's rows are a wgmma N
+    # (a multiple of 8 up to 256) and whole 16-row k-steps of the products over rows
+    assert kc == qr == 2 * 64 and all(r % 16 == 0 and 16 <= r <= 256 for r in (kr, qc))
+    assert geometry.FLASH_BWD_STAGES >= 2 and max(launch.dkdv_smem, launch.dq_smem) <= geometry.SMEM_PER_BLOCK
+    # dK and dV (D/2 floats a thread each) and S^T, dP^T (kr/2 each) within
+    # the 168 registers a thread is compiled for, with room to address
+    assert 2 * head_dim // 2 + 2 * kr // 2 <= 160
 
 
 @pytest.mark.parametrize("bad", [
@@ -280,20 +308,32 @@ def test_scan_wrapper_on_the_cpu_takes_the_plain_version_and_counts_nothing():
         _close(g, e, F32)
 
 
-@pytest.mark.parametrize("chunk,smem", [(64, 49152), (128, 81920), (256, 147456)])
+@pytest.mark.parametrize("chunk,smem", [(64, 91136), (128, 95232), (256, 103424)])
 def test_scan_backward_smem_formula_matches_kernel_layout(chunk, smem):
-    # B and C of the chunk and its dB, dC sums (4 x chunk x 16 f32), u, dt
-    # and gy of the 16 channels in hand (3 x chunk x 16 f32), a checkpoint a
-    # thread every 16 steps (chunk / 16 x 256 f32) and the warps' per-step
-    # slots (2 x 8 warps x 16 steps x 16 lanes f32)
-    assert geometry.scan_backward_smem_bytes(chunk, 16) == smem
-    assert smem == 4 * (4 * chunk * 16 + 3 * chunk * 16 + chunk // 16 * 256 + 2 * 8 * 16 * 16)
+    # B and C of a segment of at most 64 steps (2 x 64 x 16 f32), its
+    # checkpoints (64 / 4 of 256 threads x 4 states f32) and the chunk's other
+    # segments' start states (likewise, chunk / 64 - 1 of them), the warps'
+    # per-step dB, dC sums over a span (2 buffers x 8 warps x 4 steps x 32)
+    # and a span's dt, u and gy (3 buffers x 3 x 4 steps x 64 channels)
+    assert geometry.scan_backward_smem_bytes(chunk) == smem
+    per_thread = 256 * 4
+    assert smem == 4 * (2 * 64 * 16 + (16 + chunk // 64 - 1) * per_thread + 2 * 8 * 4 * 32 + 3 * 3 * 4 * 64)
+
+
+@pytest.mark.parametrize("chunk", geometry.SCAN_CHUNK_OPTIONS)
+def test_scan_backward_output_pass_holds_two_blocks_an_sm(chunk):
+    launch = geometry.scan_backward_launch(1, 4096, 8192, 16, "bfloat16", chunk, 256)
+    # at most half of an SM's 228 KB with the runtime's reserve: two blocks an SM
+    assert launch.smem_bytes + geometry.SMEM_RESERVED_PER_BLOCK <= geometry.SMEM_PER_SM // 2
+    assert geometry.SMEM_PER_SM == 228 * 1024 and launch.blocks_per_sm == 2
+    # 256 threads of 4 states: 64 channels in flight, the tile's 256 in four groups
+    assert launch.threads == 256 and geometry.SCAN_BWD_CHANNELS == 64
 
 
 def test_scan_backward_launch_at_falcon_mamba_training():
     launch = geometry.scan_backward_launch(1, 4096, 8192, 16, "bfloat16", 128, 256)
     assert (launch.chunk, launch.d_block, launch.threads) == (128, 256, 256)
-    assert launch.grid == (1, 32, 32) and launch.kernels == 4
+    assert launch.grid == (1, 32, 32) and launch.kernels == 4 and launch.blocks_per_sm == 2
     # adjoint carries and sums of dt, partial dB/dC rows of 32 channel
     # blocks, partial dA/dD of 32 chunks: 52.4 MB of f32
     per_chunk = 32 * 8192 * 17
@@ -304,9 +344,16 @@ def test_scan_backward_launch_at_falcon_mamba_training():
 
 
 def test_scan_backward_launch_refuses_a_chunk_whose_backward_does_not_fit():
-    geometry.scan_launch(1, 1024, 256, 16, "bfloat16", 1024, 256)  # the forward launches
-    with pytest.raises(ValueError, match="backward needs"):
-        geometry.scan_backward_launch(1, 1024, 256, 16, "bfloat16", 1024, 256)
+    # the output pass holds a segment of 64 steps at a time, so its shared
+    # memory grows by one start state (4 KB) a segment: it launches at every
+    # chunk the forward takes, up to the forward's largest (1,816 steps)
+    for chunk in (512, 1024, 1816):
+        geometry.scan_launch(1, chunk, 256, 16, "bfloat16", chunk, 256)
+        bwd = geometry.scan_backward_launch(1, chunk, 256, 16, "bfloat16", chunk, 256)
+        assert bwd.smem_bytes == geometry.scan_backward_smem_bytes(chunk) <= geometry.SMEM_PER_BLOCK
+    # a chunk no block holds is refused, for the backward as for the forward
+    with pytest.raises(ValueError, match="shared memory"):
+        geometry.scan_backward_launch(1, 4096, 256, 16, "bfloat16", 4096, 256)
 
 
 def test_launch_counters_name_the_backward_kernels():
