@@ -17,7 +17,8 @@ limit as ``nvidia-smi`` reports them):
    plain PyTorch version on the card, at the main paths' shapes and at the
    shapes of ``tests/test_kernels.py`` (plus ragged ones; for the int8 pair
    also zero rows and exact .5 ties, held bit for bit; for moe_gemm every
-   operand layout); error and tolerance, kernel / plain / library ms (CUDA
+   operand layout; for flash also head_dim 160 and the widths of model
+   coverage below); error and tolerance, kernel / plain / library ms (CUDA
    events; kernel, library, kernel in turns), ``vs_library``,
    ``achieved_tflops`` and the bound.  rmsnorm's rows and their
    ``F.rms_norm`` yardstick also carry ``device_ms``: the same calls
@@ -43,7 +44,22 @@ limit as ``nvidia-smi`` reports them):
    ``serve`` through ``ServingEngine`` (4 slots, 6 requests; exact launches
    per decode call); ``profile`` (``torch.profiler`` over one prefill and
    one decode step); for falcon-mamba also ``slot_reuse``, the second
-   occupant of a slot against a fresh engine.
+   occupant of a slot against a fresh engine.  Neither prefill nor serving
+   may run the plain attention on the card.
+5b. Model coverage: ``positions`` holds M-RoPE (qwen2-vl-72b's head_dim 128,
+   ids whose three rows differ), stablelm-12b's partial rotary (head_dim
+   160) and musicgen-large's sinusoid (d 2048) against float64 formulas
+   written here; then nemotron-4-15b and stablelm-12b at full width and
+   depth and deepseek-67b at full width and ``CUT_LAYERS`` depth through
+   the same prefill (at every attention tile that launches at their
+   head_dim: (128, 128) and (128, 256)), serving and profile;
+   musicgen-large (full depth) and qwen2-vl-72b (``CUT_LAYERS``) take a
+   stub frontend's embeddings, which the token engine does not: the same
+   ``prefill`` of N(0, 1) embeddings at each plan, then ``decode``, 16
+   ``decode_step``s of one embeddings row each (exact launches, no plain
+   attention on the card), and ``profile``.  A cut arch must leave
+   ``FREE_AFTER_PREFILL_GIB`` of the card's memory beside its prefill's
+   peak.
 6. ``train``: granite-moe-1b-a400m at full width through ``Trainer`` /
    ``make_train_step``, B=2 x S=4096 in two microbatches, under plan (a)
    remat full, int8 moments and int8 grad_comm (all five of its kernels)
@@ -86,9 +102,11 @@ limit as ``nvidia-smi`` reports them):
    one request through the subprocess CLI (``python -m
    repro_torch.launch.measure``); then the measured plan and the
    quickstart's ``mcts_1s`` plan trained at full depth in turns.
-11. ``parity``: 2-layer f32 models at full width of each serving arch, card
-   (kernels) against the port's CPU path (plain versions); for the MoE arch
-   the routing must agree too.  ``train_parity``: the same for the loss,
+11. ``parity``: 2-layer f32 models at full width of each serving arch, and
+   of stablelm-12b (head_dim 160) and qwen2-vl-72b (embeddings, M-RoPE ids
+   whose rows differ), card (kernels) against the port's CPU path (plain
+   versions); for the MoE arch the routing must agree too.
+   ``train_parity``: the same for the loss,
    every gradient and one int8-moment optimizer step of granite-moe (512
    tokens) and falcon-mamba (320 tokens, scan_chunk 64).
 12. ``phase_seconds``: each phase's wall seconds; then ``kernels``: one
@@ -106,6 +124,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import re
 import shutil
 import statistics
@@ -128,6 +147,24 @@ KERNELS = ("rmsnorm", "rmsnorm_backward", "flash_attention", "flash_attention_ba
 LIBRARIES = ("rmsnorm", "flash_attention", "flash_attention_backward", "moe_gemm", "selective_scan",
              "quantize")  # csrc/*.cu
 ARCHS = ("granite-3-2b", "granite-moe-1b-a400m", "falcon-mamba-7b")
+# model coverage: token archs through the engine, embeddings archs (a stub
+# frontend's vectors in) through prefill and decode_step; the cut depths are
+# full width at the most layers one card holds with >= 15 GiB left beside
+# the prefill's peak (PERF.md section 4: at 40 and 32 layers the peaks were
+# 58.27 and 59.98 GiB of 79.18, 1.29 and 1.63 GiB a layer)
+COVERAGE_TOKEN_ARCHS = ("nemotron-4-15b", "stablelm-12b", "deepseek-67b")
+COVERAGE_EMBED_ARCHS = ("musicgen-large", "qwen2-vl-72b")
+CUT_LAYERS = {"deepseek-67b": 44, "qwen2-vl-72b": 34}
+FREE_AFTER_PREFILL_GIB = 15
+EMBED_DECODE_STEPS = 16
+# bf16 decode of the embeddings archs against a forward of the same rows, in
+# relative norm, per sqrt(layer): the two round apart by bf16 alone, each as
+# far from an f32 forward of the same weights as the other, the gap growing
+# as sqrt(n_layers) (qwen2-vl-72b 7.7e-3 sqrt(L) from 2 to 34 layers,
+# musicgen-large 2.2e-3; scripts/torch_decode_noise.py); held at twice the
+# larger.  The f32 2-layer check (phase_embed_decode_parity) holds 1e-3.
+DECODE_VS_FORWARD_REL_PER_SQRT_LAYER = 1.5e-2
+MROPE_GRID = 16  # qwen2-vl prefill: a 16 x 16 patch grid, then text
 
 # launches of one 1x4096 prefill by arch: the one cross-check of
 # _expected_counts, which gives every other expected count
@@ -141,6 +178,18 @@ EXPECTED_PREFILL = {
                              "selective_scan": 0, **NOT_IN_INFERENCE},
     "falcon-mamba-7b": {"rmsnorm": 65, "flash_attention": 0, "moe_gemm": 0, "selective_scan": 64,
                         **NOT_IN_INFERENCE},
+    # layernorm archs: the plain norm, as in the JAX package, so no rmsnorm
+    "nemotron-4-15b": {"rmsnorm": 0, "flash_attention": 32, "moe_gemm": 0, "selective_scan": 0,
+                       **NOT_IN_INFERENCE},
+    "stablelm-12b": {"rmsnorm": 0, "flash_attention": 40, "moe_gemm": 0, "selective_scan": 0,
+                     **NOT_IN_INFERENCE},
+    "musicgen-large": {"rmsnorm": 0, "flash_attention": 48, "moe_gemm": 0, "selective_scan": 0,
+                       **NOT_IN_INFERENCE},
+    # at CUT_LAYERS
+    "deepseek-67b": {"rmsnorm": 89, "flash_attention": 44, "moe_gemm": 0, "selective_scan": 0,
+                     **NOT_IN_INFERENCE},
+    "qwen2-vl-72b": {"rmsnorm": 69, "flash_attention": 34, "moe_gemm": 0, "selective_scan": 0,
+                     **NOT_IN_INFERENCE},
 }
 TRAIN_ARCH = "granite-moe-1b-a400m"
 TRAIN_STEPS = 3  # a plan's steps on the card: the first is timed apart (warm-up)
@@ -324,12 +373,12 @@ def ptxas_lines(text: str) -> list:
 # ---------------------------------------------------------------------------
 def phase_kernels_rmsnorm(torch, F, rn):
     """The forward kernel against its plain version at every main-path width
-    (granite-3-2b 2048, granite-moe 1024, falcon-mamba 4096; prefill and
-    decode rows), ``test_kernels.py``'s shapes, ragged widths and the widest
-    rows a group of warps holds.  Timed rows carry the kernel's and
-    ``F.rms_norm``'s ``ms`` (CUDA events over back-to-back calls: the host's
-    time a launch included where it is the slower side) and ``device_ms``
-    (CUDA-graph replay: the device alone)."""
+    (granite-3-2b 2048, granite-moe 1024, falcon-mamba 4096, deepseek-67b and
+    qwen2-vl-72b 8192; prefill and decode rows), ``test_kernels.py``'s
+    shapes, ragged widths and the widest rows a group of warps holds.  Timed
+    rows carry the kernel's and ``F.rms_norm``'s ``ms`` (CUDA events over
+    back-to-back calls: the host's time a launch included where it is the
+    slower side) and ``device_ms`` (CUDA-graph replay: the device alone)."""
     cases = [
         ((SEQ, 2048), "bfloat16", "prefill"),
         ((4, 2048), "bfloat16", "decode"),
@@ -337,6 +386,8 @@ def phase_kernels_rmsnorm(torch, F, rn):
         ((4, 1024), "bfloat16", "decode granite-moe"),
         ((SEQ, 4096), "bfloat16", "prefill falcon-mamba"),
         ((4, 4096), "bfloat16", "decode falcon-mamba"),
+        ((SEQ, 8192), "bfloat16", "prefill deepseek-67b / qwen2-vl-72b"),
+        ((4, 8192), "bfloat16", "decode deepseek-67b"),
         ((3, 7, 64), "float32", "test"), ((16, 128), "float32", "test"), ((5, 96), "float32", "test"),
         ((3, 7, 64), "bfloat16", "test"), ((16, 128), "bfloat16", "test"), ((5, 96), "bfloat16", "test"),
         ((7, 2050), "bfloat16", "ragged width"), ((9, 1000), "float32", "ragged width"),
@@ -435,10 +486,38 @@ def phase_kernels_flash(torch, F, fa):
         (1, 4, 4, 96, 96, 16, 32, 64, False, "bfloat16", "head_dim 16, non-causal"),
         (2, 4, 2, 700, 1000, 64, 256, 256, True, "bfloat16", "Skv off the 64-key step, Sq < Skv"),
         (1, 4, 2, 200, 200, 32, 128, 128, True, "bfloat16", "head_dim 32"),
+        # model coverage: stablelm-12b at head_dim 160 (every tile that
+        # launches), nemotron-4-15b's 48/8 heads and deepseek-67b's /
+        # qwen2-vl-72b's 64/8 at 128, musicgen-large's MHA at 64
+        (1, 32, 8, SEQ, SEQ, 160, 128, 128, True, "bfloat16", "prefill stablelm-12b, plan (128,128)"),
+        (1, 32, 8, SEQ, SEQ, 160, 128, 256, True, "bfloat16", "prefill stablelm-12b, plan (128,256)"),
+        (1, 48, 8, SEQ, SEQ, 128, 128, 128, True, "bfloat16", "prefill nemotron-4-15b, plan (128,128)"),
+        (1, 48, 8, SEQ, SEQ, 128, 128, 256, True, "bfloat16", "prefill nemotron-4-15b, plan (128,256)"),
+        (1, 64, 8, SEQ, SEQ, 128, 128, 256, True, "bfloat16",
+         "prefill deepseek-67b / qwen2-vl-72b, plan (128,256)"),
+        (1, 32, 32, SEQ, SEQ, 64, 256, 256, True, "bfloat16", "prefill musicgen-large, plan (256,256)"),
+        (1, 4, 2, 300, 300, 160, 128, 256, True, "bfloat16", "head_dim 160, ragged Sq=Skv=300"),
+        (2, 4, 2, 100, 333, 160, 128, 128, True, "bfloat16", "head_dim 160, ragged, Sq < Skv"),
+        (1, 4, 4, 96, 96, 160, 128, 128, False, "bfloat16", "head_dim 160, non-causal"),
+        (1, 4, 2, 300, 300, 160, 128, 128, True, "float32", "head_dim 160, ragged Sq=Skv=300"),
+        (2, 4, 1, 256, 256, 160, 64, 64, True, "float32", "test head_dim 160, MQA"),
+        (2, 4, 2, 100, 333, 160, 128, 128, True, "float32", "head_dim 160, ragged, Sq < Skv"),
     ]
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     rows = [_flash_case(torch, F, fa, gen, case) for case in cases]
-    emit("kernels.flash_attention", cases=rows)
+    # the backward is not built at head_dim 160: a call that records autograd
+    # raises naming its ROADMAP item, and never runs a plain version
+    q = torch.randn((1, 4, 128, 160), generator=gen, device="cuda").to(torch.bfloat16).requires_grad_()
+    kv = torch.randn((1, 2, 128, 160), generator=gen, device="cuda").to(torch.bfloat16)
+    try:
+        fa.flash_attention(q, kv, kv)
+    except ValueError as e:
+        if "P2" not in str(e):
+            raise AssertionError(f"flash backward at head_dim 160 raised without naming P2: {e}") from e
+        backward_160 = str(e)
+    else:
+        raise AssertionError("flash at head_dim 160 with grad did not refuse its missing backward")
+    emit("kernels.flash_attention", cases=rows, backward_head_dim_160=backward_160)
     return rows
 
 
@@ -1014,17 +1093,18 @@ def _launched_tiles(ops) -> dict:
 
 def _expected_counts(cfg) -> dict:
     """Launches of one forward of ``cfg``: a norm per block and per MLP and
-    the final one, a kernel per attention or Mamba mixer, three grouped GEMMs
-    per SwiGLU MoE MLP."""
+    the final one (an rmsnorm arch's; layernorm is plain), a kernel per
+    attention or Mamba mixer, three grouped GEMMs per SwiGLU MoE MLP."""
     plan, n = cfg.layer_plan(), cfg.n_periods
+    rms = cfg.norm == "rmsnorm"
     per = {n: 0 for n in KERNELS}
     for s in plan:
-        per["rmsnorm"] += 1 + (s.mlp != "none")
+        per["rmsnorm"] += rms * (1 + (s.mlp != "none"))
         per["flash_attention"] += s.mixer == "attn"
         per["selective_scan"] += s.mixer == "mamba"
         per["moe_gemm"] += 3 * (s.mlp == "moe")
     counts = {k: v * n for k, v in per.items()}
-    counts["rmsnorm"] += 1
+    counts["rmsnorm"] += rms
     return counts
 
 
@@ -1034,12 +1114,16 @@ def _expected_decode_counts(cfg) -> dict:
     return {**_expected_counts(cfg), "flash_attention": 0, "selective_scan": 0}
 
 
-def phase_prefill(torch, np, cfg, params, plans, ops, make_prefill_step, make_positions, tiles_from_plan):
-    tokens = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (1, SEQ))
-    batch = {
-        "inputs": torch.from_numpy(tokens).to("cuda"),
-        "positions": make_positions(cfg, 1, SEQ, device="cuda"),
-    }
+def phase_prefill(torch, np, cfg, params, plans, ops, make_prefill_step, make_positions, tiles_from_plan,
+                  batch=None):
+    """A 1x4096 prefill at each plan: 4096 token ids from the seed, or the
+    caller's ``batch`` (an embeddings arch's)."""
+    if batch is None:
+        tokens = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (1, SEQ))
+        batch = {
+            "inputs": torch.from_numpy(tokens).to("cuda"),
+            "positions": make_positions(cfg, 1, SEQ, device="cuda"),
+        }
     expected = EXPECTED_PREFILL[cfg.name]
     if expected != _expected_counts(cfg):
         raise AssertionError(f"{cfg.name}: {expected} != the layer plan's {_expected_counts(cfg)}")
@@ -1117,8 +1201,25 @@ def phase_prefill(torch, np, cfg, params, plans, ops, make_prefill_step, make_po
         else:
             tiles_agree = "identical"
     del first_scan
-    emit("prefill", arch=cfg.name, tokens=SEQ, runs=results, tiles_logits=tiles_agree)
+    emit("prefill", arch=cfg.name, n_layers=cfg.n_layers, tokens=SEQ, runs=results,
+         tiles_logits=tiles_agree, memory=_headroom(torch, cfg, params, results))
     return launches, step, batch
+
+
+def _headroom(torch, cfg, params, runs) -> dict:
+    """The card's memory left beside the prefill's peak; a depth-cut arch
+    (``CUT_LAYERS``) must leave ``FREE_AFTER_PREFILL_GIB``, and the record
+    says how many more of its layers that would have held."""
+    total = torch.cuda.get_device_properties(0).total_memory / 2**30
+    peak = max(r["peak_memory_gib"] for r in runs)
+    layer = sum(t.numel() * t.element_size() for t in _leaves(params["blocks"])) / cfg.n_layers / 2**30
+    free = total - peak
+    out = {"card_memory_gib": total, "peak_gib": peak, "free_gib": free, "layer_gib": layer,
+           "n_layers": cfg.n_layers, "layers_more_within_limit": int((free - FREE_AFTER_PREFILL_GIB) // layer)}
+    if cfg.name in CUT_LAYERS and free < FREE_AFTER_PREFILL_GIB:
+        raise AssertionError(f"{cfg.name} at {cfg.n_layers} layers leaves {free:.2f} GiB after "
+                             f"prefill, under {FREE_AFTER_PREFILL_GIB}")
+    return out
 
 
 class _CountedDecode:
@@ -1252,7 +1353,15 @@ def phase_parity(torch, np, base_cfg, plan, ops, transformer, moe, make_position
     params_cpu = transformer.init_params(cfg, SEED, device="cpu")
     params_gpu = _tree_to(params_cpu, "cuda")
     S = 320  # ragged against the default (256, 256) attention tile
-    tokens = torch.from_numpy(np.random.default_rng(SEED + 2).integers(0, cfg.vocab_size, (1, S)))
+    rng = np.random.default_rng(SEED + 2)
+    if cfg.input_kind == "tokens":
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, S)))
+    else:  # a stub frontend's vectors
+        tokens = torch.from_numpy(rng.standard_normal((1, S, cfg.d_model), dtype=np.float32))
+    if cfg.pos_kind == "mrope":  # ids whose three rows differ
+        pos_gpu, pos_cpu = mrope_ids(torch, 1, S), mrope_ids(torch, 1, S, device="cpu")
+    else:
+        pos_gpu, pos_cpu = make_positions(cfg, 1, S, device="cuda"), make_positions(cfg, 1, S, device="cpu")
     routes = {"cuda": [], "cpu": []}
     real_route = moe.route
 
@@ -1266,14 +1375,12 @@ def phase_parity(torch, np, base_cfg, plan, ops, transformer, moe, make_position
     try:
         moe.route = recording("cuda")
         ops.reset_counters()
-        got = transformer.forward(params_gpu, cfg, tokens.cuda(),
-                                  make_positions(cfg, 1, S, device="cuda"), tiles=tiles)
+        got = transformer.forward(params_gpu, cfg, tokens.cuda(), pos_gpu, tiles=tiles)
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         launched = _launched_tiles(ops)
         moe.route = recording("cpu")
-        exp = transformer.forward(params_cpu, cfg, tokens, make_positions(cfg, 1, S, device="cpu"),
-                                  tiles=tiles)
+        exp = transformer.forward(params_cpu, cfg, tokens, pos_cpu, tiles=tiles)
     finally:
         moe.route = real_route
     if counts != _expected_counts(cfg):
@@ -1966,23 +2073,198 @@ def _tree_to(tree, device):
     return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}
 
 
-def run_path(torch, np, arch, plans, mods) -> tuple:
-    """One arch's main path at full width: prefill, serving, profile (and for
-    Mamba the slot-reuse check); its weights are freed when this returns."""
+def run_path(torch, np, arch, plans, mods, n_layers=None) -> tuple:
+    """One arch's main path at full width (``n_layers``: a depth cut):
+    prefill, serving, profile (and for Mamba the slot-reuse check); neither
+    prefill nor serving may run the plain attention on the card; its weights
+    are freed when this returns."""
     cfg = mods.get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     t0 = time.perf_counter()
     params = mods.transformer.init_params(cfg, SEED, device="cuda")
     torch.cuda.synchronize()
     emit("init", arch=cfg.name, seconds=time.perf_counter() - t0,
          params=sum(t.numel() for t in _leaves(params)))
-    prefill, step, batch = phase_prefill(torch, np, cfg, params, plans, mods.ops,
-                                         mods.make_prefill_step, mods.make_positions,
-                                         mods.tiles_from_plan)
-    serve, eng = phase_serve(torch, np, cfg, params, mods.ops, mods.ServingEngine, mods.tiles_from_plan)
+    with plain_attention_watch() as seen:
+        prefill, step, batch = phase_prefill(torch, np, cfg, params, plans, mods.ops,
+                                             mods.make_prefill_step, mods.make_positions,
+                                             mods.tiles_from_plan)
+        serve, eng = phase_serve(torch, np, cfg, params, mods.ops, mods.ServingEngine,
+                                 mods.tiles_from_plan)
+    _check_no_plain_attention(seen, f"{cfg.name} prefill and serving")
     phase_profile(torch, np, cfg, step, params, batch, eng)
     if cfg.is_ssm:
         phase_slot_reuse(np, cfg, params, mods.ServingEngine)
     return prefill, serve
+
+
+def mrope_ids(torch, batch: int, seq: int, grid: int = MROPE_GRID, device="cuda"):
+    """``(batch, 3, seq)`` M-RoPE ids whose three rows differ: a ``grid x
+    grid`` patch block (t 0, h and w its coordinates), then text positions
+    from ``grid`` on, the same id in all three rows (Qwen2-VL's layout of an
+    image before its text)."""
+    i = torch.arange(seq, device=device)
+    n = grid * grid
+    text = grid + (i - n)
+    t = torch.where(i < n, torch.zeros_like(i), text)
+    h = torch.where(i < n, i // grid, text)
+    w = torch.where(i < n, i % grid, text)
+    return torch.stack([t, h, w])[None].expand(batch, 3, seq).contiguous()
+
+
+def _rotate_f64(torch, x, ang):
+    """Split-half rotation of ``x (B, H, S, 2R)`` by ``ang (B, S, R)``, float64."""
+    half = ang.shape[-1]
+    cos, sin = ang.cos()[:, None], ang.sin()[:, None]
+    x1, x2 = x.double()[..., :half], x.double()[..., half:2 * half]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def phase_positions(torch, mods) -> None:
+    """The position encodings of model coverage on the card at their archs'
+    full widths and 4096 positions, against formulas written here in float64:
+    M-RoPE through ``apply_positions`` at qwen2-vl-72b's head_dim 128, with
+    the published (16, 24, 24) split written as the component each frequency
+    takes, on ids whose three rows differ; stablelm-12b's partial rotary (the
+    first 40 of 160 dims); musicgen-large's sinusoid through the embedding
+    (d 2048).  An f32 angle at position 4095 is off by up to ~1e-3 rad,
+    hence 1e-2 per element and 1e-3 in norm."""
+    from repro_torch.models import layers
+
+    tol = dict(atol=1e-2, rtol=1e-2, rel=1e-3)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    out = {}
+    qwen = mods.get_config("qwen2-vl-72b")
+    hd = qwen.resolved_head_dim
+    q = torch.randn((1, 8, SEQ, hd), generator=gen, device="cuda")
+    k = torch.randn((1, 2, SEQ, hd), generator=gen, device="cuda")
+    pos = mrope_ids(torch, 1, SEQ)
+    got_q, got_k = layers.apply_positions(q, k, dataclasses.replace(qwen, dtype="float32"), pos)
+    comp = torch.repeat_interleave(torch.arange(3, device="cuda"), torch.tensor([16, 24, 24], device="cuda"))
+    freqs = 1.0 / qwen.rope_theta ** (torch.arange(0, hd, 2, device="cuda", dtype=torch.float64) / hd)
+    ang = pos.double()[:, comp, :].transpose(1, 2) * freqs  # (1, S, 64)
+    out["mrope_q"] = check_close(got_q, _rotate_f64(torch, q, ang), "M-RoPE q, head_dim 128", **tol)
+    out["mrope_k"] = check_close(got_k, _rotate_f64(torch, k, ang), "M-RoPE k, head_dim 128", **tol)
+
+    slm = mods.get_config("stablelm-12b")
+    hd, rot = slm.resolved_head_dim, int(slm.resolved_head_dim * slm.rotary_pct)
+    q = torch.randn((1, 8, SEQ, hd), generator=gen, device="cuda")
+    pos = torch.arange(SEQ, device="cuda")[None]
+    got_q, _ = layers.apply_positions(q, q[:, :1], dataclasses.replace(slm, dtype="float32"), pos)
+    freqs = 1.0 / slm.rope_theta ** (torch.arange(0, rot, 2, device="cuda", dtype=torch.float64) / rot)
+    exp = torch.cat([_rotate_f64(torch, q[..., :rot], pos.double()[..., None] * freqs),
+                     q[..., rot:].double()], dim=-1)
+    out["partial_rope"] = check_close(got_q, exp, "partial rotary, head_dim 160", **tol)
+
+    mg = dataclasses.replace(mods.get_config("musicgen-large"), dtype="float32")
+    zeros = torch.zeros((1, SEQ, mg.d_model), device="cuda")
+    got = mods.transformer._embed({}, mg, zeros, pos)
+    half = mg.d_model // 2
+    freqs = torch.exp(-torch.log(torch.tensor(10000.0, dtype=torch.float64))
+                      * torch.arange(half, device="cuda", dtype=torch.float64) / half)
+    ang = pos.double()[..., None] * freqs
+    out["sinusoid"] = check_close(got, torch.cat([ang.sin(), ang.cos()], -1), "sinusoid, d 2048", **tol)
+    emit("positions", positions=SEQ, **out)
+
+
+def phase_embeddings_path(torch, np, arch, plans, mods) -> dict:
+    """musicgen-large and qwen2-vl-72b take a stub frontend's vectors, and
+    the serving engine drives token archs only (as in the JAX package): a
+    1 x 4096 prefill of ``(1, 4096, d)`` N(0, 1) embeddings drawn from the
+    seed through ``make_prefill_step`` at each plan (musicgen: sinusoidal
+    positions; qwen2-vl: M-RoPE ids whose three rows differ), then
+    ``EMBED_DECODE_STEPS`` ``decode_step``s of one embeddings row each from
+    an empty cache.  Exact launches, the plan's tile launched, no plain
+    attention on the card, finite logits, the decoded rows within
+    ``DECODE_VS_FORWARD_REL_PER_SQRT_LAYER`` sqrt(n_layers) of a forward of
+    the same rows; qwen2-vl at its depth cut.  The prefill is
+    ``phase_prefill``'s with this batch."""
+    ops, tf = mods.ops, mods.transformer
+    cfg = mods.get_config(arch)
+    if arch in CUT_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=CUT_LAYERS[arch])
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, SEED, device="cuda")
+    torch.cuda.synchronize()
+    emit("init", arch=cfg.name, n_layers=cfg.n_layers, seconds=time.perf_counter() - t0,
+         params=sum(t.numel() for t in _leaves(params)))
+    dt = getattr(torch, cfg.dtype)
+    x = torch.from_numpy(np.random.default_rng(SEED).standard_normal((1, SEQ, cfg.d_model),
+                                                                     dtype=np.float32)).to("cuda", dt)
+    positions = (mrope_ids(torch, 1, SEQ) if cfg.pos_kind == "mrope"
+                 else mods.make_positions(cfg, 1, SEQ, device="cuda"))
+    batch = {"inputs": x, "positions": positions}
+    with plain_attention_watch() as seen:
+        prefill, step, _ = phase_prefill(torch, np, cfg, params, plans, ops, mods.make_prefill_step,
+                                         mods.make_positions, mods.tiles_from_plan, batch)
+    _check_no_plain_attention(seen, f"{cfg.name} prefill")
+
+    cache = tf.init_cache(cfg, 1, EMBED_DECODE_STEPS, device="cuda")
+    ops.reset_counters()
+    dec, times = [], []
+    with plain_attention_watch() as seen:
+        for t in range(EMBED_DECODE_STEPS):
+            t1 = time.perf_counter()
+            lg, cache = tf.decode_step(params, cfg, cache, x[:, t:t + 1], t)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+            dec.append(lg)
+    counts = ops.launch_counts()
+    want = {k: v * EMBED_DECODE_STEPS for k, v in _expected_decode_counts(cfg).items()}
+    if counts != want:
+        raise AssertionError(f"{cfg.name} decode launches {counts}, expected {want}")
+    _check_no_plain_attention(seen, f"{cfg.name} decode")
+    dec = torch.stack(dec, dim=1)  # (1, steps, V)
+    if tuple(dec.shape) != (1, EMBED_DECODE_STEPS, cfg.vocab_size) or not bool(dec.isfinite().all()):
+        raise AssertionError(f"{cfg.name}: decode logits of the wrong shape or not finite")
+    # the decoded rows against a forward of the same rows at the decode's
+    # own positions (text ids: for M-RoPE the same id in all three rows)
+    with torch.no_grad():
+        fwd = tf.forward(params, cfg, x[:, :EMBED_DECODE_STEPS],
+                         mods.make_positions(cfg, 1, EMBED_DECODE_STEPS, device="cuda"),
+                         tiles=mods.tiles_from_plan(plans[0])).float()
+    d = dec.float() - fwd
+    lim = DECODE_VS_FORWARD_REL_PER_SQRT_LAYER * math.sqrt(cfg.n_layers)
+    vs_forward = {"max_abs_diff": d.abs().max().item(), "rel_diff": (d.norm() / fwd.norm()).item(),
+                  "rel_tol": lim}
+    if not vs_forward["rel_diff"] <= lim:
+        raise AssertionError(f"{cfg.name}: the decoded rows are {vs_forward['rel_diff']:.4g} from a "
+                             f"forward of the same rows (relative norm, limit {lim:.4g})")
+    emit("decode", arch=cfg.name, n_layers=cfg.n_layers, steps=EMBED_DECODE_STEPS, launches=counts,
+         median_step_ms=statistics.median(times) * 1e3, step_ms=[t * 1e3 for t in times],
+         vs_forward_rows=vs_forward)
+    emit("profile", arch=cfg.name, note="profiler on: wall times include its overhead",
+         prefill=_profile_one(torch, lambda: step(params, batch)),
+         decode=_profile_one(torch, lambda: tf.decode_step(params, cfg, cache, x[:, :1], 0)))
+    del params, cache, dec, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {n: prefill[n] + counts[n] for n in KERNELS}
+
+
+def phase_embed_decode_parity(torch, np, mods) -> None:
+    """The embeddings archs' decode on the card in f32 at full width and 2
+    layers: ``EMBED_DECODE_STEPS`` ``decode_step``s of one embeddings row
+    each from an empty cache against the card's forward of the same rows at
+    the decode's positions (text ids), held at phase_parity's 1e-3.  It sees
+    musicgen's sinusoid at each row's ``cur`` and qwen2-vl's decoded id in
+    all three M-RoPE components, where bf16 at full depth leaves room."""
+    tf, n = mods.transformer, EMBED_DECODE_STEPS
+    rng = np.random.default_rng(SEED + 5)
+    tiles = mods.tiles_from_plan(mods.SchedulePlan(attn_block=(128, 128)))  # f32 launches it at 64 and 128
+    for arch in COVERAGE_EMBED_ARCHS:
+        cfg = dataclasses.replace(mods.get_config(arch), n_layers=2, dtype="float32")
+        params = tf.init_params(cfg, SEED, device="cuda")
+        x = torch.from_numpy(rng.standard_normal((1, n, cfg.d_model), dtype=np.float32)).cuda()
+        cache = tf.init_cache(cfg, 1, n, device="cuda")
+        with torch.no_grad():
+            dec = torch.stack([tf.decode_step(params, cfg, cache, x[:, t:t + 1], t)[0] for t in range(n)], 1)
+            fwd = tf.forward(params, cfg, x, mods.make_positions(cfg, 1, n, device="cuda"), tiles=tiles)
+        stats = check_close(dec, fwd, f"{cfg.name} 2-layer f32 decode vs forward", atol=1e-3, rtol=1e-3)
+        emit("decode_parity", arch=cfg.name, n_layers=2, dtype="float32", steps=n, **stats)
+        del params, cache
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -2150,6 +2432,27 @@ def main() -> int:
             add(counts)
         gc.collect()  # the engine holds its weights in a reference cycle
         torch.cuda.empty_cache()
+    # model coverage: five more archs at full width, deepseek-67b and
+    # qwen2-vl-72b at a depth cut; at head_dim 128 and 160 every tile that
+    # launches (the JAX default (256, 256) does not: 640 threads), at 64 the
+    # default and (128, 128)
+    timed_phase("positions", phase_positions, torch, mods)
+
+    def coverage_plans(arch):
+        hd = get_config(arch).resolved_head_dim
+        if hd == 64:
+            return [SchedulePlan(), SchedulePlan(attn_block=(128, 128))]
+        return [SchedulePlan(attn_block=t) for t in mods.geometry.launchable_attn_blocks(hd, "bfloat16")]
+
+    for arch in COVERAGE_TOKEN_ARCHS:
+        for counts in timed_phase(f"coverage {arch}", run_path, torch, np, arch, coverage_plans(arch),
+                                  mods, CUT_LAYERS.get(arch)):
+            add(counts)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch in COVERAGE_EMBED_ARCHS:
+        add(timed_phase(f"coverage {arch}", phase_embeddings_path, torch, np, arch,
+                        coverage_plans(arch), mods))
     # training: (a) runs all five kernels of the arch, (b) has f32 moments
     train_plans = {
         "a": SchedulePlan(remat="full", microbatches=2, opt_dtype="int8", grad_comm="int8"),
@@ -2183,10 +2486,14 @@ def main() -> int:
 
     # 320 tokens: scan_chunk 64 divides them (JAX's divisibility)
     parity_plans = {"granite-3-2b": SchedulePlan(), "granite-moe-1b-a400m": SchedulePlan(),
-                    "falcon-mamba-7b": SchedulePlan(scan_chunk=64)}
-    for arch in ARCHS:
+                    "falcon-mamba-7b": SchedulePlan(scan_chunk=64),
+                    # in f32 at head_dim 160 and 128 only (128, 128) of the JAX tiles launches
+                    "stablelm-12b": SchedulePlan(attn_block=(128, 128)),
+                    "qwen2-vl-72b": SchedulePlan(attn_block=(128, 128))}
+    for arch in parity_plans:
         timed_phase("parity", phase_parity, torch, np, get_config(arch), parity_plans[arch], ops,
                     mods.transformer, mods.moe, mods.make_positions, mods.tiles_from_plan)
+    timed_phase("parity", phase_embed_decode_parity, torch, np, mods)
     timed_phase("train_parity", phase_train_parity, torch, np, mods)
     timed_phase("train_parity", phase_train_parity, torch, np, mods, MAMBA_ARCH, 320,
                 SchedulePlan(scan_chunk=64))

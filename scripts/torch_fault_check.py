@@ -2,18 +2,19 @@
 """Plant known faults in copies of the port's kernels, wrappers and decode
 path and check that the phases of ``chip_smoke.py`` catch every one.
 
-    python3 scripts/torch_fault_check.py DIR     # on a machine with a CUDA card
+    python3 scripts/torch_fault_check.py DIR [CASE ...]  # on a machine with a CUDA card
 
-``DIR`` must lie outside the checkout.  Each case is a copy of ``src/`` and
-``chip_smoke.py`` in ``DIR/<case>`` with one fault planted in one file under
-``src/repro_torch/`` (a CUDA source, a wrapper, or the int8 KV cache's write
-in ``models/attention.py``); the copy builds its
-own kernels and runs, in a fresh process, the ``chip_smoke`` phase that must
-catch it: the file's phase, or the case's own where it names one (the
-unedited control runs every phase named below).  The control must pass
-and every mutant (twenty of them) must fail.  Prints one JSON line per
-case (with the failing check's numbers) and exits 1 if any case went the
-other way.
+``DIR`` must lie outside the checkout; naming cases runs the control and
+those cases only.  Each case is a copy of ``src/`` and ``chip_smoke.py`` in
+``DIR/<case>`` with one fault planted in one file under ``src/repro_torch/``
+(a CUDA source, a wrapper, the int8 KV cache's write in
+``models/attention.py``, M-RoPE in ``models/layers.py``, the embeddings
+archs' decode positions); the copy builds its own kernels and runs, in a
+fresh process, the ``chip_smoke`` phase that must catch it: the file's
+phase, or the case's own where it names one (the unedited control runs
+every phase of the cases run).  The control must pass and every mutant
+(twenty-four of them) must fail.  Prints one JSON line per case (with the
+failing check's numbers) and exits 1 if any case went the other way.
 """
 from __future__ import annotations
 
@@ -35,6 +36,8 @@ PHASES = {
     "phase_kernels_quantize": "chip_smoke.phase_kernels_quantize(torch, qt)",
     "phase_grad": "chip_smoke.phase_grad(torch, rn, fa, mg, ss)",
     "phase_decode_int8": "chip_smoke.phase_decode_int8(torch, np, chip_smoke.make_mods())",
+    "phase_positions": "chip_smoke.phase_positions(torch, chip_smoke.make_mods())",
+    "phase_embed_decode_parity": "chip_smoke.phase_embed_decode_parity(torch, np, chip_smoke.make_mods())",
 }
 # the phase that must catch a fault in each file
 PHASE_OF = {
@@ -46,6 +49,7 @@ PHASE_OF = {
     "kernels/csrc/quantize.cu": "phase_kernels_quantize",
     "kernels/rmsnorm.py": "phase_grad",
     "models/attention.py": "phase_decode_int8",
+    "models/layers.py": "phase_positions",
 }
 
 # case -> (file under src/repro_torch, [(text, replacement), ...][,
@@ -64,6 +68,18 @@ CASES = {
     "flash_alpha_not_applied_to_rows_g": ("kernels/csrc/flash_attention.cu", [(
         "          acc[4 * j + 0] *= alpha_a;\n          acc[4 * j + 1] *= alpha_a;\n",
         "",
+    )]),
+    # the head_dim-160 body leaves the last 32-column chunk out of Q.K^T
+    # (its last two k-steps): every other head_dim is whole
+    "flash_160_drops_last_column_chunk": ("kernels/csrc/flash_attention.cu", [(
+        "        for (int kk = 0; kk < D / 16; ++kk) {",
+        "        for (int kk = 0; kk < D / 16 - (D == 160 ? 2 : 0); ++kk) {",
+    )]),
+    # M-RoPE's published split with its first two sections swapped: the
+    # temporal component rotates 24 frequencies and the height 16
+    "mrope_sections_swapped": ("models/layers.py", [(
+        "        return (16, 24, 24)  # Qwen2-VL published split",
+        "        return (24, 16, 24)  # Qwen2-VL published split",
     )]),
     # the bf16 grouped GEMM never streams the slices of its last block_d step
     "moe_gemm_skip_last_block_d_step": ("kernels/csrc/moe_gemm.cu", [(
@@ -184,6 +200,17 @@ CASES = {
         ("from repro_torch.kernels import ops\n", "from repro_torch.kernels import ops, ref\n"),
         ("q, s = ops.quantize_int8(", "q, s = ref.quantize_int8("),
     ]),
+    # musicgen's decode adds the sinusoid of the position after each row's own
+    "decode_sinusoid_one_position_late": ("models/transformer.py", [(
+        "    h = _embed(params, cfg, inputs, pos)\n    for p in range(cfg.n_periods):",
+        "    h = _embed(params, cfg, inputs, pos + 1)\n    for p in range(cfg.n_periods):",
+    )], "phase_embed_decode_parity"),
+    # a decoded token's id reaches the temporal M-RoPE component only; the
+    # height and width components rotate by position 0
+    "mrope_decode_id_temporal_only": ("models/attention.py", [(
+        "        pos = pos[:, None, :].expand(B, 3, 1)\n",
+        "        pos = torch.cat([pos[:, None, :], torch.zeros_like(pos)[:, None, :].expand(B, 2, 1)], 1)\n",
+    )], "phase_embed_decode_parity"),
 }
 
 RUN = """
@@ -203,12 +230,12 @@ def _phase(edit) -> str:
     return edit[2] if len(edit) > 2 else PHASE_OF[edit[0]]
 
 
-def run_case(base: Path, name: str, edit) -> dict:
+def run_case(base: Path, name: str, edit, cases: dict) -> dict:
     work = base / name
     shutil.rmtree(work, ignore_errors=True)
     shutil.copytree(ROOT / "src", work / "src", ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy2(ROOT / "chip_smoke.py", work / "chip_smoke.py")
-    phases = sorted({_phase(c) for c in CASES.values() if c is not None})
+    phases = sorted({_phase(c) for c in cases.values() if c is not None})
     if edit is not None:
         rel, pairs = edit[:2]
         path = work / PORT / rel
@@ -233,16 +260,18 @@ def run_case(base: Path, name: str, edit) -> dict:
 
 
 def main() -> int:
-    if len(sys.argv) != 2:
+    if len(sys.argv) < 2 or any(n not in CASES for n in sys.argv[2:]):
         print(__doc__, file=sys.stderr)
         return 2
     base = Path(sys.argv[1]).resolve()
     if base == ROOT or ROOT in base.parents:
         print(f"{base} lies inside the checkout; give a directory outside it", file=sys.stderr)
         return 2
+    names = sys.argv[2:]
+    cases = {n: e for n, e in CASES.items() if not names or n == "control" or n in names}
     ok = True
-    for name, edit in CASES.items():
-        row = run_case(base, name, edit)
+    for name, edit in cases.items():
+        row = run_case(base, name, edit, cases)
         ok &= row["as_expected"]
         print(json.dumps(row), flush=True)
     return 0 if ok else 1

@@ -31,7 +31,8 @@ def _leaf(a, device) -> torch.Tensor:
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     device = resolve_device(device)
-    for name in ("blocks", "final_norm", "embed"):
+    # an embeddings-input arch (musicgen, qwen2-vl) has no embedding table
+    for name in ("blocks", "final_norm") + (("embed",) if cfg.input_kind == "tokens" else ()):
         if name not in tree:
             raise KeyError(f"parameter tree lacks {name!r}")
     periods = {np.asarray(v).shape[0] for b in tree["blocks"].values() for v in _leaves(b)}

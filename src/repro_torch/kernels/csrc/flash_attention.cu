@@ -32,12 +32,27 @@
 //    bytes; 3D tensor maps over (D, S, B*H) zero-fill rows past the
 //    sequence without crossing into the next head.  setmaxnreg moves the
 //    producer's registers to the consumers (24 -> 112 at head_dim <= 64,
-//    block_q <= 256; 40 -> 232 at head_dim 128, block_q <= 128).  P is
+//    block_q <= 256; 40 -> 232 at head_dim 128 and 160, block_q <= 128).  P is
 //    rounded to bf16 for the second product (the TPU kernel kept it in
 //    f32); chip_smoke.py holds it to 5e-2 per element and 1e-2 in norm
 //    relative to the plain version's output.
+//  * head_dim 160 (stablelm-12b), bf16: the tile is stored at its true
+//    width in five 32-element chunks under the 64-byte swizzle, not padded to
+//    192.  O += P.V reads V MN-major, and a wgmma's N must then be whole
+//    swizzle chunks: 64 elements at the 128-byte swizzle, which 160 is not a
+//    multiple of, but 32 at the 64-byte one, so P.V is one m64n160k16 and
+//    Q.K^T ten k-steps, with no padded column to zero-fill, compute or keep
+//    out of the store.  A 64-row tile is 20,480 bytes (24,576 padded), so
+//    (128, 256) fits a block (205,896 bytes; 238,664 padded would not).  The
+//    O accumulator is 80 f32 a thread, within the consumers' 232 registers.
+//    Bound: operations, as at 128 (4 S^2/2 D Hq: 0.174 ms at
+//    (1,32,8,4096,4096,160) on the bf16 tensor cores' 989 TFLOP/s).
 //  * f32: one thread per query row in true f32 on the CUDA cores (no TF32),
-//    16 keys per softmax step, for the 2e-5 tolerance of the f32 tests.
+//    16 keys per softmax step, for the 2e-5 tolerance of the f32 tests.  At
+//    head_dim 160 a row's query and accumulator (320 floats) would not fit a
+//    thread's 255 registers, so two threads share a row, 80 columns each;
+//    their partial scores meet by one shuffle, and both run the row's
+//    softmax.
 //
 // lse: where the caller passes it (training: the backward kernel,
 // csrc/flash_attention_backward.cu, reads it), each row's log-sum-exp of its
@@ -77,7 +92,9 @@ struct Bf16 {
   static constexpr int kRegs = D > 64 ? 168 : 96;        // 65,536 / kThreads, rounded down to 8
   static constexpr int kProducerRegs = D > 64 ? 40 : 24;
   static constexpr int kConsumerRegs = D > 64 ? 232 : 112;
-  static constexpr int kSpan = D >= 64 ? 128 : 2 * D;    // bytes of a swizzled row chunk
+  // bytes of a swizzled row chunk: 128 where D is whole 64-element chunks,
+  // else 64 (D = 32, 160) or 32 (D = 16)
+  static constexpr int kSpan = D % 64 == 0 ? 128 : D % 32 == 0 ? 64 : 32;
   static constexpr int kW = kSpan / 2;                   // head-dim elements of a row chunk
   static constexpr int kTile = kSub * D * 2;             // bytes of 64 rows of Q, K or V
   static_assert(kProducerRegs * 128 + kConsumerRegs * 128 * kMaxConsumers <= kRegs * kThreads,
@@ -127,6 +144,8 @@ int bf16_smem(int block_q, int block_kv, int D) {
   // alignment slack, Q, the ring of K and V, the Q barrier and two a stage
   return 1024 + bf16_consumers(block_q) * tile + stages * 2 * tile + 8 * (1 + 2 * stages);
 }
+// f32: threads a query row (two at head_dim 160, see the header)
+__host__ __device__ constexpr int f32_lanes(int D) { return D > 128 ? 2 : 1; }
 int f32_kv_pad(int block_kv) { return round_up(block_kv, kStepF32); }
 int f32_smem(int block_kv, int D) { return 2 * f32_kv_pad(block_kv) * D * 4; }
 
@@ -338,24 +357,29 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   float* Ks = reinterpret_cast<float*>(smem_raw);  // [kv_pad][D]
   float* Vs = Ks + kv_pad * D;                       // [kv_pad][D]
 
+  constexpr int kLanes = f32_lanes(D), kDL = D / kLanes;  // threads a row, columns a thread
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
   const int q_off = Skv - Sq;
   const int q0 = blockIdx.x * block_q;
   const int q_end = min(q0 + block_q, Sq);
-  const int row = q0 + threadIdx.x;
+  const int row = q0 + threadIdx.x / kLanes;
+  const int col0 = threadIdx.x % kLanes * kDL;  // this thread's first column
   const bool valid = row < q_end;
   const int qpos = q_off + row;
+  // the two threads of a row (neighbouring lanes), for the shuffle of scores
+  const unsigned pair = 3u << (threadIdx.x % 32 & ~1);
 
   const float* kb = k + static_cast<long long>(b * Hkv + hk) * Skv * D;
   const float* vbase = v + static_cast<long long>(b * Hkv + hk) * Skv * D;
 
-  float qr[D], acc[D];
+  float qr[kDL], acc[kDL];
 #pragma unroll
-  for (int d = 0; d < D; d += 4) {
+  for (int d = 0; d < kDL; d += 4) {
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (valid)
-      x = *reinterpret_cast<const float4*>(q + (static_cast<long long>(b * Hq + h) * Sq + row) * D + d);
+      x = *reinterpret_cast<const float4*>(q + (static_cast<long long>(b * Hq + h) * Sq + row) * D +
+                                           col0 + d);
     qr[d] = x.x; qr[d + 1] = x.y; qr[d + 2] = x.z; qr[d + 3] = x.w;
     acc[d] = acc[d + 1] = acc[d + 2] = acc[d + 3] = 0.f;
   }
@@ -387,15 +411,19 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < kStepF32; ++j) s[j] = 0.f;
 #pragma unroll
-      for (int d = 0; d < D; d += 4) {
+      for (int d = 0; d < kDL; d += 4) {
 #pragma unroll
         for (int j = 0; j < kStepF32; ++j) {
-          const float4 kv4 = *reinterpret_cast<const float4*>(Ks + (c0 + j) * D + d);
+          const float4 kv4 = *reinterpret_cast<const float4*>(Ks + (c0 + j) * D + col0 + d);
           s[j] = fmaf(qr[d], kv4.x, s[j]);
           s[j] = fmaf(qr[d + 1], kv4.y, s[j]);
           s[j] = fmaf(qr[d + 2], kv4.z, s[j]);
           s[j] = fmaf(qr[d + 3], kv4.w, s[j]);
         }
+      }
+      if (kLanes == 2) {  // the row's other 80 columns
+#pragma unroll
+        for (int j = 0; j < kStepF32; ++j) s[j] += __shfl_xor_sync(pair, s[j], 1);
       }
       float mx = m;
 #pragma unroll
@@ -410,7 +438,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       m = mx;
       l *= alpha;
 #pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] *= alpha;
+      for (int d = 0; d < kDL; ++d) acc[d] *= alpha;
 #pragma unroll
       for (int j = 0; j < kStepF32; ++j) {
         const float p = expf(s[j] - base);
@@ -418,10 +446,10 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
         l += p;
       }
 #pragma unroll
-      for (int d = 0; d < D; d += 4) {
+      for (int d = 0; d < kDL; d += 4) {
 #pragma unroll
         for (int j = 0; j < kStepF32; ++j) {
-          const float4 v4 = *reinterpret_cast<const float4*>(Vs + (c0 + j) * D + d);
+          const float4 v4 = *reinterpret_cast<const float4*>(Vs + (c0 + j) * D + col0 + d);
           acc[d] = fmaf(s[j], v4.x, acc[d]);
           acc[d + 1] = fmaf(s[j], v4.y, acc[d + 1]);
           acc[d + 2] = fmaf(s[j], v4.z, acc[d + 2]);
@@ -432,12 +460,12 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   if (!valid) return;
-  if (lse != nullptr)
+  if (lse != nullptr && col0 == 0)
     lse[static_cast<long long>(b * Hq + h) * Sq + row] = l == 0.f ? -INFINITY : m + logf(l);
   const float lv = l == 0.f ? 1.f : l;  // a row that saw no key -> 0
-  float* orow = o + (static_cast<long long>(b * Hq + h) * Sq + row) * D;
+  float* orow = o + (static_cast<long long>(b * Hq + h) * Sq + row) * D + col0;
 #pragma unroll
-  for (int d = 0; d < D; d += 4)
+  for (int d = 0; d < kDL; d += 4)
     *reinterpret_cast<float4*>(orow + d) =
         make_float4(acc[d] / lv, acc[d + 1] / lv, acc[d + 2] / lv, acc[d + 3] / lv);
 }
@@ -500,7 +528,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1 ? (threads != bf16_threads(block_q) || kv_pad != bf16_kv_pad(block_kv) ||
                     smem_bytes != bf16_smem(block_q, block_kv, D))
-                 : (dtype != 0 || threads != block_q || threads > kThreadsF32 ||
+                 : (dtype != 0 || threads != block_q * f32_lanes(D) || threads > kThreadsF32 ||
                     kv_pad != f32_kv_pad(block_kv) || smem_bytes != f32_smem(block_kv, D)))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((Sq + block_q - 1) / block_q, Hq, B);
@@ -520,6 +548,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     REPRO_FLASH_CASE(32)
     REPRO_FLASH_CASE(64)
     REPRO_FLASH_CASE(128)
+    REPRO_FLASH_CASE(160)
     default:
       break;
   }

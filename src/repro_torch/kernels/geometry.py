@@ -17,18 +17,27 @@ key axis, the causal diagonal bounding it:
   64 query rows each plus one producer warpgroup, so ``128 * (ceil(block_q /
   64) + 1)`` threads.  The kernel is compiled for at most 640 threads (four
   consumers, 96 registers each at launch) at head_dim <= 64 and 384 (two
-  consumers, 168 registers) at head_dim 128; no block holds more than 1,024.
+  consumers, 168 registers) at head_dim 128 and 160; no block holds more
+  than 1,024.
   Shared memory: 1,024 bytes of alignment slack, Q (``64 * head_dim * 2``
   bytes a consumer), a ring of ``max(2, ceil(block_kv / 64))`` stages of K
   and V 64 keys each (``2 * 64 * head_dim * 2`` bytes a stage: one kv tile
   in flight) and 8-byte mbarriers (one for Q, two a stage).  ``kv_pad`` is
-  the ring's keys, ``64 * stages``.
-* f32 kernel: one thread per query row, so ``block_q`` threads (at most
-  256), K and V staged row-major, the key tile padded to a multiple of 16.
+  the ring's keys, ``64 * stages``.  A tile is stored at its true head_dim
+  (at 160, five 32-element chunks under the 64-byte swizzle), so the same
+  formula holds at every head_dim.
+* f32 kernel: one thread per query row (two at head_dim 160, 80 columns
+  each), so ``block_q`` threads (``2 * block_q`` at 160; at most 256), K and
+  V staged row-major, the key tile padded to a multiple of 16.
 
 Of the JAX schedule space's nine ``attn_block`` options, ``(128|256|512)²``,
 at head_dim 64 in bf16 the six with ``block_q`` in (128, 256) are
-launchable; ``block_q = 512`` would need 1,152 threads and raises.
+launchable; ``block_q = 512`` would need 1,152 threads and raises.  At
+head_dim 128 and 160 in bf16, (128, 128) and (128, 256).
+
+The forward is built for ``FLASH_HEAD_DIMS``, the backward for
+``FLASH_BWD_HEAD_DIMS``: a backward at head_dim 160 (stablelm-12b training)
+is ROADMAP item P2, and its launch raises naming it.
 
 **moe_gemm** (``csrc/moe_gemm.cu``).  Grid ``(E, C/block_c, f/block_f)``;
 one block owns a ``block_c x block_f`` output tile and loops over ``d``
@@ -76,7 +85,8 @@ from typing import List, Tuple
 
 SMEM_PER_BLOCK = 232_448  # bytes of shared memory one block may use on sm_90
 REGISTERS_PER_SM = 65_536
-HEAD_DIMS = (16, 32, 64, 128)  # head_dims the kernel is instantiated for
+FLASH_HEAD_DIMS = (16, 32, 64, 128, 160)  # head_dims the forward kernel is instantiated for
+FLASH_BWD_HEAD_DIMS = (16, 32, 64, 128)  # and the backward kernels
 
 # the JAX schedule space's attn_block and scan_chunk options (repro
 # core/space.py:136,140)
@@ -104,6 +114,12 @@ def max_threads(head_dim: int, dtype: str) -> int:
     if dtype == "float32":
         return 256
     return 384 if head_dim > 64 else 640
+
+
+def f32_lanes(head_dim: int) -> int:
+    """f32 kernel: threads a query row (two at head_dim 160: a row's query
+    and accumulator would not fit one thread's registers)."""
+    return 2 if head_dim > 128 else 1
 
 
 def _consumers(rows: int) -> int:
@@ -137,9 +153,9 @@ def flash_smem_bytes(block_kv: int, head_dim: int, dtype: str, block_q: int) -> 
     return stages * _BF16_KEY_STEP, smem
 
 
-def flash_threads(block_q: int, dtype: str) -> int:
+def flash_threads(block_q: int, dtype: str, head_dim: int) -> int:
     if dtype == "float32":
-        return block_q
+        return block_q * f32_lanes(head_dim)
     return _WG * (_consumers(block_q) + 1)
 
 
@@ -151,13 +167,13 @@ def flash_launch(
     """The launch of one ``flash_attention`` call, or ``ValueError``."""
     if dtype not in ("float32", "bfloat16"):
         raise ValueError(f"flash_attention kernel takes float32 or bfloat16, not {dtype}")
-    if head_dim not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel is built for head_dim in {HEAD_DIMS}, not {head_dim}")
+    if head_dim not in FLASH_HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel is built for head_dim in {FLASH_HEAD_DIMS}, not {head_dim}")
     if block_q < 1 or block_kv < 1:
         raise ValueError(f"tile ({block_q}, {block_kv}) must be positive")
     bq, bkv = min(block_q, seq_q), min(block_kv, seq_kv)  # JAX's clamp, nothing else
     kv_pad, smem = flash_smem_bytes(bkv, head_dim, dtype, bq)
-    threads = flash_threads(bq, dtype)
+    threads = flash_threads(bq, dtype, head_dim)
     limit = max_threads(head_dim, dtype)
     if smem > SMEM_PER_BLOCK:
         raise ValueError(
@@ -252,8 +268,9 @@ def flash_backward_launch(
     """The launch of one ``flash_attention_backward`` call, or ``ValueError``."""
     if dtype not in ("float32", "bfloat16"):
         raise ValueError(f"flash_attention backward takes float32 or bfloat16, not {dtype}")
-    if head_dim not in HEAD_DIMS:
-        raise ValueError(f"flash_attention backward is built for head_dim in {HEAD_DIMS}, not {head_dim}")
+    if head_dim not in FLASH_BWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention backward is built for head_dim in {FLASH_BWD_HEAD_DIMS}, "
+                         f"not {head_dim}: the backward at head_dim 160 is ROADMAP item P2")
     if q_heads % kv_heads:
         raise ValueError(f"q heads {q_heads} not a multiple of kv heads {kv_heads}")
     dkdv, dq = flash_backward_tiles(head_dim, dtype)

@@ -132,6 +132,18 @@ def _cut_config(arch: str, cut: dict):
     return cfg, run_cfg
 
 
+def _model_inputs(cfg, tokens, rng):
+    """The step's ``inputs``: the token ids, or for an embeddings arch (a stub
+    frontend, as the JAX dry run's input specs have it) ``(rows, seq, d)``
+    standard normal vectors drawn from ``rng``, in the model dtype."""
+    import torch
+
+    if cfg.input_kind == "tokens":
+        return tokens
+    x = rng.standard_normal(tuple(tokens.shape) + (cfg.d_model,)).astype("float32")
+    return torch.from_numpy(x).to(tokens.device, getattr(torch, cfg.dtype))
+
+
 def _time_steps(run, dev) -> list:
     import torch
 
@@ -214,7 +226,7 @@ def evaluate_cell(
         oc = optim.OptimizerConfig(peak_lr=0.0, moment_dtype=plan.opt_dtype)
         state = {"opt": optim.init_opt_state(params, oc)}
         tokens = torch.from_numpy(rng.integers(0, run_cfg.vocab_size, (rows, seq))).to(dev)
-        batch = {"inputs": tokens, "labels": tokens,
+        batch = {"inputs": _model_inputs(run_cfg, tokens, rng), "labels": tokens,
                  "positions": make_positions(run_cfg, rows, seq, device=dev)}
         step = make_train_step(run_cfg, run_shape, run_plan, oc, device=dev)
 
@@ -222,7 +234,8 @@ def evaluate_cell(
             _, state["opt"], _ = step(params, state["opt"], batch)
     elif kind == "prefill":
         tokens = torch.from_numpy(rng.integers(0, run_cfg.vocab_size, (rows, seq))).to(dev)
-        batch = {"inputs": tokens, "positions": make_positions(run_cfg, rows, seq, device=dev)}
+        batch = {"inputs": _model_inputs(run_cfg, tokens, rng),
+                 "positions": make_positions(run_cfg, rows, seq, device=dev)}
         step = make_prefill_step(run_cfg, run_shape, run_plan, device=dev)
 
         def run():
@@ -230,6 +243,7 @@ def evaluate_cell(
     else:
         cache = transformer.init_cache(run_cfg, rows, seq, kv_dtype=plan.kv_dtype, device=dev)
         tokens = torch.from_numpy(rng.integers(0, run_cfg.vocab_size, (rows, 1))).to(dev)
+        tokens = _model_inputs(run_cfg, tokens, rng)
         step = make_serve_step(run_cfg, run_shape, run_plan, device=dev)
 
         def run():

@@ -3,10 +3,13 @@
     python -m repro_torch.launch.serve --arch ARCH [--smoke] [--device cpu]
 
 ARCH is any arch the port registers (``repro_torch.configs.ARCH_IDS``):
-granite-3-2b, granite-moe-1b-a400m and falcon-mamba-7b fit one H100 at full
-width; jamba-1.5-large-398b and phi3.5-moe-42b-a6.6b only with ``--smoke``
-(the reduced config).  Runs on the CUDA device unless ``--device cpu`` is
-given; weights are random, drawn on the device from ``--seed``.
+granite-3-2b, granite-moe-1b-a400m, falcon-mamba-7b, nemotron-4-15b and
+stablelm-12b fit one H100 at full width; deepseek-67b, jamba-1.5-large-398b
+and phi3.5-moe-42b-a6.6b only with ``--smoke`` (the reduced config).  The
+engine drives token-input archs: for musicgen-large and qwen2-vl-72b (a stub
+frontend's embeddings in) it says so and returns 0, as the JAX package's CLI
+does.  Runs on the CUDA device unless ``--device cpu`` is given; weights are
+random, drawn on the device from ``--seed``.
 """
 from __future__ import annotations
 
@@ -33,6 +36,10 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.reduced()
+    if cfg.input_kind != "tokens":
+        print(f"[serve] {args.arch} uses a stub modality frontend; serving "
+              "demo drives token-input archs — pick granite/deepseek/etc.")
+        return 0
     params = transformer.init_params(cfg, args.seed, device=args.device)
     eng = ServingEngine(cfg, params, batch_slots=args.slots, max_len=64, device=args.device)
     rng = np.random.default_rng(args.seed)

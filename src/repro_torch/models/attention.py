@@ -119,6 +119,8 @@ def decode_step(
 
     q, k_new, v_new = _project(p, x, cfg)  # (B,H,1,hd), (B,Hkv,1,hd)
     pos = cur[:, None] if per_row else cur.expand(B, 1)
+    if cfg.pos_kind == "mrope":  # a decoded token: the same id in all three components
+        pos = pos[:, None, :].expand(B, 3, 1)
     q, k_new = layers.apply_positions(q, k_new, cfg, pos)
     k, v = cache["k"], cache["v"]
     int8_kv = "k_s" in cache

@@ -26,12 +26,6 @@ from repro_torch.kernels.ops import DEFAULT_TILES, KernelTiles
 from repro_torch.models import attention, layers, mamba, moe
 
 
-def _check_plan(cfg: ModelConfig) -> list:
-    if cfg.input_kind != "tokens":
-        raise NotImplementedError(f"{cfg.name}: embeddings input is not ported yet: ROADMAP item A2")
-    return cfg.layer_plan()
-
-
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
@@ -66,15 +60,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     """Random weights drawn on ``device`` from a seeded ``torch.Generator``
     (the same layout as the JAX ``init_params``, not the same numbers)."""
     device = resolve_device(device)
-    plan = _check_plan(cfg)
+    plan = cfg.layer_plan()
     gen = torch.Generator(device=device).manual_seed(seed)
     dt = getattr(torch, cfg.dtype)
     n = cfg.n_periods
     params = {
         "blocks": {f"b{i}": _block_init(cfg, spec, gen, device, n) for i, spec in enumerate(plan)},
         "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=device),
-        "embed": layers.dense_init(gen, (cfg.vocab_size, cfg.d_model), dt, device),
     }
+    if cfg.input_kind == "tokens":  # an embeddings arch takes its frontend's vectors
+        params["embed"] = layers.dense_init(gen, (cfg.vocab_size, cfg.d_model), dt, device)
     if not cfg.tie_embeddings:
         params["head"] = layers.dense_init(gen, (cfg.d_model, cfg.vocab_size), dt, device)
     return params
@@ -97,10 +92,16 @@ def _mlp_forward(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return h.to(x.dtype) @ p["w_down"]
 
 
-def _embed(params: dict, cfg: ModelConfig, inputs: torch.Tensor) -> torch.Tensor:
+def _embed(params: dict, cfg: ModelConfig, inputs: torch.Tensor, positions) -> torch.Tensor:
+    """Token ids through the table, or a stub frontend's ``(B, S, d)``
+    embeddings cast to the model dtype; plus the sinusoid for a sinusoidal
+    arch (of the temporal component for ``(B, 3, S)`` positions)."""
+    dt = getattr(torch, cfg.dtype)
+    h = params["embed"][inputs] if cfg.input_kind == "tokens" else inputs.to(dt)
     if cfg.pos_kind == "sinusoidal":
-        raise NotImplementedError("sinusoidal positions are not ported yet: ROADMAP item A2")
-    return params["embed"][inputs]  # (B, S, d)
+        pos = positions if positions.ndim == 2 else positions[:, 0]
+        h = h + layers.sinusoidal_pe(pos, cfg.d_model).to(h.dtype)
+    return h
 
 
 def _logits(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
@@ -179,8 +180,8 @@ def _maybe_remat(fn, remat: str):
 def forward(
     params: dict,
     cfg: ModelConfig,
-    inputs: torch.Tensor,  # (B,S) tokens
-    positions: torch.Tensor,  # (B,S)
+    inputs: torch.Tensor,  # (B,S) tokens or (B,S,d) embeddings
+    positions: torch.Tensor,  # (B,S), or (B,3,S) for mrope
     *,
     tiles: KernelTiles = DEFAULT_TILES,
     remat: str = "none",
@@ -188,8 +189,8 @@ def forward(
     """Logits ``(B, S, V)``.  Records autograd only where the caller does
     (the prefill step runs it under ``torch.no_grad``); ``remat`` applies
     per period, as in the JAX package."""
-    plan = _check_plan(cfg)
-    h = _embed(params, cfg, inputs)
+    plan = cfg.layer_plan()
+    h = _embed(params, cfg, inputs, positions)
     body = _maybe_remat(_period_forward, remat)
     for p in range(cfg.n_periods):
         h = body(period_params(params["blocks"], p), h, positions, plan, cfg, tiles)
@@ -203,7 +204,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, kv_dtype: str = "bf16
                device="cuda") -> dict:
     """Stacked (n_periods leading dim) cache matching the block structure."""
     device = resolve_device(device)
-    plan = _check_plan(cfg)
+    plan = cfg.layer_plan()
     dt = getattr(torch, cfg.dtype)
     return {
         f"b{i}": (
@@ -220,7 +221,7 @@ def decode_step(
     params: dict,
     cfg: ModelConfig,
     cache: dict,
-    inputs: torch.Tensor,  # (B,1) tokens
+    inputs: torch.Tensor,  # (B,1) tokens or (B,1,d) embeddings
     cur,  # int position of the new token: scalar, or (B,) per-row
     commit=None,  # (B,) bool: the rows whose new cache state is written; None = all
     *,
@@ -231,10 +232,11 @@ def decode_step(
     ``cache`` in place, in the rows of ``commit`` only: the logits of a row
     outside it are not its next step's (see ``attention.decode_step``).
     ``tiles`` reaches the MoE MLP's grouped GEMMs."""
-    plan = _check_plan(cfg)
+    plan = cfg.layer_plan()
     device = inputs.device
     cur = torch.as_tensor(cur, dtype=torch.long, device=device)
-    h = _embed(params, cfg, inputs)
+    pos = cur[:, None] if cur.ndim == 1 else cur.expand(inputs.shape[0], 1)  # each row's own
+    h = _embed(params, cfg, inputs, pos)
     for p in range(cfg.n_periods):
         pp = period_params(params["blocks"], p)
         pc = period_params(cache, p)  # views: the writes land in the stacked cache

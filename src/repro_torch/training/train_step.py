@@ -31,10 +31,13 @@ def tiles_from_plan(plan: SchedulePlan) -> KernelTiles:
 
 
 def make_positions(cfg: ModelConfig, batch: int, seq: int, device="cuda") -> torch.Tensor:
-    if cfg.pos_kind == "mrope":
-        raise NotImplementedError("M-RoPE positions are not ported yet: ROADMAP item A2")
+    """``(batch, seq)`` ids ``0..seq-1``; for M-RoPE ``(batch, 3, seq)``, the
+    same ids in each of the three components (text positions)."""
     device = resolve_device(device)
-    return torch.arange(seq, dtype=torch.long, device=device)[None, :].expand(batch, seq)
+    pos = torch.arange(seq, dtype=torch.long, device=device)
+    if cfg.pos_kind == "mrope":
+        return pos[None, None, :].expand(batch, 3, seq)
+    return pos[None, :].expand(batch, seq)
 
 
 def _single_device(mesh, device) -> torch.device:
@@ -56,7 +59,8 @@ def make_train_step(
 ) -> Callable:
     """(params, opt_state, batch) -> (params, opt_state, metrics).
 
-    ``batch``: ``{"inputs": (B,S), "labels": (B,S), "positions": (B,S)}``
+    ``batch``: ``{"inputs": (B,S) or (B,S,d), "labels": (B,S), "positions":
+    (B,S) or (B,3,S)}``
     tensors on the device.  The parameters are marked as requiring grad and
     updated in place (``optimizer.apply_updates``).  With ``microbatches >
     1`` each microbatch's gradient comes from ``torch.autograd.grad`` and is

@@ -79,9 +79,10 @@ class Trainer:
         return params, opt_state, step
 
     def batch_at(self, step: int) -> Dict[str, torch.Tensor]:
-        """The pipeline's batch ``step`` on the device, token ids as int64."""
+        """The pipeline's batch ``step`` on the device: ids and positions as
+        int64, an embeddings arch's stub frontend vectors as they are (f32)."""
         return {
-            k: torch.from_numpy(v).to(self.device, dtype=torch.long)
+            k: torch.from_numpy(v).to(self.device, dtype=torch.long if v.dtype.kind in "iu" else None)
             for k, v in self.pipe.batch_at(step).items()
         }
 

@@ -138,7 +138,7 @@ def test_flash_wrapper_on_the_cpu_takes_the_plain_version_and_counts_nothing():
         _close(g, e, F32)
 
 
-@pytest.mark.parametrize("head_dim", geometry.HEAD_DIMS)
+@pytest.mark.parametrize("head_dim", geometry.FLASH_BWD_HEAD_DIMS)
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_flash_backward_launch_matches_the_kernel_layout(head_dim, dtype):
     launch = geometry.flash_backward_launch(2, 16, 8, 4096, 4000, head_dim, dtype)
@@ -170,7 +170,7 @@ def test_flash_backward_launch_matches_the_kernel_layout(head_dim, dtype):
     assert launch.dkdv_grid == (8, 2, -(-4000 // kc)) and launch.dq_grid == (16, 2, -(-4096 // qr))
 
 
-@pytest.mark.parametrize("head_dim", geometry.HEAD_DIMS)
+@pytest.mark.parametrize("head_dim", geometry.FLASH_BWD_HEAD_DIMS)
 def test_flash_backward_bf16_tiles_threads_ring_and_smem_fit_a_hopper_block(head_dim):
     launch = geometry.flash_backward_launch(1, 32, 8, 4096, 4096, head_dim, "bfloat16")
     regs = geometry.FLASH_BWD_REGISTERS

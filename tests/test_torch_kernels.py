@@ -89,6 +89,8 @@ FLASH_CASES = [
     (1, 4, 2, 256, 128, 256, 128, True),  # block_q == S
     (2, 4, 2, 128, 64, 128, 128, False),  # non-causal
     (1, 2, 2, 512, 64, 128, 256, True),   # bkv > bq
+    (1, 4, 2, 256, 160, 128, 128, True),  # head_dim 160 (stablelm-12b)
+    (2, 4, 1, 128, 160, 64, 128, False),  # head_dim 160, MQA, non-causal
 ]
 
 
@@ -180,6 +182,44 @@ def test_flash_smem_formula_matches_kernel_layout(dtype):
         assert kv_pad == 256 and smem == 1024 + 2 * 64 * 64 * 2 + 4 * 2 * 64 * 64 * 2 + 8 * 9
     else:
         assert kv_pad == 208 and smem == 2 * 208 * 64 * 4
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_smem_formula_at_head_dim_160(dtype):
+    # bf16: the tile at its true width, 64 rows x 160 x 2 bytes (five 32-wide
+    # chunks of the 64-byte swizzle, no padding to 192); f32: as at every
+    # head_dim, K and V rows of D
+    kv_pad, smem = geometry.flash_smem_bytes(256, 160, dtype, 128)
+    if dtype == "bfloat16":
+        assert kv_pad == 256 and smem == 1024 + 2 * 64 * 160 * 2 + 4 * 2 * 64 * 160 * 2 + 8 * 9 == 205_896
+    else:
+        assert kv_pad == 256 and smem == 2 * 256 * 160 * 4
+
+
+def test_forward_launches_at_head_dim_160():
+    assert 160 in geometry.FLASH_HEAD_DIMS and 160 not in geometry.FLASH_BWD_HEAD_DIMS
+    # bf16: a producer and two consumer warpgroups, as at 128
+    launch = geometry.flash_launch(1, 32, 4096, 4096, 160, "bfloat16", 128, 256)
+    assert (launch.threads, launch.kv_pad, launch.smem_bytes, launch.grid) == (384, 256, 205_896,
+                                                                               (32, 32, 1))
+    assert geometry.max_threads(160, "bfloat16") == 384
+    assert geometry.launchable_attn_blocks(160, "bfloat16") == [(128, 128), (128, 256)]
+    # f32: two threads a row, so block_q 128 takes the 256 threads the kernel is built for
+    assert geometry.f32_lanes(160) == 2 and geometry.f32_lanes(128) == 1
+    launch = geometry.flash_launch(1, 4, 300, 300, 160, "float32", 128, 128)
+    assert (launch.threads, launch.kv_pad, launch.smem_bytes, launch.grid) == (256, 128, 163_840,
+                                                                               (3, 4, 1))
+    assert geometry.launchable_attn_blocks(160, "float32") == [(128, 128)]
+    with pytest.raises(ValueError, match="512 threads"):
+        geometry.flash_launch(1, 4, 4096, 4096, 160, "float32", 256, 128)
+    with pytest.raises(ValueError, match="head_dim"):
+        geometry.flash_launch(1, 4, 4096, 4096, 96, "bfloat16", 128, 128)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_at_head_dim_160_raises_naming_p2(dtype):
+    with pytest.raises(ValueError, match="P2"):
+        geometry.flash_backward_launch(1, 32, 8, 4096, 4096, 160, dtype)
 
 
 def test_wrappers_refuse_other_devices():

@@ -406,6 +406,15 @@ def test_launch_measure_depth_cut_projects_in_layers():
                            cut={"reduced": True, "seq": 32, "layers": 3}, verbose=False)
 
 
+@pytest.mark.parametrize("kind", list(KIND_SHAPE))
+def test_launch_measure_takes_an_embeddings_arch(kind):
+    """qwen2-vl-72b takes (rows, seq, d) embeddings and M-RoPE ids, as the
+    JAX dry run's input specs have it; every kind of step measures."""
+    rec = card.evaluate_cell("qwen2-vl-72b", KIND_SHAPE[kind], "card", None, device="cpu",
+                             cut=CPU_CUT, verbose=False)
+    assert set(rec) == RECORD_FIELDS and rec["measured_s"] > 0
+
+
 @pytest.mark.parametrize("mesh", ["single", "multi"])
 def test_launch_measure_of_a_mesh_raises_naming_a8(mesh):
     with pytest.raises(NotImplementedError, match="A8"):

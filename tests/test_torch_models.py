@@ -163,14 +163,13 @@ def test_decode_matches_forward(model):
 
 def test_unported_paths_raise_with_their_roadmap_item(model):
     _, cfg, *_ = model
-    with pytest.raises(NotImplementedError, match="A2"):
-        get_config("qwen2-vl-72b")
-    with pytest.raises(NotImplementedError, match="A2"):
-        get_config("nemotron-4-15b")
     with pytest.raises(NotImplementedError, match="A8"):
         make_prefill_step(cfg, None, SchedulePlan(), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A2"):
-        make_positions(dataclasses.replace(cfg, pos_kind="mrope"), B, S, device="cpu")
+    # A2 is ported: every arch resolves and M-RoPE has its positions
+    assert get_config("qwen2-vl-72b").pos_kind == "mrope"
+    assert get_config("nemotron-4-15b").n_layers == 32
+    pos = make_positions(dataclasses.replace(cfg, pos_kind="mrope"), B, S, device="cpu")
+    assert tuple(pos.shape) == (B, 3, S)
 
 
 # ---------------------------------------------------------------------------

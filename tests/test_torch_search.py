@@ -29,7 +29,9 @@ from repro_torch.kernels import geometry
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
-CELLS = {"moe_train": MOE_TRAIN_CELL, "decode": DECODE_CELL}
+CELLS = {"moe_train": MOE_TRAIN_CELL, "decode": DECODE_CELL,
+         # model coverage: a dense arch past granite, and head_dim 160 on a prefill shape
+         "nemotron_train": ("nemotron-4-15b", "train_4k"), "stablelm_prefill": ("stablelm-12b", "prefill_32k")}
 ALGOS = ("mcts_1s", "beam", "evolve", "portfolio")
 SMALL = dict(n_standard=2, n_greedy=1)  # tests/test_differential.py's ensemble size
 
