@@ -102,6 +102,30 @@ limit as ``nvidia-smi`` reports them):
    one request through the subprocess CLI (``python -m
    repro_torch.launch.measure``); then the measured plan and the
    quickstart's ``mcts_1s`` plan trained at full depth in turns.
+10b. ``jit_pricing``: ``AnalyticCostModel(pricing="jit", device="cuda")``,
+   the float64 torch pricing program, at granite-moe-1b-a400m and
+   falcon-mamba-7b x train_4k, granite-3-2b x decode_32k and stablelm-12b x
+   prefill_32k (``hw="h100"``, mesh ``card``) and a ``tpu-v5e`` multi-pod
+   cell, on random plan batches of 1 to 4096: elementwise within
+   ``JIT_RTOL`` of the columnar kernel (atol 0), its tensors on the card,
+   and the host ms a batch of each path.
+10c. ``learned``: ``autotune(..., algo="mcts_1s", cost="learned")`` and
+   ``cost="hybrid"`` of granite-moe-1b-a400m x train_4k, the MLP fitting and
+   pricing on the card (learned-served misses above 0 under "learned"); the
+   same on a 2-worker pinned pool, each worker pricing on the card in its
+   own CUDA context (its context seconds and bytes; the merged version
+   tags and counters must add up); one set of fitted params priced on the
+   card and on the CPU (rtol 1e-5); and a reading: the MLP fitted on the
+   ``measure`` phase's card records, every third held out, beside the
+   analytic model's holdout Spearman.
+10d. ``service``: the tuner daemon (``python -m
+   repro_torch.launch.tune_serve serve``, ``--measure real`` on the card,
+   the fleet reading the ``measure`` phase's records) on a socket under
+   ``build/``: a cold ``mcts_1s`` request equal to the ``search`` phase's
+   result, its repeat a store hit with no search, the same cell for
+   ``tpu-v5e`` searched (never the h100 plan), ``mcts_cost+real_1s`` equal
+   to the ``measure`` phase's plan, cost and measured time; then a restart
+   on the same store, where that request is a store hit measuring nothing.
 11. ``parity``: 2-layer f32 models at full width of each serving arch, and
    of stablelm-12b (head_dim 160) and qwen2-vl-72b (embeddings, M-RoPE ids
    whose rows differ), card (kernels) against the port's CPU path (plain
@@ -125,6 +149,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -1964,7 +1989,310 @@ def phase_measure(torch, np, mods, base_res) -> dict:
               "worker_measured_ms": worker_rec["measured_s"] * 1e3, "program": cli["program"],
               "device": cli["device"]},
          full_depth_train=trains, seconds=time.perf_counter() - t_phase)
-    return counts
+    return counts, records, res, cache_dir, cut
+
+
+JIT_CELLS = (  # (arch, shape, hw, mesh): the card's tuning cells and one TPU multi-pod cell
+    ("granite-moe-1b-a400m", "train_4k", "h100", "card"),
+    ("falcon-mamba-7b", "train_4k", "h100", "card"),
+    ("granite-3-2b", "decode_32k", "h100", "card"),
+    ("stablelm-12b", "prefill_32k", "h100", "card"),
+    ("granite-moe-1b-a400m", "train_4k", "tpu-v5e", "multi"),
+)
+JIT_BATCHES = (1, 8, 64, 512, 4096)
+
+
+def _host_ms(fn, reps: int) -> float:
+    """Median host milliseconds of ``fn`` (which ends in a device-to-host
+    copy, so the device's work is inside it), after one warm-up call."""
+    fn()
+    runs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(runs)
+
+
+def phase_jit_pricing(torch, np, mods, device="cuda") -> None:
+    """``AnalyticCostModel(pricing="jit", device=...)``, the float64 torch
+    pricing program, against the exact columnar kernel at the card's tuning
+    cells and a TPU multi-pod cell, on random plan batches of every size in
+    ``JIT_BATCHES``: elementwise ``|jit - columnar| <= JIT_RTOL * columnar``
+    (atol 0), the program's tensors on ``device``; the host ms a batch of
+    each path (the jit path with its packing, copy and sync; below 64 also
+    the exact scalar replay that batches under ``columnar_min_batch``
+    take)."""
+    from repro_torch.core.cost_model import JIT_RTOL, PlanColumns, _build_jit_kernel
+
+    t_phase = time.perf_counter()
+    cells = []
+    for arch, shape, hw, mesh in JIT_CELLS:
+        col = mods.make_mdp(arch, shape, mesh, hw=hw).cost_model
+        jit = mods.make_mdp(arch, shape, mesh, hw=hw, pricing="jit", device=device).cost_model
+        space = mods.make_mdp(arch, shape, mesh, hw=hw).space
+        rng = np.random.default_rng(SEED)
+        plans = [space.plan_from_actions([int(rng.integers(len(s.options))) for s in space.stages])
+                 for _ in range(max(JIT_BATCHES))]
+        ctx_c, ctx_j = col._ctx(), jit._ctx()
+        inp = jit._jit_inputs(PlanColumns.from_plans(plans[:8]), ctx_j)
+        out = _build_jit_kernel(jit, ctx_j)(**inp)
+        where = sorted({t.device.type for t in inp.values()} | {out.device.type})
+        if where != [torch.device(device).type]:
+            raise AssertionError(f"jit_pricing {arch} {shape}: the program ran on {where}")
+        rows = []
+        for n in JIT_BATCHES:
+            cols = PlanColumns.from_plans(plans[:n])
+            a = jit._terms_jitted(cols, ctx_j)
+            b = col._terms_columnar(cols, ctx_c)["step_s"]
+            err = np.abs(a - b)
+            if not (np.all(np.isfinite(a)) and np.all(err <= JIT_RTOL * b)):
+                raise AssertionError(f"jit_pricing {arch} {shape} {hw} {mesh} batch {n}: "
+                                     f"max rel err {float(np.max(err / b))} > {JIT_RTOL}")
+            reps = 50 if n <= 64 else 10
+            row = {"batch": n, "max_rel_err": float(np.max(err / b)),
+                   "jit_ms": _host_ms(lambda: jit._terms_jitted(cols, ctx_j), reps),
+                   "columnar_ms": _host_ms(lambda: col._terms_columnar(cols, ctx_c), reps),
+                   "encode_ms": _host_ms(lambda: PlanColumns.from_plans(plans[:n]), reps)}
+            if n <= 64:
+                row["scalar_ms"] = _host_ms(
+                    lambda: [col._terms_scalar(p, ctx_c).step_s for p in plans[:n]], reps)
+            rows.append(row)
+        cells.append({"arch": arch, "shape": shape, "hw": hw, "mesh": mesh, "device": where[0],
+                      "batches": rows,
+                      "jit_faster_from": next((r["batch"] for r in rows
+                                               if r["jit_ms"] < r["columnar_ms"]), None)})
+    emit("jit_pricing", rtol=JIT_RTOL, atol=0.0, min_batch=mods.JIT_MIN_BATCH, cells=cells,
+         seconds=time.perf_counter() - t_phase)
+
+
+def phase_learned(torch, np, mods, measure_records, device="cuda") -> None:
+    """Learned-cost serving on the card: ``autotune(algo="mcts_1s",
+    cost="learned")`` and ``cost="hybrid"`` of granite-moe-1b-a400m x
+    train_4k for the H100 and mesh ``card``, the MLP fitting and pricing on
+    ``device`` (learned-served misses must be above 0 under "learned");
+    the same "learned" run on a 2-worker pinned pool (each worker prices on
+    ``device`` in its own CUDA context: its device, context seconds and
+    bytes, the pool's spawn seconds and the card memory the workers held;
+    the merged version tags and counters must add up); one set of fitted
+    params priced on the card and on the CPU (rtol 1e-5); and, a reading,
+    an MLP fitted on the ``measure`` phase's card records, every third held
+    out, beside the analytic model's holdout Spearman against the card."""
+    from repro_torch.core import learned_cost as lc
+
+    qs = mods.quickstart
+    t_phase = time.perf_counter()
+
+    def mdp():
+        return mods.make_mdp(qs.ARCH, qs.SHAPE, "card", hw="h100")
+
+    def on_device(priced_on):  # None: priced nothing yet; else a device of ``device``'s kind
+        return priced_on is None or torch.device(priced_on).type == torch.device(device).type
+
+    def run(cost, **kw):
+        """``autotune`` with ``cost`` on ``device``; the mdp is passed in a
+        CachedMDP so that its cache and the mounted backend can be read."""
+        cmdp = mods.CachedMDP(mdp())
+        t0 = time.perf_counter()
+        res = mods.autotune(qs.ARCH, qs.SHAPE, algo="mcts_1s", hw="h100", mesh="card", seed=SEED,
+                            mdp=cmdp, cost=cost, device=device, **kw)
+        wall = time.perf_counter() - t0
+        serving = res.stats["serving"]
+        exact = mdp().cost_model.cost(res.plan)
+        if res.cost != exact or res.cost_mode != cost or not on_device(serving["priced_on"]):
+            raise AssertionError(f"learned {cost}: cost {res.cost} (exact {exact}), priced on "
+                                 f"{serving['priced_on']}")
+        return res, cmdp, {"wall_s": wall, "serving": serving, "plan": res.plan.to_dict(),
+                           "exact_cost_s": res.cost, "n_evals": res.n_evals}
+
+    runs = {}
+    for cost in ("learned", "hybrid"):
+        res, cmdp, runs[cost] = run(cost)
+        if cost == "learned":
+            if not (res.learned_evals > 0 and runs[cost]["serving"]["learned_batches"] > 0):
+                raise AssertionError(f"learned: the model served no miss: {runs[cost]}")
+            model = cmdp.cost_backend.model
+
+    # the same "learned" run on two pinned workers
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    used0 = mods.device.nvml_used_bytes(0)
+    t0 = time.perf_counter()
+    pool = mods.PinnedWorkerPool([], mods.CachedMDP(mdp()), n_workers=2)
+    spawn_s = time.perf_counter() - t0
+    try:
+        res, cmdp, parallel = run("learned", parallel=True, n_workers=2, worker_pool=pool)
+        used_alive = mods.device.nvml_used_bytes(0)
+    finally:
+        pool.shutdown()
+    time.sleep(1.0)
+    used_after = mods.device.nvml_used_bytes(0)
+    be = cmdp.cost_backend
+    workers = [w.get("pricing") for w in res.stats["workers"]]
+    tags = cmdp.cache.terminal_version
+    problems = []
+    if not (be.trainer.version >= 1 and tags and be.n_learned_plans > 0
+            and res.learned_evals == be.n_learned_plans == parallel["serving"]["learned_plans"]):
+        problems.append(f"tags {len(tags)}, counters {be.counters()}, "
+                        f"learned_evals {res.learned_evals}, version {be.trainer.version}")
+    if not all(1 <= v <= be.trainer.version for v in list(tags.values())
+               + list(cmdp.cache.partial_version.values())):
+        problems.append("a version tag no trainer minted")
+    if len(workers) != 2 or any(w is None or w["device"] != device for w in workers):
+        problems.append(f"worker reports {workers}")
+    elif not any(w["priced_on"] for w in workers) or not all(
+            on_device(w["priced_on"]) for w in workers):
+        problems.append(f"workers priced on {[w['priced_on'] for w in workers]}")
+    if problems:
+        raise AssertionError(f"learned parallel: {problems}")
+    parallel.update(pool_spawn_s=spawn_s, workers=workers, tagged_terminal=len(tags),
+                    card_used_bytes={"before_pool": used0, "pool_alive": used_alive,
+                                     "after_shutdown": used_after})
+
+    # one set of fitted params priced on the card and on the CPU
+    space = mdp().space
+    rng = np.random.default_rng(SEED + 1)
+    probe = [space.plan_from_actions([int(rng.integers(len(s.options))) for s in space.stages])
+             for _ in range(512)]
+    on_dev = lc.LearnedCostModel(params=model.params, space=space, mean=model.mean,
+                                 std=model.std, device=device).cost_batch(probe)
+    on_cpu = lc.LearnedCostModel(params=model.params, space=space, mean=model.mean,
+                                 std=model.std, device="cpu").cost_batch(probe)
+    rel = float(np.max(np.abs(np.asarray(on_dev) - on_cpu) / np.asarray(on_cpu)))
+    if not rel <= 1e-5:
+        raise AssertionError(f"learned: card and CPU predictions differ by {rel} (rtol 1e-5)")
+
+    # a reading: the MLP on the card's own step times, every third record held out
+    card = {}
+    if measure_records:
+        plans = [mods.SchedulePlan.from_dict({**mods.SchedulePlan().to_dict(), **r["program"]})
+                 for r in measure_records]
+        card_s = [r["step_s"] for r in measure_records]
+        model_s = [r["model_step_s"] for r in measure_records]
+        train = [i for i in range(len(plans)) if i % 3]
+        hold = [i for i in range(len(plans)) if not i % 3]
+        fitted = lc.fit_learned_cost(space, [plans[i] for i in train], [card_s[i] for i in train],
+                                     device=device)
+        pred = fitted.cost_batch([plans[i] for i in hold])
+        card = {"records": len(plans), "train": len(train), "holdout": len(hold),
+                "mlp_holdout_spearman": lc._spearman(np.asarray(pred),
+                                                      np.asarray([card_s[i] for i in hold])),
+                "analytic_holdout_spearman": lc._spearman(
+                    np.asarray([model_s[i] for i in hold]), np.asarray([card_s[i] for i in hold]))}
+    emit("learned", arch=qs.ARCH, shape=qs.SHAPE, hw="h100", mesh="card", device=device,
+         runs=runs, parallel=parallel, card_vs_cpu_max_rel=rel, card_vs_cpu_plans=len(probe),
+         fit_on_card_records=card, context_of_this_process=dict(mods.device.CONTEXT),
+         seconds=time.perf_counter() - t_phase)
+
+
+SERVICE_SOCKET = "build/chip_smoke_tuner.sock"  # relative to the checkout: short for AF_UNIX
+
+
+def _start_daemon(store, measure, measure_cache, cut, device, log):
+    cmd = [sys.executable, "-m", "repro_torch.launch.tune_serve", "serve", "--store", str(store),
+           "--socket", SERVICE_SOCKET, "--measure", measure, "--device", device,
+           "--measure-cache", str(measure_cache)]
+    if cut and cut.get("layers"):
+        cmd += ["--measure-layers", str(cut["layers"])]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    sock = ROOT / SERVICE_SOCKET
+    if sock.exists():
+        sock.unlink()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+    t0 = time.perf_counter()
+    while not sock.exists():
+        if proc.poll() is not None or time.perf_counter() - t0 > 120:
+            proc.kill()
+            raise AssertionError(f"service: the daemon did not come up (rc {proc.poll()})")
+        time.sleep(0.05)
+    return proc, time.perf_counter() - t0
+
+
+def _stop_daemon(proc, client) -> None:
+    try:
+        client.shutdown()
+        proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
+def phase_service(torch, mods, base_res, measure_res, measure_cache, cut, device="cuda",
+                  measure="real") -> None:
+    """The tuner daemon (``python -m repro_torch.launch.tune_serve serve``)
+    on a Unix socket under ``build/``, ``--measure real`` on ``device`` with
+    the fleet's records at the ``measure`` phase's cache: (1) a cold
+    ``mcts_1s`` h100 request is searched, and equals the ``search`` phase's
+    one-shot result; (2) the same request is a store hit with no search;
+    (3) the cell with ``hw="tpu-v5e"`` is searched, never answered with
+    the h100 plan; (4) ``mcts_cost+real_1s`` equals the ``measure`` phase's
+    plan, cost and measured time.  Then the daemon is shut down and started
+    again on the same store, and (4) is a store hit that measures nothing."""
+    from repro_torch.launch.tune_serve import TuneClient
+
+    qs = mods.quickstart
+    t_phase = time.perf_counter()
+    store = ROOT / "build" / "chip_smoke_service"
+    shutil.rmtree(store, ignore_errors=True)
+    store.mkdir(parents=True)
+    client = TuneClient(str(ROOT / SERVICE_SOCKET) if len(str(ROOT / SERVICE_SOCKET)) < 100
+                        else SERVICE_SOCKET, timeout=900.0)
+    base = dict(algo="mcts_1s", mesh="card", hw="h100", seed=SEED)
+    real = dict(base, algo=qs.MEASURE_ALGO)
+    out = {}
+    with open(store / "daemon.log", "w") as log:
+        proc, up_s = _start_daemon(store, measure, measure_cache, cut, device, log)
+        try:
+            for name, req in (("cold", base), ("repeat", base),
+                              ("tpu", dict(base, hw="tpu-v5e", mesh="single")),
+                              ("measured", real)):
+                before = client.stats()["stats"]
+                r = client.tune(qs.ARCH, qs.SHAPE, **req)
+                after = client.stats()["stats"]
+                if not r.get("ok"):
+                    raise AssertionError(f"service {name}: {r}")
+                out[name] = {"served": r["served"], "time_to_plan_s": r["time_to_plan_s"],
+                             "searches": after["n_searches"] - before["n_searches"],
+                             "hw": r["result"]["hw"], "plan": r["result"]["plan"],
+                             "cost_s": r["result"]["cost"], "measured_s": r["result"]["measured"],
+                             "fleet": after.get("fleet")}
+            stats = client.stats()["stats"]
+        finally:
+            _stop_daemon(proc, client)
+        proc2, up2_s = _start_daemon(store, measure, measure_cache, cut, device, log)
+        try:
+            r = client.tune(qs.ARCH, qs.SHAPE, **real)
+            stats2 = client.stats()["stats"]
+        finally:
+            _stop_daemon(proc2, client)
+    restart = {"served": r["served"], "time_to_plan_s": r["time_to_plan_s"],
+               "searches": stats2["n_searches"], "plan": r["result"]["plan"],
+               "cost_s": r["result"]["cost"], "fleet": stats2.get("fleet")}
+    want_plan = mods.SchedulePlan.from_dict
+    problems = []
+    if out["cold"]["served"] != "search" or want_plan(out["cold"]["plan"]) != base_res.plan \
+            or out["cold"]["cost_s"] != base_res.cost:
+        problems.append(f"cold: {out['cold']['served']}, not the one-shot mcts_1s result")
+    if out["repeat"]["served"] != "store" or out["repeat"]["searches"] != 0 \
+            or out["repeat"]["plan"] != out["cold"]["plan"]:
+        problems.append(f"repeat: {out['repeat']['served']}, {out['repeat']['searches']} searches")
+    if out["tpu"]["served"] != "search" or out["tpu"]["hw"] != "tpu-v5e":
+        problems.append(f"tpu-v5e: {out['tpu']['served']} {out['tpu']['hw']}")
+    m = out["measured"]
+    if m["served"] != "search" or want_plan(m["plan"]) != measure_res.plan \
+            or m["cost_s"] != measure_res.cost or m["measured_s"] != measure_res.measured:
+        problems.append(f"measured: {m['served']} {m['plan']} {m['cost_s']}, not the measure "
+                        f"phase's {measure_res.plan.to_dict()} {measure_res.cost}")
+    if restart["served"] != "store" or restart["searches"] != 0 or restart["plan"] != m["plan"] \
+            or (restart["fleet"] or {}).get("n_measured", 0) != 0:
+        problems.append(f"after the restart: {restart['served']}, {restart['searches']} searches, "
+                        f"fleet {restart['fleet']}")
+    if problems:
+        raise AssertionError(f"service: {problems}")
+    emit("service", arch=qs.ARCH, shape=qs.SHAPE, device=device, cut=cut, daemon_up_s=[up_s, up2_s],
+         requests=out, restart=restart, store=stats["store"], time_to_plan=stats["time_to_plan"],
+         seconds=time.perf_counter() - t_phase)
 
 
 def phase_train_parity(torch, np, mods, arch=TRAIN_ARCH, S=512, plan=None):
@@ -2326,7 +2654,10 @@ def make_mods():
 
     from repro_torch.configs import InputShape, get_config
     from repro_torch.core import measure
-    from repro_torch.core.autotuner import autotune
+    from repro_torch import device
+    from repro_torch.core.autotuner import autotune, make_mdp
+    from repro_torch.core.cost_model import JIT_MIN_BATCH
+    from repro_torch.core.engine import CachedMDP, PinnedWorkerPool, make_cost_backend
     from repro_torch.core.hardware import H100
     from repro_torch.core.measure_fleet import MeasurementFleet
     from repro_torch.core.space import SchedulePlan, attn_block_options
@@ -2350,6 +2681,8 @@ def make_mods():
         TrainerConfig=TrainerConfig, SchedulePlan=SchedulePlan, quickstart=quickstart,
         geometry=geometry, H100=H100, attn_block_options=attn_block_options, autotune=autotune,
         measure=measure, MeasurementFleet=MeasurementFleet, CardTarget=CardTarget,
+        make_mdp=make_mdp, JIT_MIN_BATCH=JIT_MIN_BATCH, CachedMDP=CachedMDP,
+        PinnedWorkerPool=PinnedWorkerPool, make_cost_backend=make_cost_backend, device=device,
     )
 
 
@@ -2479,7 +2812,13 @@ def main() -> int:
     if not decode_counts["quantize_int8"]:
         raise AssertionError("the int8 decode launched no quantize_int8 kernel")
     add(decode_counts)
-    add(timed_phase("measure", phase_measure, torch, np, mods, res))
+    counts, records, measure_res, measure_cache, cut = timed_phase(
+        "measure", phase_measure, torch, np, mods, res)
+    add(counts)
+    # the compiled pricing path, learned-cost serving and the tuner daemon
+    timed_phase("jit_pricing", phase_jit_pricing, torch, np, mods)
+    timed_phase("learned", phase_learned, torch, np, mods, records)
+    timed_phase("service", phase_service, torch, mods, res, measure_res, measure_cache, cut)
     for n in KERNELS:
         if launches[n] == 0:
             raise AssertionError(f"the main paths launched no {n} kernel")

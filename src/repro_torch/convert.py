@@ -89,3 +89,32 @@ def opt_state_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
         raise ValueError(f"stacked axis {sorted(periods)} != n_periods {cfg.n_periods}")
     return {"mu": conv(tree["mu"], ("mu",)), "nu": conv(tree["nu"], ("nu",)),
             "step": int(np.asarray(tree["step"]))}
+
+
+MLP_KEYS = ("w1", "b1", "w2", "b2", "w3", "b3")  # the JAX package's cost-MLP dict
+
+
+def mlp_params_from_numpy(params: dict, device="cuda"):
+    """The JAX package's cost-MLP parameters (``learned_cost._mlp_init``:
+    ``w`` as ``(in, out)``, numpy or anything ``np.asarray`` takes) as the
+    port's ``learned_cost.MLP`` on ``device``, f32."""
+    from repro_torch.core.learned_cost import MLP
+
+    device = resolve_device(device)
+    p = {k: np.array(params[k], dtype=np.float32) for k in MLP_KEYS}  # writable copies
+    net = MLP(p["w1"].shape[0], p["w1"].shape[1], device=device)
+    with torch.no_grad():
+        for i, lin in enumerate((net.l1, net.l2, net.l3), start=1):
+            lin.weight.copy_(torch.from_numpy(np.ascontiguousarray(p[f"w{i}"].T)))
+            lin.bias.copy_(torch.from_numpy(p[f"b{i}"]))
+    return net
+
+
+def mlp_params_to_numpy(net) -> dict:
+    """``mlp_params_from_numpy`` backwards: the module's parameters as numpy
+    f32 under the JAX package's keys and layout."""
+    out = {}
+    for i, lin in enumerate((net.l1, net.l2, net.l3), start=1):
+        out[f"w{i}"] = lin.weight.detach().cpu().numpy().T.copy()
+        out[f"b{i}"] = lin.bias.detach().cpu().numpy().copy()
+    return out

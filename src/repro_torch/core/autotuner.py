@@ -18,8 +18,11 @@ Algorithms (paper §5 protocol, plus the complete-plan portfolio):
 ``measure_fn`` / ``measure_backend`` (callables, plan -> seconds) re-rank
 candidates at every root synchronization — the ``mcts_cost+real_*``
 configurations; on the H100 a ``core/measure_fleet.py`` fleet bound to the
-card target (``launch/measure.CardTarget``) is the backend.  The
-persistent plan store (``plan_store=``) is ROADMAP item A10.
+card target (``launch/measure.CardTarget``) is the backend.
+``plan_store=`` (``repro_torch.service.store.PlanStore``) answers a repeat
+request from disk and seeds ``evolve``/``portfolio`` from the cell's stored
+plans.  ``cost="learned"|"hybrid"`` and ``pricing="jit"`` compute with torch
+on ``device`` (default ``"cuda"``); the analytic default never imports it.
 """
 from __future__ import annotations
 
@@ -29,11 +32,11 @@ from typing import Callable, Optional
 
 from repro_torch.configs import get_config, get_shape
 from repro_torch.core.cost_model import AnalyticCostModel
-from repro_torch.core.engine import ENGINES, make_cost_backend
+from repro_torch.core.engine import ENGINES
 from repro_torch.core.engine.backend import TABLE1, SearchBackend, resolve_backend
 from repro_torch.core.ensemble import TuneResult
 from repro_torch.core.mdp import ScheduleMDP
-from repro_torch.core.hardware import get_hardware
+from repro_torch.core.hardware import get_hardware, hardware_key
 from repro_torch.core.space import ScheduleSpace, get_mesh
 
 
@@ -92,17 +95,21 @@ def make_mdp(
     noise_seed: int = 0,
     pricing: Optional[str] = None,
     hw: str = "h100",
+    device=None,
 ) -> ScheduleMDP:
     """Build one cell's MDP on hardware ``hw`` (a ``core.hardware`` name or
     spec) and one of its meshes (``core.space.MESHES``).  ``pricing``
-    selects the analytic kernel: None/"columnar" (exact, default) or
-    "scalar" (the exact oracle replay); "jit" is ROADMAP item A5."""
+    selects the analytic kernel: None/"columnar" (exact, default),
+    "scalar" (the exact oracle replay), or "jit" (the float64 torch program
+    on ``device``, default ``"cuda"``: JIT_RTOL tolerance contract and a
+    versioned pricing tag; see cost_model.py)."""
     cfg = get_config(arch)
     shape = get_shape(shape_name)
     spec = get_hardware(hw)
     mspec = get_mesh(spec, mesh)
     space = ScheduleSpace(cfg, shape, mspec, spec)
-    cm = AnalyticCostModel(cfg, shape, mspec, spec, pricing=pricing)
+    cm = AnalyticCostModel(cfg, shape, mspec, spec, pricing=pricing,
+                           device=device if pricing == "jit" else None)
     if noise_sigma:
         cm = NoisyCostModel(cm, noise_sigma, noise_seed)
     return ScheduleMDP(space, cm)
@@ -140,6 +147,7 @@ def autotune(
     controller=None,
     resume: Optional[dict] = None,
     hw: str = "h100",
+    device: str = "cuda",
 ) -> TuneResult:
     """Tune one (arch × shape × mesh) cell on hardware ``hw``.
 
@@ -163,9 +171,15 @@ def autotune(
     through the ``SearchBackend`` protocol
     (``repro_torch.core.engine.backend``).
 
-    ``cost`` selects the serving layer of the cost stack: ``"analytic"``
-    (the default and, until ROADMAP item A5 ports learned-cost serving, the
-    only one; ``"learned"`` / ``"hybrid"`` raise naming A5).
+    ``cost`` selects the serving layer of the cost stack for MCTS runs:
+    ``"analytic"`` (default — exact, bit-identical to the JAX package's
+    search), ``"learned"`` (serve the online-trained §3 MLP once it exists),
+    or ``"hybrid"`` (serve it only while its holdout Spearman clears the
+    confidence gate; exact-analytic fallback otherwise).  A pre-configured
+    ``HybridCostBackend`` is also accepted.  See
+    ``repro_torch.core.engine.serving``.  ``device`` is where the MLP fits
+    and prices, and where ``pricing="jit"`` runs; nothing else reads it,
+    and a run with neither never imports torch.
 
     ``measure_fn`` / ``measure_backend`` are callables (plan -> seconds),
     exactly as in the JAX package: ``mcts_cost+real_*`` runs re-rank each
@@ -185,16 +199,39 @@ def autotune(
     ``TuneResult.stats["interrupted"]`` provenance; ``resume`` restores a
     ``ProTuner.snapshot()`` checkpoint so the run replays the remaining
     rounds bit-identically.  An uninterrupted run with a controller
-    mounted is bit-identical to one without.  ``plan_store=`` is ROADMAP
-    item A10 and raises."""
+    mounted is bit-identical to one without.  An interrupted (partial)
+    result is never recorded into ``plan_store``; the store keys on ``hw``
+    (``repro_torch.service.store.canonical_request``), so a plan tuned for
+    one hardware never answers a request for another."""
     assert engine in ENGINES, engine
-    make_cost_backend(cost, None)  # "analytic" mounts nothing; learned serving raises
+    store_req = None
     if plan_store is not None:
-        raise NotImplementedError(
-            "plan_store=: the persistent plan store is not ported yet: ROADMAP item A10"
+        # persistent PlanStore (repro_torch.service.store): answer a repeat
+        # request from disk (from_store=True, zero evals), record a cold
+        # result after the run.  The store key covers the value-affecting
+        # settings of THIS signature — a caller passing a custom ``mdp``
+        # must guarantee it matches them (the daemon does).
+        from repro_torch.service.store import canonical_request
+
+        store_req = canonical_request(
+            arch, shape_name, mesh=mesh, algo=algo, seed=seed,
+            time_budget_s=time_budget_s, n_standard=n_standard,
+            n_greedy=n_greedy, noise_sigma=noise_sigma, cost=cost,
+            pricing=pricing, hw=hw,
+        )
+        hit = plan_store.lookup(store_req)
+        if hit is not None:
+            return hit
+    seed_plans = None
+    if plan_store is not None and algo in ("evolve", "portfolio"):
+        # warm-start the evolutionary population from the store's recorded
+        # plans for this cell on this hardware (any algo/seed — a good plan
+        # is a good seed); non-evolutionary backends ignore seed_plans
+        seed_plans = plan_store.seed_plans(
+            arch=arch, shape=shape_name, mesh=mesh, hw=hw
         )
     mdp = mdp or make_mdp(arch, shape_name, mesh, noise_sigma, seed,
-                          pricing=pricing, hw=hw)
+                          pricing=pricing, hw=hw, device=device)
     backend: SearchBackend = resolve_backend(algo, engine=engine)
     res = backend.run(
         mdp,
@@ -212,8 +249,13 @@ def autotune(
         worker_pool=worker_pool,
         shm=shm,
         worker_batch=worker_batch,
-        seed_plans=None,
+        seed_plans=seed_plans,
         controller=controller,
         resume=resume,
+        device=device,
     )
+    spec = getattr(getattr(mdp, "space", None), "hw", None)
+    res.hw = hardware_key(spec if spec is not None else hw)
+    if plan_store is not None:
+        plan_store.record(store_req, res)
     return res

@@ -35,8 +35,11 @@ below ``columnar_min_batch``): the column math performs the same IEEE-754
 operations on the same operands in the same order, so the two paths agree
 bit for bit.
 
-``pricing="jit"`` (the JAX package's jitted kernel) is ROADMAP item A5 and
-raises.  Pure numpy: the search's import chain stays free of torch.
+``pricing="jit"`` is the JAX package's jitted kernel as a float64 torch
+program on the model's ``device`` (``_build_jit_kernel``): the same
+arithmetic, held to the columnar kernel within ``JIT_RTOL`` and tagged
+``JIT_PRICING_TAG``.  torch is imported only when such a model prices a
+batch, so the search's import chain (numpy only) stays free of torch.
 """
 from __future__ import annotations
 
@@ -90,10 +93,29 @@ _GRAD_SCALE_AR = np.array([2.0, 0.25, 1.0])
 _SBYTES_F32 = BF16 + 2 * 4 + 4
 _SBYTES_INT8 = BF16 + 2 * 1.1 + 4
 
-# The jitted pricing path (``pricing="jit"``) is ROADMAP item A5: its tag is
-# kept, so that values priced under it will never mix with the exact paths'.
+# ---------------------------------------------------------------------------
+# The compiled pricing path (``pricing="jit"``).
+#
+# ``_terms_jitted`` runs the SAME roofline arithmetic as ``_terms_columnar``
+# as one float64 torch program over the batch's columns, on the model's
+# device.  Every elementwise op is the float64 operation the numpy kernel
+# performs, but torch's transcendental functions (log2) need not round as
+# numpy's do, so the CONTRACT is relative agreement within ``JIT_RTOL``, not
+# bit-equality.  Because the contract is a tolerance, the path carries a
+# versioned ``pricing_tag`` distinct from the exact paths: cache snapshots
+# and plan-store requests priced under different tags never mix
+# (service/store.py keys on the tag).
+#
+# The JAX package pads each batch to a power of two, which bounds XLA's
+# compile cache.  Eager torch compiles nothing per shape, so the port does
+# not pad: a batch of n plans is n rows.
+# ---------------------------------------------------------------------------
 JIT_PRICING_TAG = "analytic-jit-v1"
-_JIT_TODO = "pricing='jit' (the compiled pricing kernel) is not ported yet: ROADMAP item A5"
+JIT_RTOL = 1e-9  # |jit - columnar| <= JIT_RTOL * columnar, elementwise
+# Unique-batch size at/above which pricing="jit" uses the compiled kernel
+# (below it: the exact scalar replay, exactly like columnar_min_batch).
+# The JAX package's value; the H100's own crossover is in PERF.md.
+JIT_MIN_BATCH = 8
 
 
 class PlanColumns:
@@ -394,6 +416,7 @@ class AnalyticCostModel:
         columnar: bool = True,
         columnar_min_batch: Optional[int] = None,
         pricing: Optional[str] = None,
+        device=None,
     ):
         self.cfg = cfg
         self.shape = shape
@@ -406,14 +429,24 @@ class AnalyticCostModel:
         #                against;
         #   "columnar" — (default) the vectorized numpy kernel
         #                (_terms_columnar), bit-identical to scalar;
-        #   "jit"      — the compiled kernel: ROADMAP item A5, raises.
+        #   "jit"      — the float64 torch program (_terms_jitted) on
+        #                ``device`` (default "cuda"): same arithmetic,
+        #                agreement within JIT_RTOL (a distinct versioned
+        #                pricing_tag, so cached values never mix with the
+        #                exact paths).
         # The legacy columnar=False spelling maps to pricing="scalar".
         if pricing is None:
             pricing = "columnar" if columnar else "scalar"
-        if pricing == "jit":
-            raise NotImplementedError(_JIT_TODO)
-        if pricing not in ("scalar", "columnar"):
+        if pricing not in ("scalar", "columnar", "jit"):
             raise ValueError(f"unknown pricing path: {pricing!r}")
+        # the jit kernel's device, checked here so that a model asked for the
+        # card raises at once on a machine without one; the exact paths
+        # never touch torch
+        self.device = None
+        if pricing == "jit":
+            from repro_torch.device import resolve_device
+
+            self.device = str(resolve_device("cuda" if device is None else device))
         self.pricing = pricing
         self.columnar = pricing != "scalar"
         # Unique-plan count below which a columnar batch dispatches to the
@@ -423,13 +456,17 @@ class AnalyticCostModel:
         # half-warm lockstep rounds — price faster as scalar walks.  The
         # columnar/scalar paths are certified bit-identical, so the
         # threshold is a pure performance knob — results cannot depend on
-        # it.  Set to 1 to force every batch through the kernel (the
-        # differential tests do).
+        # it.  Under pricing="jit" the knob defaults to JIT_MIN_BATCH and
+        # batches below it use the EXACT scalar replay, so there the
+        # threshold selects between tagged pricing paths.  Set to 1 to force
+        # every batch through the kernel (the differential tests do).
         if columnar_min_batch is None:
-            columnar_min_batch = 16
+            columnar_min_batch = JIT_MIN_BATCH if pricing == "jit" else 16
         self.columnar_min_batch = columnar_min_batch
         self.n_evals = 0
         self._batch_ctx: Optional[_EvalContext] = None
+        self._jit_fn = None  # built (and torch imported) on first jit pricing
+        self.n_jit_batches = 0  # batches the compiled kernel priced
 
     @property
     def pricing_tag(self) -> str:
@@ -443,8 +480,10 @@ class AnalyticCostModel:
     def __getstate__(self):
         # the batch context holds derived caches only — drop it so pickled
         # models (process-pool workers) stay lean; it lazily rebuilds.
+        # The compiled kernel's closure rebuilds the same way.
         d = self.__dict__.copy()
         d["_batch_ctx"] = None
+        d["_jit_fn"] = None
         return d
 
     # ------------------------------------------------------------------
@@ -1085,8 +1124,74 @@ class AnalyticCostModel:
         return self._terms_columnar(cols, self._ctx())["step_s"]
 
     def _terms_jitted(self, cols: PlanColumns, ctx: _EvalContext) -> np.ndarray:
-        """``step_s`` through the compiled kernel: ROADMAP item A5."""
-        raise NotImplementedError(_JIT_TODO)
+        """``step_s`` for a whole encoded batch through the compiled kernel.
+
+        The discrete, plan-keyed lookups the columnar kernel resolves
+        through ``_EvalContext`` (the spill test per flash-block pair,
+        activation multipliers per TP degree, KV totals per dtype) are
+        gathered host-side into plain numeric columns (``_jit_inputs``);
+        everything else is one float64 torch program on ``self.device``.
+        The batch crosses to the device as one packed array and comes back
+        as one, a host-device round trip a batch.  Agreement with
+        ``_terms_columnar``: within ``JIT_RTOL``."""
+        fn = self._jit_fn
+        if fn is None:
+            fn = self._jit_fn = _build_jit_kernel(self, ctx)
+        out = fn(**self._jit_inputs(cols, ctx))
+        self.n_jit_batches += 1
+        return out.cpu().numpy()
+
+    def _jit_inputs(self, cols: PlanColumns, ctx: _EvalContext) -> dict:
+        """Host-side gather: the same per-discrete-key context lookups
+        ``_terms_columnar`` performs, as float64 columns on ``self.device``
+        (integers and flags are exact in float64).  The columns are packed
+        into one array, so the batch is one host-to-device copy."""
+        import torch
+
+        cfg, shape = self.cfg, self.shape
+        n = cols.n
+        # the spill test per distinct (bq, bkv) pair, as in the columnar kernel
+        spill = np.zeros(n, dtype=bool)
+        if cfg.n_heads:
+            for q, k in set(zip(cols.bq.tolist(), cols.bkv.tolist())):
+                spill[(cols.bq == q) & (cols.bkv == k)] = ctx.vmem_spills(q, k)
+        # stored-activation multipliers per distinct TP degree (train only)
+        fm = np.zeros(n)
+        mm = np.zeros(n)
+        if shape.kind == "train":
+            tp = np.where(cols.tp_on, self.mesh.axis("model"), 1)
+            for v in set(tp.tolist()):
+                f_mult, m_mult = ctx.act_mults(int(v))
+                fm[tp == v] = f_mult
+                mm[tp == v] = m_mult
+        # whole-model KV bytes per dtype, before the n_periods multiply
+        kvt = np.zeros(n)
+        if shape.kind == "decode":
+            if bool(cols.kv_int8.any()):
+                kvt[cols.kv_int8] = ctx.kv_total(1.06)
+            if not bool(cols.kv_int8.all()):
+                kvt[~cols.kv_int8] = ctx.kv_total(BF16)
+        host = {
+            "pod_data": cols.pod_data, "tp_on": cols.tp_on,
+            "fsdp_on": cols.fsdp_on, "tp2d": cols.tp2d,
+            "mixer_tp": cols.mixer_tp, "seq_shard": cols.seq_shard,
+            "ffn_tp": cols.ffn_tp, "moe_ep": cols.moe_ep,
+            "moe_tp": cols.moe_tp, "vocab_shard": cols.vocab_shard,
+            "opt_int8": cols.opt_int8, "remat": cols.remat,
+            "grad_comm": cols.grad_comm, "microbatches": cols.microbatches,
+            "bq": cols.bq, "bkv": cols.bkv, "scan_chunk": cols.scan_chunk,
+            "overlap": cols.overlap, "spill": spill, "fm": fm, "mm": mm,
+            "kvt": kvt,
+        }
+        packed = torch.from_numpy(np.stack([np.asarray(v, dtype=np.float64)
+                                            for v in host.values()]))
+        packed = packed.to(self.device)
+        out = dict(zip(host, packed.unbind(0)))
+        for k in _JIT_FLAGS:
+            out[k] = out[k] != 0
+        for k in ("remat", "grad_comm"):  # gather indices
+            out[k] = out[k].long()
+        return out
 
     # ------------------------------------------------------------------
     def cost(self, plan: SchedulePlan) -> float:
@@ -1171,6 +1276,201 @@ class AnalyticCostModel:
         return self.cost(space.plan_from_actions(full))
 
 
+# the boolean columns of ``_jit_inputs``
+_JIT_FLAGS = ("pod_data", "tp_on", "fsdp_on", "tp2d", "mixer_tp", "seq_shard",
+              "ffn_tp", "moe_ep", "moe_tp", "vocab_shard", "opt_int8", "spill")
+
+
 def _build_jit_kernel(model: AnalyticCostModel, ctx: _EvalContext):
-    """The compiled ``step_s`` kernel for one cell: ROADMAP item A5."""
-    raise NotImplementedError(_JIT_TODO)
+    """The compiled ``step_s`` kernel for one (cfg, shape, mesh, hw) cell.
+
+    Every cell-constant quantity (structural FLOP/param accounting, mesh
+    axes, hardware numbers, kind flags) is resolved here, through the same
+    ``_EvalContext`` the columnar kernel uses, and closed over as Python
+    scalars, so the program is pure elementwise column math: the
+    ``_terms_columnar`` arithmetic, operation for operation, in float64.
+    Integer columns arrive as float64 (exact), so ``a / b`` is the float64
+    division numpy performs on the same values.  ``torch.where`` evaluates
+    both branches, as ``jnp.where`` does: every division below has a
+    divisor that is at least 1 (or ``max(coll, 1e-9)``) in both branches,
+    so no inf or nan is made to be discarded.  Only ``step_s`` is computed:
+    the compiled path prices searches, and full term breakdowns stay on the
+    exact kernels."""
+    import torch
+
+    f64 = torch.float64
+    dev = torch.device(model.device)
+    cfg, shape, hw, mesh = model.cfg, model.shape, model.hw, model.mesh
+    train = shape.kind == "train"
+    decode = shape.kind == "decode"
+    chips = mesh.size
+    gbm = max(shape.global_batch, 1)
+    mesh_data = mesh.axis("data")
+    mesh_model = mesh.axis("model")
+    multi_pod = mesh.multi_pod
+    mesh_pod = mesh.axis("pod") if multi_pod else 1
+    fwd = ctx.fwd_flops()
+    param_count = ctx.param_count()
+    g = dict(ctx.param_groups())
+    n_attn, n_mamba, n_dense, n_moe = ctx.layer_counts()
+    n_periods = ctx.n_periods()
+    vs_ok = cfg.vocab_size % mesh_model == 0
+    n_kv_heads = max(cfg.n_kv_heads, 1)
+    has_heads = bool(cfg.n_heads)
+    is_ssm, is_moe = cfg.is_ssm, cfg.is_moe
+    tokens = shape.tokens
+    d_model, d_inner = cfg.d_model, cfg.d_inner
+    n_layers, vocab_size = cfg.n_layers, cfg.vocab_size
+    n_experts, ept = cfg.n_experts, cfg.experts_per_token
+    k_tile = (512.0 / 576.0) ** 2
+    remat_mult = torch.tensor(_REMAT_MULT, dtype=f64, device=dev)
+    gs_zero3 = torch.tensor(_GRAD_SCALE_ZERO3, dtype=f64, device=dev)
+    gs_ar = torch.tensor(_GRAD_SCALE_AR, dtype=f64, device=dev)
+
+    def c(v):  # a float64 scalar on the device: a where() branch
+        return torch.tensor(float(v), dtype=f64, device=dev)
+
+    def kernel(pod_data, tp_on, fsdp_on, tp2d, mixer_tp, seq_shard, ffn_tp,
+               moe_ep, moe_tp, vocab_shard, opt_int8, remat, grad_comm,
+               microbatches, bq, bkv, scan_chunk, overlap, spill, fm, mm,
+               kvt):
+        # ---- mesh sizes (integers, exact in float64) ----
+        dp = torch.full_like(overlap, float(mesh_data))
+        if multi_pod:
+            dp = torch.where(pod_data, dp * mesh_pod, dp)
+        tp = torch.where(tp_on, c(mesh_model), c(1))
+        fsdp = torch.where(fsdp_on, dp, c(1))
+        n_mb = torch.clamp(microbatches, min=1)
+        dp_eff = torch.clamp(dp, max=gbm)
+
+        # ---- compute ----
+        if train:
+            flops = fwd * remat_mult[remat] + 10.0 * param_count
+        else:
+            flops = torch.full_like(overlap, float(fwd))
+        eff = (bq / (bq + 64.0)) * (bkv / (bkv + 64.0)) / k_tile
+        eff = torch.clamp(eff, max=1.0)
+        if has_heads:
+            eff = torch.where(spill, eff * 0.5, eff)
+        mb_eff = torch.where(n_mb > 1, 1.0 - 0.015 * torch.log2(n_mb), c(1.0))
+        tax = torch.where(overlap >= 0.9, c(1.05), c(1.0))
+        compute_s = flops / (chips * hw.peak_flops) / (eff * mb_eff) * tax
+        if is_ssm:
+            grid_steps = (
+                tokens / torch.clamp(dp, min=1) / scan_chunk * (d_inner / 256.0)
+            )
+            compute_s = compute_s + grid_steps * 0.3e-6 / torch.clamp(chips / dp, min=1)
+
+        # ---- sharded parameter bytes ----
+        tp_gt1 = tp > 1
+        tot = g["mixer"] / torch.where(mixer_tp & tp_gt1, tp, c(1))
+        tot = tot + g["ffn"] / torch.where(ffn_tp & tp_gt1, tp, c(1))
+        if g["moe"]:
+            moe_div = torch.where(
+                moe_ep & tp_gt1, torch.clamp(tp, max=n_experts),
+                torch.where(moe_tp & tp_gt1, tp, c(1)),
+            )
+            tot = tot + g["moe"] / moe_div
+        vs_mask = (vocab_shard & tp_gt1) if vs_ok else torch.zeros_like(tp_gt1)
+        tot = tot + g["vocab"] / torch.where(vs_mask, tp, c(1))
+        tot = tot + g["other"]
+        p_tp = tot * BF16
+
+        # ---- memory (HBM traffic, accounted per chip) ----
+        weight_reads = p_tp * n_mb * (2 if train else 1)
+        ppc = p_tp / BF16 / fsdp
+        if train:
+            sbytes = torch.where(opt_int8, c(_SBYTES_INT8), c(_SBYTES_F32))
+            opt_traffic = ppc * (2 * sbytes + 4)
+        else:
+            opt_traffic = 0.0
+        tl = tokens / dp_eff
+        act_traffic = tl * d_model * BF16 * n_layers * (6 if train else 3)
+        if train:
+            act_traffic = torch.where(remat != 0, act_traffic * 1.35, act_traffic)
+        if decode:
+            kvt_full = kvt * n_periods
+            shard = dp_eff
+            seq_mult = torch.div(dp, dp_eff, rounding_mode="floor") * torch.where(
+                ~mixer_tp, tp, c(1))
+            shard = torch.where(seq_shard, shard * seq_mult, shard)
+            kv_heads = torch.clamp(tp, max=n_kv_heads)
+            shard = torch.where(mixer_tp & tp_on, shard * kv_heads, shard)
+            kv_col = kvt_full / shard
+        else:
+            kv_col = 0.0
+        per_chip_traffic = weight_reads + opt_traffic + act_traffic + kv_col
+        memory_s = per_chip_traffic / hw.hbm_bw
+
+        # ---- collectives ----
+        if train:
+            shard_bytes = p_tp / fsdp
+            ag = shard_bytes * (fsdp - 1)
+            rs = ag * gs_zero3[grad_comm]
+            zero3 = (2 * ag + rs) * n_mb
+            grad_ar = 2 * p_tp * (dp - 1) / dp * gs_ar[grad_comm]
+            param_part = torch.where(fsdp > 1, zero3, grad_ar)
+            pod_part = param_part
+        else:
+            wg_mask = tp2d & (fsdp > 1)
+            wg = p_tp / fsdp * (fsdp - 1)
+            param_part = torch.where(wg_mask, wg, c(0.0))
+            pod_part = torch.zeros_like(param_part)
+        act = tl * d_model * BF16
+        n_ar = (
+            torch.where(mixer_tp, c(n_attn + n_mamba), c(0))
+            + torch.where(ffn_tp, c(n_dense), c(0))
+            + torch.where(moe_tp, c(n_moe), c(0))
+        ) * n_periods
+        wire_one = 2 * act * (tp - 1) / tp
+        wire_one = torch.where(seq_shard, wire_one * 0.5, wire_one)
+        tp_act = n_ar * wire_one
+        if train:
+            tp_act = tp_act * 3
+        tp_act = torch.where(tp_gt1, tp_act, c(0.0))
+        vocab_part = 2 * act * (tp - 1) / tp * (3 if train else 1)
+        vocab_part = torch.where(tp_gt1 & vocab_shard, vocab_part, c(0.0))
+        coll = param_part + tp_act + vocab_part
+        if is_moe:
+            ep = torch.clamp(tp, max=n_experts)
+            a2a = tl * ept * 1.25 * d_model * BF16
+            moe_part = 2 * a2a * (ep - 1) / ep * (3 if train else 1)
+            coll = coll + torch.where(moe_ep & tp_gt1, moe_part, c(0.0))
+        if multi_pod:
+            denom = torch.clamp(coll, min=1e-9)
+            link_eff = (
+                (coll - pod_part) / denom * hw.link_bw
+                + pod_part / denom * hw.pod_link_bw
+            )
+            link = torch.where(
+                pod_data, torch.clamp(link_eff, min=hw.pod_link_bw), c(hw.link_bw)
+            )
+        else:
+            link = hw.link_bw
+        collective_s = coll / link
+
+        # ---- capacity ----
+        resident = ppc * (sbytes if train else BF16)
+        if train:
+            tl2 = tokens / dp / n_mb
+            stored_mult = torch.where(
+                remat == 2, c(d_model),
+                torch.where(remat == 1, d_model * 4 + mm * 0.5 + fm * 0.5,
+                            d_model * 6 + mm + fm),
+            )
+            stored = tl2 * stored_mult * n_periods
+            logits = tl2 * vocab_size / torch.where(vocab_shard, tp, c(1))
+            logits = torch.where(remat == 0, logits, c(0.0))
+            act_res = stored * BF16 + logits * BF16
+        else:
+            act_res = 0.0
+        per_chip = resident + act_res + kv_col
+        feasible = per_chip <= hw.hbm_bytes * 0.92
+
+        step_s = torch.maximum(compute_s, memory_s) + (1.0 - overlap) * collective_s
+        return torch.where(
+            feasible, step_s,
+            step_s * (100.0 * (1.0 + per_chip / hw.hbm_bytes)),
+        )
+
+    return kernel

@@ -45,34 +45,28 @@ export + generation-keyed model params forward; the ``ArrayMCTS`` round
 delta back), with payload bytes counted at the pickle boundary and
 worker-death resync from the master's canonical trees.
 
-Learned-cost serving (the JAX package's ``engine/serving.py``) is ROADMAP
-item A5: ``make_cost_backend`` resolves ``cost="analytic"`` to no backend,
-as the JAX package does, and raises for ``"learned"``, ``"hybrid"`` or a
-backend object.  The rest of the layer keeps the seam (``CachedMDP``'s
-``cost_backend``), so A5 mounts there.
+Learned-cost serving (``serving.py``): ``cost="analytic"|"learned"|"hybrid"``
+on ``autotune`` / ``ProTuner`` / ``resolve_backend`` mounts a
+``HybridCostBackend`` inside ``CachedMDP`` — an ``OnlineCostTrainer``
+refits the §3 MLP on the cache's analytic terminal entries, and trained
+(confident) models price each deduplicated miss batch in ONE forward pass
+on the backend's device, with exact-analytic fallback.  ``cost="analytic"``
+(the default) mounts nothing, so the path the JAX package's results are
+held to is untouched.
 """
 from __future__ import annotations
 
 from repro_torch.core.engine.array_mcts import ArrayMCTS
 from repro_torch.core.engine.cache import CachedMDP, TranspositionCache
+from repro_torch.core.engine.serving import (
+    COST_MODES,
+    HybridCostBackend,
+    OnlineCostTrainer,
+    make_cost_backend,
+)
 from repro_torch.core.engine.workers import PinnedWorkerPool
 
 ENGINES = ("reference", "array")
-COST_MODES = ("analytic", "learned", "hybrid")
-
-
-def make_cost_backend(cost, space, **trainer_kwargs):
-    """Resolve the ``cost=`` selector to a backend (or ``None``).
-
-    ``"analytic"`` → ``None``: no backend is mounted, so pricing is the
-    exact analytic model.  Learned-cost serving is ROADMAP item A5."""
-    if cost is None or cost == "analytic":
-        return None
-    if cost in ("learned", "hybrid") or not isinstance(cost, str):
-        raise NotImplementedError(
-            f"cost={cost!r}: learned-cost serving is not ported yet: ROADMAP item A5"
-        )
-    raise ValueError(f"unknown cost mode {cost!r}; expected one of {COST_MODES}")
 
 
 def make_tree(mdp, config, engine: str = "reference"):
@@ -92,6 +86,8 @@ __all__ = [
     "PinnedWorkerPool",
     "TranspositionCache",
     "COST_MODES",
+    "HybridCostBackend",
+    "OnlineCostTrainer",
     "make_cost_backend",
     "ENGINES",
     "make_tree",

@@ -182,7 +182,9 @@ def _run_round(mdp, trees: Dict[int, object], fwd: dict,
         serving = tuple(a - b for a, b in zip(s1, serve0))
     if evals0 is not None:
         evals = getattr(mdp.cost_model, "n_evals") - evals0
-    return ("round", results, stats, cache_new, evals, serving)
+    # what this worker priced on (its device and CUDA context), learned runs only
+    report = backend.worker_report() if backend is not None else None
+    return ("round", results, stats, cache_new, evals, serving, report)
 
 
 def _worker_main(conn) -> None:
@@ -255,6 +257,9 @@ class _Worker:
     # shm_entries/export_entries accounted master-side at submit) —
     # carried across death-resyncs, surfaced by ``PinnedWorkerPool.stats``
     stats: Dict[str, int] = field(default_factory=dict)
+    # the cost backend's ``worker_report`` from the last round (learned
+    # runs): the device this worker priced on and its CUDA context
+    pricing: Optional[dict] = None
 
 
 class PinnedWorkerPool:
@@ -590,7 +595,9 @@ class PinnedWorkerPool:
         for i in range(len(self._workers)):
             # re-read: _collect may have replaced the worker via resync
             got = self._collect(self._workers[i], advance)
-            tree_out, stats, cache_new, evals, serving = got
+            tree_out, stats, cache_new, evals, serving, report = got
+            if report is not None:
+                self._workers[i].pricing = report
             for tid in sorted(tree_out):
                 delta, res = tree_out[tid]
                 self.trees[tid].apply_delta(delta)
@@ -673,5 +680,6 @@ class PinnedWorkerPool:
             "restarts_since_rebind": self.restarts_since_rebind,
             "dup_evals": self.dup_evals,
             "dup_evals_rounds": list(self.dup_evals_rounds),
-            "workers": [dict(w.stats) for w in self._workers],
+            "workers": [dict(w.stats, **({"pricing": w.pricing} if w.pricing else {}))
+                        for w in self._workers],
         }

@@ -37,11 +37,16 @@ deaths (the master reseeds a replacement from its canonical trees); the
 on, because workers run against round-start cache snapshots and may
 re-evaluate states a sibling priced in the same round.
 
-Cost serving layer: the JAX package mounts a learned-cost backend inside
-the shared ``CachedMDP`` for ``cost="learned"|"hybrid"``.  That is ROADMAP
-item A5: in the port ``make_cost_backend`` raises for them, and
-``cost="analytic"`` (the default) mounts nothing.  The hooks for a mounted
-backend are kept, so A5 plugs in where the JAX package's does.
+Cost serving layer: ``cost="learned"|"hybrid"`` mounts a
+``HybridCostBackend`` (``engine/serving.py``) inside the shared
+``CachedMDP`` — the online trainer refits the §3 MLP on the cache's
+analytic terminal entries at round boundaries, and the trained (confident)
+model prices each miss batch in one forward pass on ``device``.  In
+parallel mode workers serve but never refit (pickled backends are
+serve-only); the master refits on the merged cache after each round and
+ships the new model with the next round's submissions.
+``cost="analytic"`` (the default) mounts nothing and stays bit-identical
+to the JAX package's search.
 """
 from __future__ import annotations
 
@@ -111,9 +116,12 @@ class TuneResult:
     # candidates whose real measurement failed and were re-ranked by their
     # exact analytic cost instead (mcts_cost+real_* graceful degradation)
     n_measure_failures: int = 0
-    # served from a persistent plan store (ROADMAP A10) without a
+    # served from the persistent PlanStore (repro_torch.service) without a
     # search — n_evals is 0 and decisions are the stored run's
     from_store: bool = False
+    # the hardware the plan was priced for (``autotune``'s ``hw``); the
+    # plan store keys on it
+    hw: Optional[str] = None
 
     def to_dict(self):
         d = dataclasses.asdict(self)
@@ -160,6 +168,7 @@ class ProTuner:
         worker_batch: Optional[bool] = None,
         controller=None,
         resume: Optional[dict] = None,
+        device: str = "cuda",
     ):
         # parallel-transport levers (engine/workers.py): ``shm`` backs the
         # forward cache delta with a shared-memory log (None = auto: on
@@ -195,7 +204,8 @@ class ProTuner:
         if isinstance(mdp, CachedMDP) and mdp.cost_backend is not None:
             backend = mdp.cost_backend  # mounted backend wins over cost=
         else:
-            backend = make_cost_backend(cost, mdp.space)
+            # ``device``: where a learned backend fits and prices
+            backend = make_cost_backend(cost, mdp.space, device=device)
         self.cost_backend = backend
         self.cost_mode = backend.mode if backend is not None else "analytic"
         if cache is None:
@@ -578,6 +588,9 @@ class ProTuner:
         serving = self.cost_backend.stats() if self.cost_backend else None
         pool = self._pool
         stats = pool.stats() if pool else {}
+        if serving is not None:
+            # the learned backend's counters, fits and pricing device
+            stats["serving"] = serving
         if interrupted is not None:
             # best-so-far provenance: callers (the daemon, the plan store)
             # must treat this result as partial — never record it as THE
@@ -641,6 +654,7 @@ class MCTSEnsembleBackend:
         worker_batch: Optional[bool] = None,
         controller=None,
         resume: Optional[dict] = None,
+        device: str = "cuda",
         **_,
     ) -> TuneResult:
         mc = dataclasses.replace(self.config, seed=seed)
@@ -667,6 +681,7 @@ class MCTSEnsembleBackend:
             worker_batch=worker_batch,
             controller=controller,
             resume=resume,
+            device=device,
         )
         res = tuner.run(time_budget_s=time_budget_s)
         res.algo = self.algo

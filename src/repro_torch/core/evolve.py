@@ -337,6 +337,7 @@ class PortfolioBackend:
         cost: str = "analytic",
         n_standard: int = 4,
         n_greedy: int = 1,
+        device: str = "cuda",
         **_,
     ) -> TuneResult:
         from repro_torch.core.engine.backend import resolve_backend
@@ -371,7 +372,7 @@ class PortfolioBackend:
                 backend = RandomBackend(n_samples=n)
             else:
                 backend = resolve_backend(algo, engine=engine, cost=cost)
-                opts.update(n_standard=n_standard, n_greedy=n_greedy)
+                opts.update(n_standard=n_standard, n_greedy=n_greedy, device=device)
             res = backend.run(
                 mdp, seed=seed, time_budget_s=member_budget_s, **opts
             )

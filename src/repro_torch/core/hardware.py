@@ -73,3 +73,10 @@ def get_hardware(hw) -> HardwareSpec:
     if hw not in HARDWARE:
         raise KeyError(f"unknown hardware {hw!r}; the port prices for: {sorted(HARDWARE)}")
     return HARDWARE[hw]
+
+
+def hardware_key(hw) -> str:
+    """The ``hw=`` name of a hardware name or spec (``"h100"`` for
+    ``H100``): what the plan store and ``TuneResult.hw`` record."""
+    spec = get_hardware(hw)
+    return next(k for k, v in HARDWARE.items() if v == spec)

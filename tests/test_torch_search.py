@@ -8,6 +8,7 @@ port's kernels, and every mesh must price every default plan.
 """
 import math
 import os
+import random
 import subprocess
 import sys
 from pathlib import Path
@@ -183,12 +184,32 @@ def test_h100_meshes_and_spec():
         get_mesh("tpu-v5e", "card")
 
 
-def test_unported_paths_raise_naming_their_roadmap_items():
-    with pytest.raises(NotImplementedError, match="A5"):
-        make_mdp("granite-3-2b", "decode_32k", pricing="jit")
+def test_unported_paths_raise_naming_their_roadmap_items(tmp_path):
+    """The one search-side path still unported, a measurement over a mesh,
+    raises naming A8.  The paths that raised naming A5 and A10 now run:
+    ``pricing="jit"``, ``cost="learned"|"hybrid"`` for ``mcts_1s`` and
+    ``beam``, and ``plan_store=`` (a repeat request served from disk)."""
+    from repro_torch.core.cost_model import JIT_PRICING_TAG, JIT_RTOL
+    from repro_torch.launch.measure import evaluate_cell
+    from repro_torch.service.store import PlanStore
+
+    with pytest.raises(NotImplementedError, match="A8"):
+        evaluate_cell("granite-3-2b", "decode_32k", "single", None, device="cpu",
+                      cut={"reduced": True, "seq": 32}, verbose=False)
+    jit = make_mdp("granite-3-2b", "decode_32k", pricing="jit", device="cpu").cost_model
+    exact = make_mdp("granite-3-2b", "decode_32k")
+    assert jit.pricing_tag == JIT_PRICING_TAG
+    plans = [exact.space.random_plan(random.Random(s)) for s in range(16)]
+    np.testing.assert_allclose(jit.cost_batch(plans), exact.cost_model.cost_batch(plans),
+                               rtol=JIT_RTOL, atol=0.0)
     for cost in ("learned", "hybrid"):
         for algo in ("mcts_1s", "beam"):
-            with pytest.raises(NotImplementedError, match="A5"):
-                autotune("granite-3-2b", "decode_32k", algo=algo, cost=cost, **SMALL)
-    with pytest.raises(NotImplementedError, match="A10"):
-        autotune("granite-3-2b", "decode_32k", algo="mcts_1s", plan_store=object(), **SMALL)
+            res = autotune("granite-3-2b", "decode_32k", algo=algo, cost=cost, device="cpu",
+                           **SMALL)
+            assert res.plan is not None and math.isfinite(res.cost)
+            assert res.cost_mode == (cost if algo == "mcts_1s" else "analytic")
+    store = PlanStore(str(tmp_path / "store"))
+    first = autotune("granite-3-2b", "decode_32k", algo="mcts_1s", plan_store=store, **SMALL)
+    again = autotune("granite-3-2b", "decode_32k", algo="mcts_1s", plan_store=store, **SMALL)
+    assert not first.from_store and again.from_store
+    assert (again.plan, again.cost, again.hw) == (first.plan, first.cost, "h100")
