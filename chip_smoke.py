@@ -126,6 +126,19 @@ limit as ``nvidia-smi`` reports them):
    ``tpu-v5e`` searched (never the h100 plan), ``mcts_cost+real_1s`` equal
    to the ``measure`` phase's plan, cost and measured time; then a restart
    on the same store, where that request is a store hit measuring nothing.
+10e. ``mesh``: the H100 node's mesh (1 x 8) as 8 processes sharing the
+   card over gloo (``launch/mesh.run_on_mesh(..., share_card=True)``),
+   under the plans ``mcts_1s`` picks for it (``hw="h100"``, mesh
+   ``single``), the batch their 8 microbatches of one row: granite-moe at
+   2 layers in f32 (the plan's moe_mode ``dense``, then ``ep``; the CPU
+   tests' bounds) and at 6 layers in bf16 (both modes), falcon-mamba at 2
+   layers (``mixer_tp``, ``vocab_shard``, ``seq_shard``: the scan at 1,024
+   channels); two train steps and a prefill each, every rank's launch
+   counts (each kernel of the path non-zero), host-staged collectives,
+   step ms and peak, the loss, the weights after step 1 and the prefill
+   logits against one process on the card; then the int8 ring over the 8
+   ranks against its plain version (bit for bit) and the exact sum.  No
+   collective runs over NVLink and no time here is a node's.
 11. ``parity``: 2-layer f32 models at full width of each serving arch, and
    of stablelm-12b (head_dim 160) and qwen2-vl-72b (embeddings, M-RoPE ids
    whose rows differ), card (kernels) against the port's CPU path (plain
@@ -894,12 +907,21 @@ def phase_grad(torch, rn, fa, mg, ss):
             # x and gy read, dx written, w read and dw written once; about 10
             # operations an element (two sums, dx, dw)
             b_ms, b_by = bound(3 * n * esz + 2 * d * esz, 10 * n, "float32")
+            # the library's backward alone: autograd of F.rms_norm through a kept graph
+            xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+            yl = F.rms_norm(xl, (d,), wl, eps=1e-6)
             row.update(
                 **timed(torch, lambda: rn.rmsnorm_backward(x, w, gy), None, 10 * n),
                 device_ms=graph_ms(torch, lambda: rn.rmsnorm_backward(x, w, gy)),
                 plain_ms=cuda_ms(torch, lambda: rn.rmsnorm_backward_plain(x, w, gy)),
                 bound_ms=b_ms, bound_by=b_by,
-                library="none: no one PyTorch call takes (x, w, gy) to (dx, dw)")
+                library="torch.autograd.grad of F.rms_norm's output (its backward alone, "
+                        "the forward's graph kept)")
+            # timed apart from the kernel's turns: between them the library's
+            # autograd call moved this host-bound kernel's events time
+            row["library_ms"] = cuda_ms(torch, lambda: torch.autograd.grad(yl, (xl, wl), gy,
+                                                                            retain_graph=True))
+            row["vs_library"] = row["ms"] / row["library_ms"]
             row["bound_share_device"] = b_ms / row["device_ms"]
         bwd_rows.append(row)
         del x, gy, w, dx, dw, xp, wp, edx, edw
@@ -2459,6 +2481,7 @@ def phase_positions(torch, mods) -> None:
     (d 2048).  An f32 angle at position 4095 is off by up to ~1e-3 rad,
     hence 1e-2 per element and 1e-3 in norm."""
     from repro_torch.models import layers
+    from repro_torch.sharding.parallel import ParallelContext
 
     tol = dict(atol=1e-2, rtol=1e-2, rel=1e-3)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
@@ -2487,7 +2510,7 @@ def phase_positions(torch, mods) -> None:
 
     mg = dataclasses.replace(mods.get_config("musicgen-large"), dtype="float32")
     zeros = torch.zeros((1, SEQ, mg.d_model), device="cuda")
-    got = mods.transformer._embed({}, mg, zeros, pos)
+    got = mods.transformer._embed({}, mg, zeros, pos, ParallelContext.local({}, zeros.device))
     half = mg.d_model // 2
     freqs = torch.exp(-torch.log(torch.tensor(10000.0, dtype=torch.float64))
                       * torch.arange(half, device="cuda", dtype=torch.float64) / half)
@@ -2623,6 +2646,384 @@ _SUMMARY_KEYS = ("shape", "dtype", "role", "max_abs_err", "rel_err", "ms", "plai
                  "fwd_bwd_vs_library", "library_bwd_ms", "bwd_vs_library", "bit_equal")
 
 
+# ---------------------------------------------------------------------------
+# mesh: an 8-card node's mesh, its ranks sharing the one card
+# ---------------------------------------------------------------------------
+# a microbatch's tokens, the sequence cut: the grouped GEMMs' backward
+# contracts over the MoE capacity C, which block_d = 256 must divide, and
+# EP's capacity(T, block=8) is a multiple of 256 at T = 800 (C = 256) and
+# then only at multiples of 4096 (2048 gives 640 and raises: ROADMAP Queue
+# C); the one process's capacity(800, block=128) is 256 too.  At 4096 the
+# 8 ranks' logits alone (vocab 49,155, the plan's vocab_shard off) run the
+# card out of memory
+MESH_SEQ = 800
+MESH_STEPS = 2
+# the depth cut: 8 whole replicas of granite-moe's training state (the
+# plan's moe_mode "dense" replicates every expert) do not fit one card's 80
+# GB at 24 layers (~12 GB of weights, f32 gradients and int8 moments a
+# replica plus the optimizer's f32 temporaries of the stacked expert leaves,
+# ~9.7 GB); expert parallelism fits at 24 layers (5.13 GiB a rank) but a
+# step there took 96 s a rank (1,600 host-staged collectives a rank a step),
+# more than the script's time limit affords beside the other phases
+MESH_MOE_LAYERS = 6
+MAMBA_MESH_LAYERS, MAMBA_MESH_SEQ = 2, 1024
+MESH_LOSS_ABS_F32, MESH_PARAM_ABS_F32 = 2e-3, 5e-3  # the CPU tests' bounds
+# Every job is also held leaf by leaf: a leaf's update_rel is the norm of
+# (mesh weights after step 1 - one process's) over the norm of one
+# process's update (its weights after step 1 - the seed's).  Adam's first
+# step moves an element by about lr * sign(g), so a gradient whose sign
+# differs moves it by 2 lr, and an absolute bound near 2 lr cannot tell a
+# wrong gradient from rounding; a leaf left unchanged reads 1, and a
+# gradient that misses part of its sum (a norm's, not summed over the
+# sequence-parallel ranks) flips about a third of the signs (~1.2).  Where
+# the mesh does the one process's arithmetic (f32, no expert parallelism)
+# a leaf must read below 1e-2: on an H100 80GB HBM3 at 700 W the worst
+# read 1.37e-3 (attn.wk).  Elsewhere below 0.5: EP's combine rounds each
+# rank's partial to bf16 before the sum, as the reference's does (worst
+# leaf: f32 EP 0.152, the router; bf16 EP at 6 layers 0.248, w_down),
+# falcon-mamba bf16 read 0.113 (conv_w) and the dense bf16 plan 0.0
+# (bit-equal).  bf16: each step's loss within 5e-3 of the first step's
+# (one process) and the first step's grad norm within 5e-2 relative too.
+MESH_LEAF_REL_EXACT, MESH_LEAF_REL = 1e-2, 0.5
+MESH_LOSS_REL_BF16, MESH_GNORM_REL_BF16 = 5e-3, 5e-2
+RING_ELEMS = 1 << 22
+MESH_KERNELS = {
+    "granite-moe-1b-a400m": ("rmsnorm", "rmsnorm_backward", "flash_attention",
+                             "flash_attention_backward", "moe_gemm", "quantize_int8",
+                             "dequantize_int8"),
+    "falcon-mamba-7b": ("rmsnorm", "rmsnorm_backward", "selective_scan", "selective_scan_backward",
+                        "quantize_int8", "dequantize_int8"),
+}
+
+
+def _mesh_setup(job):
+    """The config, plan, optimizer config and shape of a mesh job."""
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.core.space import SchedulePlan
+    from repro_torch.training import optimizer as optim
+
+    cfg = get_config(job["arch"])
+    cfg = dataclasses.replace(cfg.reduced() if job.get("reduced") else cfg, n_layers=job["layers"],
+                              dtype=job["dtype"])
+    plan = SchedulePlan.from_dict(job["plan"])
+    oc = optim.OptimizerConfig(peak_lr=1e-3, warmup_steps=0, moment_dtype=plan.opt_dtype)
+    return cfg, plan, oc, InputShape("mesh_chip", job["seq"], plan.microbatches, "train")
+
+
+def _mesh_batch(torch, cfg, plan, seq, device):
+    from repro_torch.training.train_step import make_positions
+
+    g = torch.Generator(device="cpu").manual_seed(SEED + 11)
+    tok = torch.randint(0, cfg.vocab_size, (plan.microbatches, seq), generator=g).to(device)
+    return {"inputs": tok, "labels": tok,
+            "positions": make_positions(cfg, plan.microbatches, seq, device=device)}
+
+
+def _sync(torch, device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _mesh_rank_job(torch, mesh, job, out_dir):
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.sharding import collectives as cc
+    from repro_torch.sharding.parallel import gather_leaf
+    from repro_torch.training import optimizer as optim
+    from repro_torch.training.train_step import make_prefill_step, make_train_step, shard_params
+
+    cfg, plan, oc, shape = _mesh_setup(job)
+    step = make_train_step(cfg, shape, plan, oc, mesh=mesh)
+    par = step.par
+    full = transformer.init_params(cfg, SEED, device=mesh.device)  # the one process's weights
+    params = shard_params(full, par)
+    del full
+    on_card = mesh.device.type == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+    opt = optim.init_opt_state(params, oc, par)
+    batch = _mesh_batch(torch, cfg, plan, job["seq"], mesh.device)
+    prefill = make_prefill_step(cfg, shape, plan, mesh=mesh)
+    _sync(torch, mesh.device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_counters()
+    cc.reset_host_staged()
+    steps, whole = [], {}
+
+    def one_step():
+        nonlocal params, opt
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        _sync(torch, mesh.device)
+        steps.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                      "ms": (time.perf_counter() - t0) * 1e3})
+
+    with plain_attention_watch() as seen:
+        one_step()
+        # the weights after step 1, whole, to rank 0 (every rank takes part): a
+        # second int8-moment step can turn a near tie into a jump of m / eps,
+        # so the comparison with one process reads these and step 2's loss
+        for path, t in optim.leaves(params):
+            leaf = gather_leaf(t.detach(), par.flat_specs[path], mesh, path.rsplit(".", 1)[-1])
+            if mesh.rank == 0:
+                whole[path] = leaf.to("cpu", copy=True)
+            del leaf
+        t0 = time.perf_counter()
+        logits = prefill(params, {k: v[:1] for k, v in batch.items()})
+        _sync(torch, mesh.device)
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        for _ in range(MESH_STEPS - 1):
+            one_step()
+    counts, staged = ops.launch_counts(), dict(cc.HOST_STAGED)
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    local = sum(t.numel() for _, t in optim.leaves(params))
+    if mesh.rank == 0:
+        torch.save({"params": whole, "logits": logits.cpu()}, os.path.join(out_dir, job["name"] + ".pt"))
+    del params, opt, logits, whole, step, prefill
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return {"steps": steps, "prefill_ms": prefill_ms, "launches": counts, "host_staged": staged,
+            "plain_attention_on_card": seen.count("cuda"), "peak_gib": peak / 2**30,
+            "local_params": local, "moe_ep": par.moe_ep, "seq_split": par.for_seq(job["seq"]).seq}
+
+
+def _mesh_rank_ring(torch, mesh, elems):
+    """The int8 ring over the 8 ranks: on the card (the quantize kernels)
+    against the same ring over CPU copies (their plain versions), and
+    against the exact sum."""
+    from repro_torch.kernels import ops
+    from repro_torch.sharding import collectives as cc
+    from repro_torch.training.grad_compress import compressed_psum
+
+    g = torch.Generator(device="cpu").manual_seed(SEED + 100 + mesh.rank)
+    x = torch.randn(elems, generator=g).to(mesh.device)
+    _sync(torch, mesh.device)
+    ops.reset_counters()
+    cc.reset_host_staged()
+    t0 = time.perf_counter()
+    red, err = compressed_psum(x, mesh, "model")
+    _sync(torch, mesh.device)
+    ms = (time.perf_counter() - t0) * 1e3
+    counts, staged = ops.launch_counts(), dict(cc.HOST_STAGED)
+    red_plain, err_plain = compressed_psum(x.cpu(), mesh, "model")
+    true = cc.all_reduce_(x.clone(), mesh, "model")
+    return {"ms": ms, "launches": counts, "host_staged": staged,
+            "equal_to_plain": bool(torch.equal(red.cpu(), red_plain) and torch.equal(err.cpu(), err_plain)),
+            "rel_to_sum": ((red - true).abs().max() / true.abs().max()).item(), "elements": elems}
+
+
+def mesh_rank(mesh, jobs, out_dir, ring_elems):
+    """What each rank of the mesh phase runs (``run_on_mesh``)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the f32 jobs in true f32, as the one process
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"backend": mesh.backend, "device": str(mesh.device), "jobs": {}}
+    for job in jobs:
+        t0 = time.perf_counter()
+        out["jobs"][job["name"]] = _mesh_rank_job(torch, mesh, job, out_dir)
+        if mesh.rank == 0:
+            print(json.dumps({"phase": "mesh_progress", "job": job["name"],
+                              "seconds": time.perf_counter() - t0}), flush=True)
+    out["ring"] = _mesh_rank_ring(torch, mesh, ring_elems)
+    return out
+
+
+def _mesh_reference(torch, mods, job, device):
+    """One process on the card, from the same seed's weights and batch: its
+    steps, the weights after step 1 and the seed's, and the prefill logits
+    after step 1."""
+    optim = mods.optim
+    cfg, plan, oc, shape = _mesh_setup(job)
+    params = mods.transformer.init_params(cfg, SEED, device=device)
+    init = {k: v.detach().to("cpu", copy=True) for k, v in optim.leaves(params)}
+    opt = optim.init_opt_state(params, oc)
+    step = mods.make_train_step(cfg, shape, plan, oc, device=device)
+    batch = _mesh_batch(torch, cfg, plan, job["seq"], device)
+    prefill = mods.make_prefill_step(cfg, shape, plan, device=device)
+    steps, after1 = [], None
+    for i in range(MESH_STEPS):
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        _sync(torch, device)
+        steps.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                      "ms": (time.perf_counter() - t0) * 1e3})
+        if i == 0:
+            after1 = {k: v.detach().to("cpu", copy=True) for k, v in optim.leaves(params)}
+            logits = prefill(params, {k: v[:1] for k, v in batch.items()})
+    out = (steps, after1, init, logits.cpu())
+    del params, opt, step, logits
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_compare(torch, job, ranks, ref, path) -> dict:
+    """The mesh job against one process: every rank's losses agree, and
+    the losses of both steps, the weights after step 1 (leaf by leaf) and
+    the prefill logits after it hold the stated bounds (f32: the CPU
+    tests'; bf16: relative)."""
+    steps_ref, p_ref, init, logits_ref = ref
+    got = torch.load(path, weights_only=True)
+    losses = [[s["loss"] for s in r["jobs"][job["name"]]["steps"]] for r in ranks]
+    f32 = job["dtype"] == "float32"
+    exact = f32 and job["plan"].get("moe_mode") != "ep"
+    leaf_bound = MESH_LEAF_REL_EXACT if exact else MESH_LEAF_REL
+    loss_ref = [s["loss"] for s in steps_ref]
+    loss_abs = max(abs(a - b) for a, b in zip(losses[0], loss_ref))
+    loss_rel = loss_abs / abs(loss_ref[0])  # of the first step's loss: a second can be near 0
+    gnorm = ranks[0]["jobs"][job["name"]]["steps"][0]["grad_norm"]
+    gnorm_rel = abs(gnorm - steps_ref[0]["grad_norm"]) / steps_ref[0]["grad_norm"]
+    num = den = worst_abs = 0.0
+    leaf_rel = {}
+    for k, v in p_ref.items():
+        d = got["params"][k].float() - v.float()
+        worst_abs = max(worst_abs, d.abs().max().item())
+        dn = d.double().square().sum().item()
+        un = (v.float() - init[k].float()).double().square().sum().item()
+        num, den = num + dn, den + un
+        if un > 0:  # a bf16 norm weight does not move by lr at 1.0
+            leaf_rel[k] = math.sqrt(dn / un)
+    update_rel = math.sqrt(num / max(den, 1e-300))
+    logits_rel = ((got["logits"].float() - logits_ref.float()).norm() / logits_ref.float().norm()).item()
+    worst_leaf = max(leaf_rel, key=leaf_rel.get) if leaf_rel else None
+    ok = (all(l == losses[0] for l in losses) and worst_leaf is not None
+          and leaf_rel[worst_leaf] < leaf_bound)
+    if f32:
+        ok = ok and loss_abs < MESH_LOSS_ABS_F32 and worst_abs < MESH_PARAM_ABS_F32
+    else:
+        ok = ok and loss_rel < MESH_LOSS_REL_BF16 and gnorm_rel < MESH_GNORM_REL_BF16
+    res = {"loss_mesh": losses[0], "loss_one_process": loss_ref,
+           "ranks_losses_equal": all(l == losses[0] for l in losses), "loss_abs_err": loss_abs,
+           "loss_rel_err": loss_rel, "grad_norm_mesh": gnorm,
+           "grad_norm_one_process": steps_ref[0]["grad_norm"], "grad_norm_rel_err": gnorm_rel,
+           "param_max_abs_err": worst_abs, "update_rel": update_rel,
+           "worst_leaf_update_rel": [worst_leaf, leaf_rel.get(worst_leaf)],
+           "leaves_held": len(leaf_rel), "prefill_logits_rel": logits_rel,
+           "bounds": ({"loss_abs": MESH_LOSS_ABS_F32, "param_abs": MESH_PARAM_ABS_F32,
+                       "leaf_update_rel": leaf_bound} if f32 else
+                      {"loss_rel_of_first": MESH_LOSS_REL_BF16, "grad_norm_rel": MESH_GNORM_REL_BF16,
+                       "leaf_update_rel": leaf_bound}),
+           "one_process_step_ms": [s["ms"] for s in steps_ref]}
+    if not ok or not all(math.isfinite(x) for x in losses[0]):
+        raise AssertionError(f"mesh {job['name']}: against one process {res}")
+    return res
+
+
+def phase_mesh(torch, mods, device="cuda", small=False) -> dict:
+    """granite-moe-1b-a400m and falcon-mamba-7b under the plans ``mcts_1s``
+    picks for the H100 node (``hw="h100"``, mesh ``single``: 1 x 8), as 8
+    ranks sharing the one card over gloo (``share_card=True``), each
+    against one process on the card; then the int8 ring over the 8 ranks.
+    No collective here runs over NVLink, and no time here is a node's.
+    ``device="cpu", small=True`` rehearses it on the CPU (reduced configs,
+    short sequences, the launch checks off)."""
+    from repro_torch.core.space import get_mesh
+    from repro_torch.launch.mesh import run_on_mesh
+
+    spec = get_mesh("h100", "single")
+    plans = {a: mods.autotune(a, "train_4k", algo="mcts_1s", hw="h100", mesh="single").plan
+             for a in (TRAIN_ARCH, MAMBA_ARCH)}
+    moe = plans[TRAIN_ARCH].to_dict()
+    f32_tile = {"attn_block": (256, 256)}  # the plan's (256, 512) has no f32 flash build
+    cut = dict(reduced=True, seq=64) if small else {}
+    jobs = [
+        dict(name="moe_f32_2l", arch=TRAIN_ARCH, layers=2, dtype="float32", seq=MESH_SEQ,
+             plan={**moe, **f32_tile}),
+        dict(name="moe_f32_2l_ep", arch=TRAIN_ARCH, layers=2, dtype="float32", seq=MESH_SEQ,
+             plan={**moe, **f32_tile, "moe_mode": "ep"}),
+        dict(name="moe_bf16_dense", arch=TRAIN_ARCH, layers=MESH_MOE_LAYERS, dtype="bfloat16",
+             seq=MESH_SEQ, plan=moe),
+        dict(name="moe_bf16_ep", arch=TRAIN_ARCH, layers=MESH_MOE_LAYERS, dtype="bfloat16",
+             seq=MESH_SEQ, plan={**moe, "moe_mode": "ep"}),
+        dict(name="mamba_bf16", arch=MAMBA_ARCH, layers=MAMBA_MESH_LAYERS, dtype="bfloat16",
+             seq=MAMBA_MESH_SEQ, plan=plans[MAMBA_ARCH].to_dict()),
+    ]
+    jobs = [{**j, **cut} for j in jobs]
+    out_dir = ROOT / "build" / "chip_smoke_mesh"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    # eight allocators share the card: each rank's cached-but-free blocks
+    # (1.2 GiB a rank without this, on the H100) would add up, so the ranks map memory
+    # in growable segments (the ranks inherit this; this process's allocator
+    # is already set up)
+    alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    t0 = time.perf_counter()
+    try:
+        ranks = run_on_mesh(spec, mesh_rank, jobs, str(out_dir), 1024 if small else RING_ELEMS,
+                            device=device, share_card=True, timeout=900)
+    finally:
+        if alloc_conf is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
+    ranks_s = time.perf_counter() - t0
+    total = {n: 0 for n in KERNELS}
+    refs, uses = {}, {}
+
+    def ref_key(job):  # EP and dense: the one process runs them alike
+        return (job["arch"], job["layers"], job["dtype"], job["seq"])
+
+    for job in jobs:
+        uses[ref_key(job)] = uses.get(ref_key(job), 0) + 1
+    for job in jobs:
+        name = job["name"]
+        per_rank = [r["jobs"][name] for r in ranks]
+        need = MESH_KERNELS[job["arch"]]
+        for i, r in enumerate(per_rank):
+            missing = [k for k in need if not r["launches"][k]] if device == "cuda" else []
+            if missing or r["plain_attention_on_card"]:
+                raise AssertionError(f"mesh {name} rank {i}: no launch of {missing}, "
+                                     f"plain attention on the card {r['plain_attention_on_card']}")
+            for k in KERNELS:
+                total[k] += r["launches"][k]
+        key = ref_key(job)
+        if key not in refs:
+            refs[key] = _mesh_reference(torch, mods, job, device)
+        cmp = _mesh_compare(torch, job, ranks, refs[key], out_dir / f"{name}.pt")
+        emit("mesh", job=name, arch=job["arch"], n_layers=job["layers"], dtype=job["dtype"],
+             plan=job["plan"], batch=job["plan"]["microbatches"], seq=job["seq"], ranks=spec.size,
+             backend=ranks[0]["backend"], device=ranks[0]["device"],
+             moe_ep=per_rank[0]["moe_ep"], seq_split=per_rank[0]["seq_split"],
+             launches_per_rank=[r["launches"] for r in per_rank],
+             host_staged_per_rank=[r["host_staged"] for r in per_rank],
+             step_ms_per_rank=[[s["ms"] for s in r["steps"]] for r in per_rank],
+             prefill_ms_per_rank=[r["prefill_ms"] for r in per_rank],
+             peak_gib_per_rank=[r["peak_gib"] for r in per_rank],
+             local_params_per_rank=[r["local_params"] for r in per_rank],
+             one_process=cmp,
+             nvlink="not used: the 8 ranks share one card over gloo; no time here is a node's")
+        uses[key] -= 1
+        if not uses[key]:
+            del refs[key]
+        gc.collect()
+    ring = [r["ring"] for r in ranks]
+    for i, r in enumerate(ring):
+        if (not r["equal_to_plain"] or r["rel_to_sum"] >= 0.05
+                or (device == "cuda" and not r["launches"]["quantize_int8"])):
+            raise AssertionError(f"mesh ring rank {i}: {r}")
+        for k in KERNELS:
+            total[k] += r["launches"][k]
+    emit("mesh_ring", ranks=spec.size, elements=ring[0]["elements"], backend=ranks[0]["backend"],
+         ms_per_rank=[r["ms"] for r in ring], rel_to_sum=[r["rel_to_sum"] for r in ring],
+         equal_to_plain=True, launches_per_rank=[r["launches"] for r in ring],
+         host_staged_per_rank=[r["host_staged"] for r in ring],
+         nvlink="not used: the ring's hops are host-staged gloo sends between processes on one card")
+    staged = {}
+    for r in ranks:
+        for j in list(r["jobs"].values()) + [r["ring"]]:
+            for op, n in j["host_staged"].items():
+                staged[op] = staged.get(op, 0) + n
+    emit("mesh_summary", backend=ranks[0]["backend"], ranks=spec.size, ranks_seconds=ranks_s,
+         host_staged_total=staged, launches_all_ranks=total,
+         nvlink="no collective ran over NVLink: one card, 8 processes, gloo through host memory")
+    return total
+
+
 def _summary_row(n: str, rows: list, launches: int) -> dict:
     """One kernel's entry of the ``kernels`` line; for the int8 pair, from the
     quantize phase's rows (``dequant_*`` fields for the dequantize)."""
@@ -2669,13 +3070,14 @@ def make_mods():
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.training import optimizer as optim
     from repro_torch.training.train_step import (
-        make_positions, make_prefill_step, make_serve_step, tiles_from_plan,
+        make_positions, make_prefill_step, make_serve_step, make_train_step, tiles_from_plan,
     )
     from repro_torch.training.trainer import Trainer, TrainerConfig
 
     return types.SimpleNamespace(
         get_config=get_config, ops=ops, transformer=transformer, ServingEngine=ServingEngine,
         make_prefill_step=make_prefill_step, make_serve_step=make_serve_step,
+        make_train_step=make_train_step,
         make_positions=make_positions, tiles_from_plan=tiles_from_plan, moe=moe, optim=optim,
         cross_entropy=cross_entropy, InputShape=InputShape, Trainer=Trainer,
         TrainerConfig=TrainerConfig, SchedulePlan=SchedulePlan, quickstart=quickstart,
@@ -2819,6 +3221,8 @@ def main() -> int:
     timed_phase("jit_pricing", phase_jit_pricing, torch, np, mods)
     timed_phase("learned", phase_learned, torch, np, mods, records)
     timed_phase("service", phase_service, torch, mods, res, measure_res, measure_cache, cut)
+    # distribution: the H100 node's mesh as 8 ranks on the one card
+    add(timed_phase("mesh", phase_mesh, torch, mods))
     for n in KERNELS:
         if launches[n] == 0:
             raise AssertionError(f"the main paths launched no {n} kernel")

@@ -4,6 +4,17 @@ path and check that the phases of ``chip_smoke.py`` catch every one.
 
     python3 scripts/torch_fault_check.py DIR [CASE ...]  # on a machine with a CUDA card
 
+The distribution layer's faults (the int8 ring, expert parallelism, int8
+moments over shards) are caught by the CPU tests against the JAX package,
+which run where JAX is (not on the card's machine):
+
+    PYTHONPATH=src python3 scripts/torch_fault_check.py DIR ring_chunk_off_by_one \
+        ep_expert_slice_offset ep_input_grad_not_reduced int8_moment_amax_local
+
+and one more, a sequence-parallel norm's gradient left unsummed over the
+model ranks (``sp_norm_grad_not_summed``), by the card's ``mesh`` phase,
+leaf by leaf.
+
 ``DIR`` must lie outside the checkout; naming cases runs the control and
 those cases only.  Each case is a copy of ``src/`` and ``chip_smoke.py`` in
 ``DIR/<case>`` with one fault planted in one file under ``src/repro_torch/``
@@ -12,13 +23,15 @@ those cases only.  Each case is a copy of ``src/`` and ``chip_smoke.py`` in
 archs' decode positions); the copy builds its own kernels and runs, in a
 fresh process, the ``chip_smoke`` phase that must catch it: the file's
 phase, or the case's own where it names one (the unedited control runs
-every phase of the cases run).  The control must pass and every mutant
-(twenty-four of them) must fail.  Prints one JSON line per case (with the
+every phase of the cases run; a case checked by CPU tests runs them on
+its copy with ``pytest``).  The control must pass and every mutant
+(twenty-nine of them) must fail.  Prints one JSON line per case (with the
 failing check's numbers) and exits 1 if any case went the other way.
 """
 from __future__ import annotations
 
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -38,6 +51,14 @@ PHASES = {
     "phase_decode_int8": "chip_smoke.phase_decode_int8(torch, np, chip_smoke.make_mods())",
     "phase_positions": "chip_smoke.phase_positions(torch, chip_smoke.make_mods())",
     "phase_embed_decode_parity": "chip_smoke.phase_embed_decode_parity(torch, np, chip_smoke.make_mods())",
+    # the mesh's ranks find the kernels built
+    "phase_mesh": "_build.build(chip_smoke.LIBRARIES); chip_smoke.phase_mesh(torch, chip_smoke.make_mods())",
+}
+# CPU tests (pytest arguments) that catch a case, run on the case's copy
+TESTS = {
+    "tests_ring": ["tests/test_torch_sharding.py", "-k", "ring"],
+    "tests_ep": ["tests/test_torch_sharding.py", "-k", "expert_parallel"],
+    "tests_mesh_step": ["tests/test_torch_distributed.py", "-k", "2x2 and falcon"],
 }
 # the phase that must catch a fault in each file
 PHASE_OF = {
@@ -202,9 +223,37 @@ CASES = {
     ]),
     # musicgen's decode adds the sinusoid of the position after each row's own
     "decode_sinusoid_one_position_late": ("models/transformer.py", [(
-        "    h = _embed(params, cfg, inputs, pos)\n    for p in range(cfg.n_periods):",
-        "    h = _embed(params, cfg, inputs, pos + 1)\n    for p in range(cfg.n_periods):",
+        "    h = _embed(params, cfg, inputs, pos, par)\n    for p in range(cfg.n_periods):",
+        "    h = _embed(params, cfg, inputs, pos + 1, par)\n    for p in range(cfg.n_periods):",
     )], "phase_embed_decode_parity"),
+    # the int8 ring's reduce-scatter adds the chunk one hop early
+    "ring_chunk_off_by_one": ("training/grad_compress.py", [(
+        "c = (idx - step - 1) % n  # the chunk", "c = (idx - step) % n  # the chunk",
+    )], "tests_ring"),
+    # expert parallelism: every model rank runs the first E / tp experts'
+    # slots, whatever its own experts are
+    "ep_expert_slice_offset": ("models/moe.py", [(
+        "grouped = grouped[r * E_loc:(r + 1) * E_loc]", "grouped = grouped[0:E_loc]",
+    )], "tests_ep"),
+    # expert parallelism: the replicated input's gradient is not summed over
+    # the model ranks (no copy_to_region on entry)
+    "ep_input_grad_not_reduced": ("models/moe.py", [(
+        "x = ctx.enter(x, region)", "x = ctx.enter(x, region and mode != \"ep\")",
+    )], "tests_ep"),
+    # sequence parallelism: a block's first norm weight, used on each rank's
+    # own rows, has its gradient left unsummed over the model ranks (caught
+    # only by the mesh phase's leaf-by-leaf gate: Adam's first step moves an
+    # element by about lr either way, inside the absolute bound of 2 lr)
+    "sp_norm_grad_not_summed": ("models/transformer.py", [(
+        'hn = layers.norm(h, par.w(bp, "norm1", tp=par.ctx.seq), cfg.norm)',
+        'hn = layers.norm(h, par.w(bp, "norm1", tp=False), cfg.norm)',
+    )], "phase_mesh"),
+    # an int8 moment split on its last axis takes the row's amax over the
+    # local shard: its scale is not the whole row's
+    "int8_moment_amax_local": ("training/optimizer.py", [(
+        "amax = cc.all_reduce_max(rows.abs().amax(dim=-1, keepdim=True), mesh, axes)",
+        "amax = rows.abs().amax(dim=-1, keepdim=True)",
+    )], "tests_mesh_step"),
     # a decoded token's id reaches the temporal M-RoPE component only; the
     # height and width components rotate by position 0
     "mrope_decode_id_temporal_only": ("models/attention.py", [(
@@ -221,6 +270,7 @@ import torch, torch.nn.functional as F
 import chip_smoke
 from repro_torch.kernels import flash_attention as fa, moe_gemm as mg, quantize as qt
 from repro_torch.kernels import rmsnorm as rn, selective_scan as ss
+from repro_torch.kernels import _build
 torch.backends.cuda.matmul.allow_tf32 = False
 {call}
 """
@@ -235,6 +285,9 @@ def run_case(base: Path, name: str, edit, cases: dict) -> dict:
     shutil.rmtree(work, ignore_errors=True)
     shutil.copytree(ROOT / "src", work / "src", ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy2(ROOT / "chip_smoke.py", work / "chip_smoke.py")
+    if any(_phase(c) in TESTS for c in cases.values() if c is not None):
+        shutil.copytree(ROOT / "tests", work / "tests", ignore=shutil.ignore_patterns("__pycache__"))
+        shutil.copy2(ROOT / "pyproject.toml", work / "pyproject.toml")
     phases = sorted({_phase(c) for c in cases.values() if c is not None})
     if edit is not None:
         rel, pairs = edit[:2]
@@ -248,6 +301,17 @@ def run_case(base: Path, name: str, edit, cases: dict) -> dict:
         phases = [_phase(edit)]
     failure, passed = [], True
     for phase in phases:
+        if phase in TESTS:
+            proc = subprocess.run(
+                [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider", *TESTS[phase]],
+                cwd=work, capture_output=True, text=True, timeout=900,
+                env={**os.environ, "PYTHONPATH": "src", "JAX_PLATFORMS": "cpu"})
+            lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("FAILED")]
+            if proc.returncode not in (0, 1) or (proc.returncode == 1 and not lines):
+                raise RuntimeError(f"{name}: the {phase} tests did not run:\n{proc.stdout[-4000:]}")
+            passed &= proc.returncode == 0
+            failure += lines
+            continue
         proc = subprocess.run([sys.executable, "-c", RUN.format(call=PHASES[phase])],
                               cwd=work, capture_output=True, text=True, timeout=900)
         lines = [ln for ln in proc.stderr.splitlines() if ln.startswith("AssertionError")]

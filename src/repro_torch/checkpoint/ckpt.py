@@ -11,6 +11,14 @@ as saved once its ``.pt`` exists.  The state is copied to host memory before
 ``save`` returns, so an async write never sees a later in-place update.
 Restore loads with ``weights_only=True`` onto the template's device and
 dtype; the template also tells which leaves are Python integers.
+
+Elastic over meshes (the JAX package's restore under other shardings):
+given ``par`` (a ``sharding.parallel.ParallelContext``), ``save`` gathers
+the rank's shards into whole leaves (every rank takes part) and rank 0
+writes them in the one-device format, with the mesh in the manifest;
+``restore`` has every rank load the whole leaves and keep its shard under
+``par``'s rules, whatever mesh wrote them.  So a one-card checkpoint
+restores onto a mesh, and a mesh's onto one card.
 """
 from __future__ import annotations
 
@@ -50,10 +58,27 @@ def _unflatten_like(template: dict, flat: Dict[str, torch.Tensor], prefix: str =
     return out
 
 
+def _unflatten_paths(flat: Dict[str, Any]) -> dict:
+    out: dict = {}
+    for path, v in flat.items():
+        node = out
+        *head, last = path.split("/")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = v
+    return out
+
+
 def _to_host(v) -> torch.Tensor:
     if isinstance(v, int):
         return torch.tensor(v, dtype=torch.int64)
     return v.detach().to("cpu", copy=True)
+
+
+def _opt_specs(opt_state, par):
+    from repro_torch.training.optimizer import opt_state_pspecs
+
+    return opt_state_pspecs(opt_state, par.specs)
 
 
 class Checkpointer:
@@ -75,17 +100,30 @@ class Checkpointer:
         opt_state: Optional[dict] = None,
         extra: Optional[dict] = None,
         blocking: bool = True,
+        par=None,
     ) -> str:
+        """Write ``step``; under ``par`` every rank calls it with its shards
+        and rank 0 writes."""
+        if par is not None:
+            from repro_torch.sharding.parallel import gather_tree
+
+            params = gather_tree(params, par.specs, par.mesh)
+            if opt_state is not None:
+                opt_state = gather_tree(opt_state, _opt_specs(opt_state, par), par.mesh)
         state = {"params": params}
         if opt_state is not None:
             state["opt"] = opt_state
+        path = self._base(step)
+        if par is not None and par.mesh.rank != 0:
+            return path
         flat = {k: _to_host(v) for k, v in _flatten(state).items()}
         meta = {
             "step": step,
             "extra": extra or {},
+            "mesh": None if par is None else {"names": list(par.mesh.spec.names),
+                                              "shape": list(par.mesh.spec.shape)},
             "leaves": {k: {"dtype": str(v.dtype), "shape": list(v.shape)} for k, v in flat.items()},
         }
-        path = self._base(step)
 
         def _write():
             with open(path + ".json.tmp", "w") as f:
@@ -137,10 +175,12 @@ class Checkpointer:
         return steps[-1] if steps else None
 
     def restore(
-        self, template_params: dict, template_opt: Optional[dict] = None, step: Optional[int] = None
+        self, template_params: dict, template_opt: Optional[dict] = None, step: Optional[int] = None,
+        par=None,
     ) -> Tuple[dict, Optional[dict], int, dict]:
         """``(params, opt_state, step, extra)`` of ``step`` (the latest by
-        default), placed like the templates."""
+        default), placed like the templates; under ``par`` the templates are
+        this rank's shards, and so is what it returns."""
         self.wait()
         if step is None:
             step = self.latest_step()
@@ -150,6 +190,14 @@ class Checkpointer:
         with open(base + ".json") as f:
             meta = json.load(f)
         flat = torch.load(base + ".pt", map_location="cpu", weights_only=True)
+        if par is not None:
+            from repro_torch.sharding.parallel import shard_tree
+
+            specs = {"params": par.specs}
+            if template_opt is not None:
+                specs["opt"] = _opt_specs(template_opt, par)
+            whole = _unflatten_paths(flat)
+            flat = _flatten(shard_tree({k: whole[k] for k in specs}, specs, par.mesh, device="cpu"))
         template = {"params": template_params}
         if template_opt is not None:
             template["opt"] = template_opt

@@ -12,6 +12,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ops import KernelTiles
 from repro_torch.models import layers
+from repro_torch.sharding.parallel import local_view
 
 
 def init(cfg: ModelConfig, gen: torch.Generator, device, n_periods: int = 0) -> dict:
@@ -38,6 +39,41 @@ def _project(p, x, cfg):
     return q, k, v
 
 
+def _project_heads(p, x, cfg, par):
+    """q, k, v of this rank's heads, and ``wo``, under ``par`` (a
+    ``ParamView``); the input as the region reads it, and whether the
+    region is head-parallel.
+
+    Head-parallel when ``wq`` is split over ``model`` by whole heads: the
+    rank runs query heads ``[r H/tp, (r+1) H/tp)`` and their KV heads, ``wo``
+    row-split.  ``wk``/``wv`` split by whole KV heads are used as stored; a
+    column split that cuts a head (``n_kv_heads`` below ``tp``, which XLA
+    tolerates and the local kernel cannot) or none is gathered on use and
+    the rank's KV heads' columns taken.  Otherwise every rank runs every
+    head."""
+    H, Hkv, hd, tp = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, par.ctx.tp
+    heads_tp = par.on_model("wq", 1) and H % tp == 0
+    x = par.ctx.enter(x, heads_tp)
+    B, S, _ = x.shape
+    if not heads_tp:
+        w = {k: par.w(p, k) for k in p}
+        return (*_project(w, x, cfg), w["wo"], x, False)
+    Hl, g = H // tp, H // Hkv
+    if Hl % g and g % Hl:
+        raise ValueError(f"{Hl} query heads a rank do not map onto whole KV groups of {g}")
+    lo = par.ctx.tp_rank * Hl // g
+    n_kv = max(1, Hl // g)
+    q = (x @ par.w(p, "wq", want=1, tp=True)).reshape(B, S, Hl, hd).transpose(1, 2)
+    kv = []
+    for name in ("wk", "wv"):
+        if par.on_model(name, 1) and Hkv % tp == 0:
+            w = par.w(p, name, want=1, tp=True)
+        else:
+            w = par.w(p, name, tp=True)[:, lo * hd:(lo + n_kv) * hd]
+        kv.append((x @ w).reshape(B, S, n_kv, hd).transpose(1, 2))
+    return (q, *kv, par.w(p, "wo", want=0, tp=True), x, True)
+
+
 def forward(
     p: dict,
     cfg: ModelConfig,
@@ -45,14 +81,20 @@ def forward(
     positions: torch.Tensor,
     *,
     tiles: KernelTiles,
+    par=None,
 ) -> torch.Tensor:
+    """``x`` and the result are in the residual layout of ``par`` (a
+    ``ParamView``, one device's by default; ``ParallelContext.enter`` /
+    ``exit``), the flash kernel runs at this rank's heads
+    (``_project_heads``) and ``wo``'s partial sums add up over ``model``."""
+    par = par or local_view(p)
+    q, k, v, wo, x, heads_tp = _project_heads(p, x, cfg, par)
     B, S, _ = x.shape
-    q, k, v = _project(p, x, cfg)
     q, k = layers.apply_positions(q, k, cfg, positions)
     # the kernel takes (B, H, S, hd) in contiguous memory
     o = ops.attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True, tiles=tiles)
     o = o.transpose(1, 2).reshape(B, S, -1)
-    return o @ p["wo"]
+    return par.ctx.exit(o @ wo, heads_tp)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device,

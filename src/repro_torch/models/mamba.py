@@ -18,6 +18,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ops import KernelTiles
 from repro_torch.models import layers
+from repro_torch.sharding import collectives as cc
+from repro_torch.sharding.parallel import local_view
 
 
 def init(cfg: ModelConfig, gen: torch.Generator, device, n_periods: int = 0) -> dict:
@@ -53,9 +55,16 @@ def _conv_causal(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
     return (y + b.float()).to(x.dtype)
 
 
-def _ssm_inputs(p: dict, xc: torch.Tensor, cfg: ModelConfig):
+def _ssm_inputs(p: dict, xc: torch.Tensor, cfg: ModelConfig, par=None):
+    """``dt``, ``A``, ``B``, ``C`` of the scan.  Under a ``d_inner``-parallel
+    ``par``, ``x_proj`` is row-split: its partial ``(dt, B, C)`` add up over
+    ``model`` (and the sum's gradient, which each rank's channels give a
+    part of, adds up too)."""
     dtr, N = cfg.resolved_dt_rank, cfg.ssm_state
     proj = xc @ p["x_proj"]  # (..., dtr + 2N)
+    if par is not None:
+        mesh = par.mesh
+        proj = cc.copy_to_region(cc.all_reduce_sum(proj, mesh, "model"), mesh, "model")
     dt_raw, Bm, Cm = torch.split(proj, [dtr, N, N], dim=-1)
     # jax.nn.softplus is logaddexp(x, 0)
     dt = torch.logaddexp(dt_raw.float() @ p["dt_w"].float() + p["dt_b"].float(),
@@ -70,17 +79,32 @@ def forward(
     x: torch.Tensor,  # (B, S, d)
     *,
     tiles: KernelTiles,
+    par=None,
 ) -> torch.Tensor:
+    """``x`` and the result are in the residual layout of ``par`` (a
+    ``ParamView``, one device's by default); ``d_inner``-parallel where
+    ``mixer_tp`` split it over ``model`` (``in_proj`` per half, so each
+    rank's columns of x and z are its channels; the conv, ``dt_w``,
+    ``dt_b``, ``A_log`` and ``Dp`` by channel; ``x_proj`` and ``out_proj``
+    by row): the scan kernel runs at ``d_inner / tp`` channels and
+    ``out_proj``'s partial sums add up over ``model``.  Otherwise every rank
+    runs every channel."""
+    par = par or local_view(p)
+    tp = par.on_model("in_proj", 1) and par.on_model("conv_w", 1) and cfg.d_inner % par.ctx.tp == 0
+    want = {"in_proj": 1, "conv_w": 1, "conv_b": 0, "x_proj": 0, "dt_w": 1, "dt_b": 0,
+            "A_log": 0, "Dp": 0, "out_proj": 0}
+    p = {k: par.w(p, k, want=want[k] if tp else None, tp=tp) for k in p}
+    x = par.ctx.enter(x, tp)
     xz = x @ p["in_proj"]  # (B, S, 2*Di)
     xi, z = xz.chunk(2, dim=-1)
     xc = F.silu(_conv_causal(xi, p["conv_w"], p["conv_b"]))
-    dt, A, Bm, Cm = _ssm_inputs(p, xc, cfg)
+    dt, A, Bm, Cm = _ssm_inputs(p, xc, cfg, par if tp else None)
     # the kernel takes contiguous operands: Bm and Cm are slices of one projection
     y = ops.selective_scan(
         xc, dt.to(xc.dtype), A, Bm.contiguous(), Cm.contiguous(), p["Dp"], tiles=tiles
     )
     y = y * F.silu(z)
-    return y @ p["out_proj"]
+    return par.ctx.exit(y @ p["out_proj"], tp)
 
 
 def init_cache(cfg: ModelConfig, batch: int, dtype, device, n_periods: int = 0) -> dict:

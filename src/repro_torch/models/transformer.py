@@ -24,6 +24,7 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import DEFAULT_TILES, KernelTiles
 from repro_torch.models import attention, layers, mamba, moe
+from repro_torch.sharding.parallel import ParallelContext
 
 
 # ---------------------------------------------------------------------------
@@ -75,6 +76,24 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     return params
 
 
+def param_shapes(cfg: ModelConfig) -> dict:
+    """The global shape of every parameter leaf, by the tree's nesting, with
+    nothing allocated (the leaves are drawn on the meta device)."""
+    plan, gen, meta, n = cfg.layer_plan(), torch.Generator(), torch.device("meta"), cfg.n_periods
+    dt = getattr(torch, cfg.dtype)
+    tree = {"blocks": {f"b{i}": _block_init(cfg, spec, gen, meta, n) for i, spec in enumerate(plan)},
+            "final_norm": torch.empty((cfg.d_model,), dtype=dt, device=meta)}
+    if cfg.input_kind == "tokens":
+        tree["embed"] = torch.empty((cfg.vocab_size, cfg.d_model), dtype=dt, device=meta)
+    if not cfg.tie_embeddings:
+        tree["head"] = torch.empty((cfg.d_model, cfg.vocab_size), dtype=dt, device=meta)
+
+    def shapes(t):
+        return {k: shapes(v) if isinstance(v, dict) else tuple(v.shape) for k, v in t.items()}
+
+    return shapes(tree)
+
+
 def period_params(tree: dict, i: int) -> dict:
     """Period ``i`` of a stacked parameter or cache tree (views, no copy)."""
     return {k: period_params(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
@@ -83,56 +102,84 @@ def period_params(tree: dict, i: int) -> dict:
 # ---------------------------------------------------------------------------
 # Shared pieces
 # ---------------------------------------------------------------------------
-def _mlp_forward(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _mlp_forward(p: dict, cfg: ModelConfig, x: torch.Tensor, par) -> torch.Tensor:
+    """Column / row split over ``model`` when ``ffn_tp`` split ``w_up``
+    there (``par``, a ``ParamView``), else every rank's whole MLP."""
+    tp = par.on_model("w_up", 1)
+    p = {k: par.w(p, k, want=(0 if k == "w_down" else 1) if tp else None, tp=tp) for k in p}
+    x = par.ctx.enter(x, tp)
     up = x @ p["w_up"]
     if cfg.act == "swiglu":
         h = F.silu((x @ p["w_gate"]).float()) * up.float()
     else:
         h = layers.activate(up.float(), cfg.act)
-    return h.to(x.dtype) @ p["w_down"]
+    return par.ctx.exit(h.to(x.dtype) @ p["w_down"], tp)
 
 
-def _embed(params: dict, cfg: ModelConfig, inputs: torch.Tensor, positions) -> torch.Tensor:
+def _embed(params: dict, cfg: ModelConfig, inputs: torch.Tensor, positions, par) -> torch.Tensor:
     """Token ids through the table, or a stub frontend's ``(B, S, d)``
     embeddings cast to the model dtype; plus the sinusoid for a sinusoidal
-    arch (of the temporal component for ``(B, 3, S)`` positions)."""
+    arch (of the temporal component for ``(B, 3, S)`` positions).  The
+    result is in the residual layout; a table split over the vocabulary
+    over ``model`` is looked up where each rank holds the id (a masked
+    lookup: the partial sums add up over ``model``)."""
     dt = getattr(torch, cfg.dtype)
-    h = params["embed"][inputs] if cfg.input_kind == "tokens" else inputs.to(dt)
+    top = par.view()
+    vocab_tp = cfg.input_kind == "tokens" and top.on_model("embed", 0)
+    if vocab_tp:
+        table = top.w(params, "embed", want=0, tp=True)
+        local = inputs - par.tp_rank * table.shape[0]
+        hit = (local >= 0) & (local < table.shape[0])
+        h = par.exit(table[torch.where(hit, local, 0)] * hit[..., None].to(table.dtype), True)
+    else:
+        h = top.w(params, "embed")[inputs] if cfg.input_kind == "tokens" else inputs.to(dt)
     if cfg.pos_kind == "sinusoidal":
         pos = positions if positions.ndim == 2 else positions[:, 0]
-        h = h + layers.sinusoidal_pe(pos, cfg.d_model).to(h.dtype)
-    return h
+        pe = layers.sinusoidal_pe(pos, cfg.d_model).to(h.dtype)
+        h = h + par.local_rows(pe) if vocab_tp else h + pe
+    return h if vocab_tp else par.exit(h, False)
 
 
-def _logits(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
-    h = layers.norm(h, params["final_norm"], cfg.norm)
-    if cfg.tie_embeddings:
-        return h @ params["embed"].T
-    return h @ params["head"]
+def _logits(params: dict, cfg: ModelConfig, h: torch.Tensor, par) -> torch.Tensor:
+    """The rank's rows over the whole sequence, their vocab split over
+    ``model`` where the table is (``vocab_split``)."""
+    top = par.view()
+    h = layers.norm(h, top.w(params, "final_norm", tp=par.seq), cfg.norm)
+    name, vdim = ("embed", 0) if cfg.tie_embeddings else ("head", 1)
+    tp = top.on_model(name, vdim)
+    h = par.enter(h, tp)
+    w = top.w(params, name, want=vdim if tp else None, tp=tp)
+    return h @ w.T if cfg.tie_embeddings else h @ w
 
 
-def _mlp_slot(bp, spec, cfg, h, tiles):
+def vocab_split(cfg: ModelConfig, par) -> bool:
+    """Whether ``forward`` under ``par`` returns vocab-split logits."""
+    name, vdim = ("embed", 0) if cfg.tie_embeddings else ("head", 1)
+    return par.view().on_model(name, vdim)
+
+
+def _mlp_slot(bp, spec, cfg, h, tiles, par):
     """The block's MLP half: ``h`` plus its dense or MoE MLP of ``norm2(h)``."""
     if spec.mlp == "none":
         return h
-    hn = layers.norm(h, bp["norm2"], cfg.norm)
+    hn = layers.norm(h, par.w(bp, "norm2", tp=par.ctx.seq), cfg.norm)
     if spec.mlp == "moe":
-        return h + moe.forward(bp["mlp"], cfg, hn, tiles=tiles)
-    return h + _mlp_forward(bp["mlp"], cfg, hn)
+        return h + moe.forward(bp["mlp"], cfg, hn, tiles=tiles, par=par.sub("mlp"))
+    return h + _mlp_forward(bp["mlp"], cfg, hn, par.sub("mlp"))
 
 
-def _block_forward(bp, spec, cfg, h, positions, tiles):
-    hn = layers.norm(h, bp["norm1"], cfg.norm)
+def _block_forward(bp, spec, cfg, h, positions, tiles, par):
+    hn = layers.norm(h, par.w(bp, "norm1", tp=par.ctx.seq), cfg.norm)
     if spec.mixer == "attn":
-        h = h + attention.forward(bp["attn"], cfg, hn, positions, tiles=tiles)
+        h = h + attention.forward(bp["attn"], cfg, hn, positions, tiles=tiles, par=par.sub("attn"))
     else:
-        h = h + mamba.forward(bp["mamba"], cfg, hn, tiles=tiles)
-    return _mlp_slot(bp, spec, cfg, h, tiles)
+        h = h + mamba.forward(bp["mamba"], cfg, hn, tiles=tiles, par=par.sub("mamba"))
+    return _mlp_slot(bp, spec, cfg, h, tiles, par)
 
 
-def _period_forward(pp, h, positions, plan, cfg, tiles):
+def _period_forward(pp, h, positions, plan, cfg, tiles, par):
     for i, spec in enumerate(plan):
-        h = _block_forward(pp[f"b{i}"], spec, cfg, h, positions, tiles)
+        h = _block_forward(pp[f"b{i}"], spec, cfg, h, positions, tiles, par.view("blocks", f"b{i}"))
     return h
 
 
@@ -185,16 +232,23 @@ def forward(
     *,
     tiles: KernelTiles = DEFAULT_TILES,
     remat: str = "none",
+    par=None,
 ) -> torch.Tensor:
     """Logits ``(B, S, V)``.  Records autograd only where the caller does
     (the prefill step runs it under ``torch.no_grad``); ``remat`` applies
-    per period, as in the JAX package."""
+    per period, as in the JAX package.
+
+    ``par`` (``sharding.parallel.ParallelContext``; one device's by
+    default): the parameters are this rank's shards, ``inputs`` /
+    ``positions`` its batch rows, and the logits its rows over the whole
+    sequence, vocab-split over ``model`` where ``vocab_split`` says so."""
     plan = cfg.layer_plan()
-    h = _embed(params, cfg, inputs, positions)
+    par = (par or ParallelContext.local(params)).for_seq(inputs.shape[1])
+    h = _embed(params, cfg, inputs, positions, par)
     body = _maybe_remat(_period_forward, remat)
     for p in range(cfg.n_periods):
-        h = body(period_params(params["blocks"], p), h, positions, plan, cfg, tiles)
-    return _logits(params, cfg, h)
+        h = body(period_params(params["blocks"], p), h, positions, plan, cfg, tiles, par)
+    return _logits(params, cfg, h, par)
 
 
 # ---------------------------------------------------------------------------
@@ -226,17 +280,20 @@ def decode_step(
     commit=None,  # (B,) bool: the rows whose new cache state is written; None = all
     *,
     tiles: KernelTiles = DEFAULT_TILES,
+    par=None,
 ) -> Tuple[torch.Tensor, dict]:
     """(logits (B, V), cache).  Where the JAX step returns a new cache tree,
     this one writes the new token's K/V, conv window and SSM state into
     ``cache`` in place, in the rows of ``commit`` only: the logits of a row
     outside it are not its next step's (see ``attention.decode_step``).
-    ``tiles`` reaches the MoE MLP's grouped GEMMs."""
+    ``tiles`` reaches the MoE MLP's grouped GEMMs; ``par``: one device's
+    context (built from ``params`` when not given)."""
     plan = cfg.layer_plan()
     device = inputs.device
     cur = torch.as_tensor(cur, dtype=torch.long, device=device)
     pos = cur[:, None] if cur.ndim == 1 else cur.expand(inputs.shape[0], 1)  # each row's own
-    h = _embed(params, cfg, inputs, pos)
+    par = par or ParallelContext.local(params)
+    h = _embed(params, cfg, inputs, pos, par)
     for p in range(cfg.n_periods):
         pp = period_params(params["blocks"], p)
         pc = period_params(cache, p)  # views: the writes land in the stacked cache
@@ -247,5 +304,5 @@ def decode_step(
                 mixed, _ = attention.decode_step(bp["attn"], cfg, pc[f"b{i}"], hn, cur, commit)
             else:
                 mixed, _ = mamba.decode_step(bp["mamba"], cfg, pc[f"b{i}"], hn, commit)
-            h = _mlp_slot(bp, spec, cfg, h + mixed, tiles)
-    return _logits(params, cfg, h[:, -1, :]), cache  # (B, V)
+            h = _mlp_slot(bp, spec, cfg, h + mixed, tiles, par.view("blocks", f"b{i}"))
+    return _logits(params, cfg, h[:, -1, :], par), cache  # (B, V)

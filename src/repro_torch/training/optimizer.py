@@ -15,6 +15,14 @@ parameters and moments into the given tensors in place (one copy of each on
 the card) and returns the same objects.  Step scalars (learning rate, clip
 scale, bias corrections) are f32 0-dim tensors on the parameters' device, as
 JAX computes them.
+
+Over a mesh (``dist``, a ``sharding.parallel.ParallelContext``) every rank
+updates its own shards in place.  What needs the whole leaf: an int8
+moment's quantizability reads the leaf's global shape, and the amax of a
+row whose last axis is split is the max over that axis's group, so that the
+scale is the whole row's (its spec drops the last axis: it is replicated
+there); the global norm sums each leaf's local sums of squares over its
+shard group and counts a replicated leaf once.
 """
 from __future__ import annotations
 
@@ -25,6 +33,9 @@ from typing import Any, Dict, Iterator, Tuple
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.sharding import collectives as cc
+from repro_torch.sharding.parallel import ParallelContext
+from repro_torch.sharding.rules import PartitionSpec
 
 
 @dataclass(frozen=True)
@@ -50,16 +61,31 @@ def lr_at(oc: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 # -- int8 moment codecs -------------------------------------------------------
-def _quantizable(leaf: torch.Tensor) -> bool:
-    return leaf.ndim >= 2 and leaf.shape[-1] >= 16
+def _quantizable(leaf) -> bool:
+    """For a leaf, or a leaf's (global) shape."""
+    shape = tuple(getattr(leaf, "shape", leaf))
+    return len(shape) >= 2 and shape[-1] >= 16
 
 
 def _is_moment(m) -> bool:
     return isinstance(m, dict) and set(m) == {"q", "s"}
 
 
-def _mom_zero(leaf: torch.Tensor, oc: OptimizerConfig):
-    if oc.moment_dtype == "int8" and _quantizable(leaf):
+def quantize_rows(x: torch.Tensor, mesh=None, axes=()):
+    """``ops.quantize_int8`` of ``x``'s rows over its last axis ->
+    ``(q (R, C), s (R, 1))``.  Where that axis is split over ``axes`` of
+    ``mesh``, the row's amax is the group's max: appended as one more
+    column, it is the kernel's row amax, so the scale is the whole row's."""
+    rows = x.reshape(-1, x.shape[-1])
+    if not axes or mesh.size(axes) == 1:
+        return ops.quantize_int8(rows)
+    amax = cc.all_reduce_max(rows.abs().amax(dim=-1, keepdim=True), mesh, axes)
+    q, s = ops.quantize_int8(torch.cat([rows, amax.to(rows.dtype)], dim=1))
+    return q[:, :-1], s
+
+
+def _mom_zero(leaf: torch.Tensor, oc: OptimizerConfig, shape):
+    if oc.moment_dtype == "int8" and _quantizable(shape):
         return {
             "q": torch.zeros(leaf.shape, dtype=torch.int8, device=leaf.device),
             "s": torch.zeros(leaf.shape[:-1] + (1,), dtype=torch.float32, device=leaf.device),
@@ -74,10 +100,11 @@ def _mom_read(m) -> torch.Tensor:
     return m
 
 
-def _mom_write_(m, val: torch.Tensor) -> None:
-    """Store ``val`` into the moment ``m`` in place (requantized if int8)."""
+def _mom_write_(m, val: torch.Tensor, mesh=None, axes=()) -> None:
+    """Store ``val`` into the moment ``m`` in place (requantized if int8,
+    ``quantize_rows`` over ``axes``)."""
     if _is_moment(m):
-        q, s = ops.quantize_int8(val.reshape(-1, val.shape[-1]))
+        q, s = quantize_rows(val, mesh, axes)
         m["q"].copy_(q.reshape(m["q"].shape))
         m["s"].copy_(s.reshape(m["s"].shape))
     else:
@@ -104,31 +131,52 @@ def tree_from_leaves(like: dict, flat: Dict[str, Any], prefix: str = "") -> dict
     }
 
 
-def _map(fn, tree: dict) -> dict:
-    return {k: _map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
-
-
 # -- public API ---------------------------------------------------------------
-def init_opt_state(params: dict, oc: OptimizerConfig) -> Dict[str, Any]:
-    zeros = lambda: _map(lambda p: _mom_zero(p, oc), params)  # noqa: E731
+def init_opt_state(params: dict, oc: OptimizerConfig, dist=None) -> Dict[str, Any]:
+    """Zero moments of ``params`` (this rank's shards under ``dist``; one
+    device's context by default)."""
+    dist = dist or ParallelContext.local(params)
+
+    def zeros():
+        return tree_from_leaves(params, {path: _mom_zero(p, oc, dist.global_shape(path))
+                                         for path, p in leaves(params)})
+
     return {"mu": zeros(), "nu": zeros(), "step": 0}
 
 
-def global_norm(tree: dict) -> torch.Tensor:
-    sq = sum(torch.sum(torch.square(g.float())) for _, g in leaves(tree))
-    return torch.sqrt(sq)
+def global_norm(tree: dict, dist=None) -> torch.Tensor:
+    dist = dist or ParallelContext.local(tree)
+    return torch.sqrt(dist.norm_sq({path: torch.sum(torch.square(g.float()))
+                                    for path, g in leaves(tree)}))
+
+
+def opt_state_pspecs(state: Dict[str, Any], param_pspecs: dict) -> Dict[str, Any]:
+    """Optimizer-state PartitionSpecs mirroring the param specs: an int8
+    moment's codes take its leaf's spec, its scales the same without the
+    last axis."""
+    def per_moment(mom_tree):
+        specs = dict(leaves(param_pspecs))
+        return tree_from_leaves(mom_tree, {
+            path: {"q": specs[path], "s": PartitionSpec(*specs[path][:-1], None)}
+            if _is_moment(m) else specs[path]
+            for path, m in leaves(mom_tree)})
+
+    return {"mu": per_moment(state["mu"]), "nu": per_moment(state["nu"]), "step": PartitionSpec()}
 
 
 @torch.no_grad()
-def apply_updates(params: dict, grads: dict, state: Dict[str, Any], oc: OptimizerConfig):
+def apply_updates(params: dict, grads: dict, state: Dict[str, Any], oc: OptimizerConfig,
+                  dist=None):
     """One AdamW step, in place: returns ``(params, state, {"lr", "grad_norm"})``
-    with the metrics as f32 0-dim tensors."""
+    with the metrics as f32 0-dim tensors.  Under ``dist`` the trees are
+    this rank's shards and the gradients already summed over the batch."""
+    dist = dist or ParallelContext.local(params)
     flat_p = list(leaves(params))
     device = flat_p[0][1].device
     step = state["step"] + 1
     step_t = torch.tensor(step, dtype=torch.int32, device=device)
     lr = lr_at(oc, step_t)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, dist)
     scale = torch.minimum(torch.ones((), device=device), oc.clip_norm / (gnorm + 1e-9))
     bc1 = 1.0 - oc.b1 ** step_t.to(torch.float32)
     bc2 = 1.0 - oc.b2 ** step_t.to(torch.float32)
@@ -142,7 +190,7 @@ def apply_updates(params: dict, grads: dict, state: Dict[str, Any], oc: Optimize
         if p.ndim >= 2:  # decoupled weight decay on matrices only
             delta = delta + oc.weight_decay * p.float()
         p.copy_((p.float() - lr * delta).to(p.dtype))
-        _mom_write_(flat_mu[path], m)
-        _mom_write_(flat_nu[path], v)
+        _mom_write_(flat_mu[path], m, dist.mesh, dist.row_axes(path))
+        _mom_write_(flat_nu[path], v, dist.mesh, dist.row_axes(path))
     state["step"] = step
     return params, state, {"lr": lr, "grad_norm": gnorm}

@@ -1,8 +1,12 @@
 """Training loop: data pipeline + train step + checkpoints + fault tolerance.
 
-The counterpart of the JAX package's ``training/trainer.py`` on one device.
-Each step's batch comes from the stateless synthetic pipeline as numpy and
-is moved to the device; one step is timed on the host clock up to
+The counterpart of the JAX package's ``training/trainer.py``.  Given a
+mesh (``launch.mesh.Mesh``) each rank runs a ``Trainer``: it draws the
+seed's whole weights on its device, keeps its shards, runs the mesh step on
+the global batch (of which the step takes its rows), saves and restores its
+shards through the elastic checkpoint, and only rank 0 logs.  Each step's
+batch comes from the stateless synthetic pipeline as numpy and is moved to
+the device; one step is timed on the host clock up to
 ``torch.cuda.synchronize()`` on the card (where the JAX loop waits on
 ``block_until_ready``), so the time is the device's, not the enqueue's.
 """
@@ -24,7 +28,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import transformer
 from repro_torch.runtime.fault_tolerance import HeartbeatMonitor, StragglerPolicy, plan_restart
 from repro_torch.training import optimizer as optim
-from repro_torch.training.train_step import make_train_step
+from repro_torch.training.train_step import make_train_step, shard_params
 
 
 def _default_ckpt_dir() -> str:
@@ -55,13 +59,17 @@ class Trainer:
     ):
         tc = tc or TrainerConfig()
         self.cfg, self.shape, self.plan, self.tc = cfg, shape, plan, tc
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.opt_cfg = opt_cfg or optim.OptimizerConfig(
             total_steps=tc.total_steps, moment_dtype=plan.opt_dtype
         )
         self.pipe = Pipeline(cfg, shape, data_cfg)
         self.ckpt = Checkpointer(tc.ckpt_dir)
         self.step_fn = make_train_step(cfg, shape, plan, self.opt_cfg, mesh, self.device)
+        # a mesh's rank holds shards and checkpoints them elastically; one
+        # device keeps its whole leaves as they are
+        self.par = self.step_fn.par if mesh is not None else None
         self.metrics_log: List[Dict] = []
         self.monitor: Optional[HeartbeatMonitor] = None
         self.stragglers = StragglerPolicy()
@@ -69,13 +77,15 @@ class Trainer:
     # -- state ------------------------------------------------------------------
     def init_state(self):
         params = transformer.init_params(self.cfg, self.tc.seed, device=self.device)
-        opt_state = optim.init_opt_state(params, self.opt_cfg)
+        if self.par is not None:
+            params = shard_params(params, self.par)
+        opt_state = optim.init_opt_state(params, self.opt_cfg, self.par)
         return params, opt_state, 0
 
     def restore_or_init(self):
         params, opt_state, step = self.init_state()
         if self.ckpt.latest_step() is not None:
-            params, opt_state, step, _ = self.ckpt.restore(params, opt_state)
+            params, opt_state, step, _ = self.ckpt.restore(params, opt_state, par=self.par)
         return params, opt_state, step
 
     def batch_at(self, step: int) -> Dict[str, torch.Tensor]:
@@ -102,7 +112,7 @@ class Trainer:
             if self.monitor is not None:
                 self.monitor.beat(host)
             step += 1
-            if step % self.tc.log_every == 0 or step == 1:
+            if (step % self.tc.log_every == 0 or step == 1) and self.step_fn.par.mesh.rank == 0:
                 self.metrics_log.append({
                     "step": step,
                     "loss": float(m["loss"]),
@@ -114,7 +124,7 @@ class Trainer:
                 self.ckpt.save(
                     step, params, opt_state,
                     extra={"data_step": step},
-                    blocking=not self.tc.ckpt_async,
+                    blocking=not self.tc.ckpt_async, par=self.par,
                 )
         self.ckpt.wait()
         return params, opt_state, step

@@ -138,3 +138,19 @@ def test_the_measurement_modules_are_among_the_scanned_files():
     for rel in ("core/measure.py", "core/measure_stub.py", "core/measure_fleet.py",
                 "launch/measure.py", "launch/dryrun_stub.py"):
         assert PORT / rel in PORT_FILES
+
+
+def test_the_distribution_modules_are_among_the_scanned_files():
+    """The distribution layer (rules, collectives, the parallel context, the
+    mesh, the int8 ring) is held to the same no-JAX rule, and imports with
+    no process group or device touched."""
+    for rel in ("sharding/rules.py", "sharding/collectives.py", "sharding/parallel.py",
+                "launch/mesh.py", "training/grad_compress.py"):
+        assert PORT / rel in PORT_FILES
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh  # noqa: F401
+    from repro_torch.sharding import collectives, parallel, rules  # noqa: F401
+    from repro_torch.training import grad_compress  # noqa: F401
+
+    assert not dist.is_initialized()

@@ -19,12 +19,15 @@ from repro.kernels import ops as jops
 from repro.models import transformer as jtf
 from repro_torch import convert
 from repro_torch.configs import ARCH_IDS, get_config
-from repro_torch.core.space import SchedulePlan
+from repro_torch.core.space import MeshSpec, SchedulePlan
+from repro_torch.launch.mesh import run_on_mesh
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as ttf
 from repro_torch.training.train_step import (
     make_positions, make_prefill_step, make_serve_step, tiles_from_plan,
 )
+
+import torch_dist_cases as dist_cases
 
 torch.set_num_threads(1)
 
@@ -162,9 +165,17 @@ def test_decode_matches_forward(model):
 
 
 def test_unported_paths_raise_with_their_roadmap_item(model):
-    _, cfg, *_ = model
+    """Decode over a mesh still names A8; prefill over a mesh is ported: on a
+    (1, 1) gloo mesh its logits equal the one-device step's."""
+    _, cfg, jparams, params, toks = model
     with pytest.raises(NotImplementedError, match="A8"):
-        make_prefill_step(cfg, None, SchedulePlan(), mesh=object(), device="cpu")
+        make_serve_step(cfg, None, SchedulePlan(), mesh=object(), device="cpu")
+    tree = jax.tree.map(np.asarray, jparams)
+    got = run_on_mesh(MeshSpec(("data", "model"), (1, 1)), dist_cases.prefill_one, "granite-3-2b",
+                      {}, tree, B, S, device="cpu")[0]
+    batch = dist_cases.batch_for(cfg, B, S)
+    exp = make_prefill_step(cfg, None, SchedulePlan(), device="cpu")(params, batch)
+    np.testing.assert_allclose(got.numpy(), exp.numpy(), **TOL)
     # A2 is ported: every arch resolves and M-RoPE has its positions
     assert get_config("qwen2-vl-72b").pos_kind == "mrope"
     assert get_config("nemotron-4-15b").n_layers == 32

@@ -1,0 +1,190 @@
+"""What the ranks of a CPU gloo mesh run for the port's distribution tests.
+
+``launch.mesh.run_on_mesh`` spawns one process per rank and imports the
+function it runs from here by name, so this module imports no JAX: a rank
+pays for torch alone.  Each function returns plain data (rank 0 the whole
+trees, every rank its local shapes)."""
+import numpy as np
+import torch
+
+from repro_torch import convert
+from repro_torch.checkpoint.ckpt import Checkpointer
+from repro_torch.configs import get_config
+from repro_torch.core.space import SchedulePlan
+from repro_torch.kernels import ops
+from repro_torch.models import moe
+from repro_torch.sharding import collectives as cc
+from repro_torch.sharding.parallel import ParallelContext, gather_tree, shard_tree
+from repro_torch.sharding.rules import ShardingRules
+from repro_torch.training import optimizer as optim
+from repro_torch.training.grad_compress import compressed_psum
+from repro_torch.training.train_step import (
+    gather_opt_state, gather_params, make_positions, make_prefill_step, make_train_step,
+    shard_params,
+)
+
+
+def batch_for(cfg, B: int, S: int, seed: int = 0) -> dict:
+    """The global batch of a case: token ids drawn with numpy."""
+    tok = np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S))
+    tok = torch.from_numpy(tok)
+    return {"inputs": tok, "labels": tok, "positions": make_positions(cfg, B, S, device="cpu")}
+
+
+def _leaf_shapes(tree: dict) -> dict:
+    """Dotted path -> local shape; an int8 moment's codes and scales apart."""
+    out = {}
+    for path, t in optim.leaves(tree):
+        if isinstance(t, dict):
+            out.update({f"{path}.{k}": tuple(v.shape) for k, v in t.items()})
+        elif isinstance(t, torch.Tensor):
+            out[path] = tuple(t.shape)
+    return out
+
+
+def train_cases(mesh, cases: list, trees: dict, ckpt_dir=None) -> list:
+    """Each case (``arch``, ``plan`` kwargs, ``opt_dtype``, ``B``, ``S``):
+    the prefill logits, the mesh step's gradients, one update and its
+    metrics (from the weights in ``trees``, whole, as numpy), and this
+    rank's local shapes; the first case is also saved to ``ckpt_dir`` after
+    its update."""
+    torch.manual_seed(0)
+    out = []
+    for i, case in enumerate(cases):
+        cfg = get_config(case["arch"]).reduced()
+        plan = SchedulePlan(**case["plan"])
+        oc = optim.OptimizerConfig(peak_lr=1e-3, warmup_steps=0, moment_dtype=case["opt_dtype"])
+        step = make_train_step(cfg, None, plan, oc, mesh=mesh)
+        par = step.par
+        params = shard_params(convert.params_from_numpy(trees[case["arch"]], cfg, device="cpu"), par)
+        opt = optim.init_opt_state(params, oc, par)
+        batch = batch_for(cfg, case["B"], case["S"])
+        logits = make_prefill_step(cfg, None, plan, mesh=mesh)(params, batch)
+        logits = cc.all_gather_raw(logits, mesh, par.batch_axes, 0)
+        loss, grads = step.loss_and_grads(params, batch)
+        grads = gather_params(optim.tree_from_leaves(params, grads), par)
+        params, opt, metrics = step(params, opt, batch)
+        res = {
+            "local_params": _leaf_shapes(params),
+            "local_opt": {k: _leaf_shapes(opt[k]) for k in ("mu", "nu")},
+            "row_split": sorted(p for p in par.flat_specs if par.row_axes(p)),
+            "moe_ep": par.moe_ep,
+        }
+        whole_params, whole_opt = gather_params(params, par), gather_opt_state(opt, par)
+        if ckpt_dir is not None and i == 0:
+            Checkpointer(ckpt_dir).save(7, params, opt, extra={"case": 0}, par=par)
+        if mesh.rank == 0:
+            res.update(loss=float(loss), metrics={k: float(v) for k, v in metrics.items()},
+                       grads=grads, params=whole_params, opt=whole_opt, logits=logits)
+        out.append(res)
+    return out
+
+
+def mesh_run(mesh, cases: list, trees: dict, ckpt_dir=None, restores=(), trainer_dir=None) -> dict:
+    """``train_cases``, ``restore_case`` of each ``(case, dir)`` of
+    ``restores`` and, given ``trainer_dir``, ``trainer_case``, in one spawn
+    of the mesh."""
+    return {"train": train_cases(mesh, cases, trees, ckpt_dir),
+            "restore": [restore_case(mesh, case, d) for case, d in restores],
+            "trainer": trainer_case(mesh, trainer_dir) if trainer_dir else None}
+
+
+TRAINER_CASE = dict(arch="granite-3-2b", plan=dict(param_strategy="fsdp_tp", microbatches=2,
+                                                   remat="none", seq_shard=True), B=4, S=16)
+
+
+def trainer_case(mesh, ckpt_dir, steps: int = 2) -> dict:
+    """``Trainer`` of ``TRAINER_CASE`` for ``steps`` steps with a checkpoint
+    each step: on a mesh (``mesh`` given) or in one process (None)."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+
+    cfg = get_config(TRAINER_CASE["arch"]).reduced()
+    shape = InputShape("t", TRAINER_CASE["S"], TRAINER_CASE["B"], "train")
+    tc = TrainerConfig(total_steps=steps, ckpt_every=1, ckpt_dir=ckpt_dir, ckpt_async=False,
+                       log_every=1)
+    oc = optim.OptimizerConfig(peak_lr=1e-3, warmup_steps=0, total_steps=steps)
+    tr = Trainer(cfg, shape, SchedulePlan(**TRAINER_CASE["plan"]), tc, opt_cfg=oc, mesh=mesh,
+                 device="cpu")
+    params, opt, step = tr.run()
+    if mesh is not None:
+        params = gather_params(params, tr.par)
+    return {"log": [{k: r[k] for k in ("step", "loss", "grad_norm")} for r in tr.metrics_log],
+            "step": step, "params": params}
+
+
+def restore_case(mesh, case: dict, ckpt_dir: str) -> dict:
+    """Restore ``ckpt_dir``'s latest step onto this mesh under ``case``'s
+    plan; the restored shards gathered back whole, and the local shapes."""
+    cfg = get_config(case["arch"]).reduced()
+    plan = SchedulePlan(**case["plan"])
+    oc = optim.OptimizerConfig(moment_dtype=case["opt_dtype"])
+    par = make_train_step(cfg, None, plan, oc, mesh=mesh).par
+    from repro_torch.models import transformer
+
+    tmpl = shard_params(transformer.init_params(cfg, 1, device="cpu"), par)
+    tmpl_opt = optim.init_opt_state(tmpl, oc, par)
+    params, opt, step, extra = Checkpointer(ckpt_dir).restore(tmpl, tmpl_opt, par=par)
+    return {"step": step, "extra": extra, "local_params": _leaf_shapes(params),
+            "local_opt": {k: _leaf_shapes(opt[k]) for k in ("mu", "nu")},
+            "params": gather_params(params, par), "opt": gather_opt_state(opt, par)}
+
+
+def ep_cases(mesh, cases: list) -> list:
+    """The expert-parallel MoE forward and its gradients on this mesh for
+    each case (``arch``, ``act``, ``fsdp``, weights ``p``, input ``x`` and
+    cotangent ``r``, whole): rank 0 returns the whole output and gradients."""
+    import dataclasses
+
+    out = []
+    for case in cases:
+        cfg = dataclasses.replace(get_config(case["arch"]).reduced(), act=case["act"])
+        plan = SchedulePlan(param_strategy="fsdp_tp" if case["fsdp"] else "tp", moe_mode="ep")
+        rules = ShardingRules(cfg, None, plan, mesh.spec)
+        whole = {k: torch.from_numpy(np.array(v)) for k, v in case["p"].items()}
+        specs = rules.param_pspecs({"mlp": whole})
+        ctx = ParallelContext(mesh, specs, {"mlp": {k: v.shape for k, v in whole.items()}},
+                              batch_axes=rules.batch, moe_ep=True)
+        p = shard_tree({"mlp": whole}, specs, mesh)["mlp"]
+        for t in p.values():
+            t.requires_grad_(True)
+        dp, b = ctx.dp, mesh.index(ctx.batch_axes)
+        x = torch.from_numpy(np.array(case["x"]))
+        r = torch.from_numpy(np.array(case["r"]))
+        rows = x.shape[0] // dp
+        x_loc = x[b * rows:(b + 1) * rows].clone().requires_grad_(True)
+        y = moe.forward(p, cfg, x_loc, tiles=ops.DEFAULT_TILES, par=ctx.view("mlp"))
+        loss = (y * r[b * rows:(b + 1) * rows]).sum()
+        loss.backward()
+        grads = {k: t.grad for k, t in p.items()}
+        ctx.reduce_batch_grads({f"mlp.{k}": g for k, g in grads.items()})
+        res = {
+            "y": cc.all_gather_raw(y.detach(), mesh, ctx.batch_axes, 0),
+            "dx": cc.all_gather_raw(x_loc.grad, mesh, ctx.batch_axes, 0),
+            "grads": gather_tree({"mlp": grads}, specs, mesh)["mlp"],
+            "local": {k: tuple(t.shape) for k, t in p.items()},
+        }
+        out.append(res if mesh.rank == 0 else {"local": res["local"]})
+    return out
+
+
+def ring_cases(mesh, xs: np.ndarray, steps: int, axes) -> dict:
+    """``compressed_psum`` of rank i's ``xs[i]`` over ``axes``: without error
+    feedback once, and with it over ``steps`` steps (each step's result)."""
+    i = mesh.index(axes)
+    x = torch.from_numpy(np.array(xs[i]))
+    plain, first_err = compressed_psum(x, mesh, axes)
+    err, fed = torch.zeros_like(x), []
+    for _ in range(steps):
+        red, err = compressed_psum(x, mesh, axes, error=err)
+        fed.append(red)
+    return {"plain": plain, "first_err": first_err, "fed": torch.stack(fed), "last_err": err}
+
+
+def prefill_one(mesh, arch: str, plan: dict, tree: dict, B: int, S: int):
+    """The mesh prefill step's logits of this rank's rows."""
+    cfg = get_config(arch).reduced()
+    step = make_prefill_step(cfg, None, SchedulePlan(**plan), mesh=mesh)
+    params = shard_params(convert.params_from_numpy(tree, cfg, device="cpu"), step.par)
+    return step(params, batch_for(cfg, B, S))
+
