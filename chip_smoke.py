@@ -139,6 +139,19 @@ limit as ``nvidia-smi`` reports them):
    logits against one process on the card; then the int8 ring over the 8
    ranks against its plain version (bit for bit) and the exact sum.  No
    collective runs over NVLink and no time here is a node's.
+10f. ``mesh_decode``: decode over the same mesh, 8 ranks on the card, 16
+   rows over a cache of 8,192 positions built whole from the seed and
+   sharded by ``ShardingRules.cache_pspecs``; granite-3-2b,
+   granite-moe-1b-a400m, falcon-mamba-7b and stablelm-12b (head_dim 160)
+   under the plans ``mcts_1s`` picks for ``decode_32k`` (KV heads over
+   ``model``, ``tp2d``, EP, vocab-parallel logits, ``d_inner``-split
+   state, int8 KV), and granite-3-2b with its cache split by position
+   (bf16 and int8; per-row positions, one row left out of ``commit``), each
+   at a depth cut; 8 teacher-forced steps from two positions before a
+   position shard's boundary, every rank's logits at every step against
+   one process on the card, launches (equal across ranks; rmsnorm,
+   moe_gemm and quantize non-zero where the job runs them), host-staged
+   collectives a step, step ms and peak GiB a rank (below one whole cache).
 11. ``parity``: 2-layer f32 models at full width of each serving arch, and
    of stablelm-12b (head_dim 160) and qwen2-vl-72b (embeddings, M-RoPE ids
    whose rows differ), card (kernels) against the port's CPU path (plain
@@ -3024,6 +3037,351 @@ def phase_mesh(torch, mods, device="cuda", small=False) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# mesh_decode: decode over the node's mesh, its ranks sharing the one card
+# ---------------------------------------------------------------------------
+# each job's cell: 16 rows over a cache of 8192 positions, built from the
+# seed whole (one period's leaf at a time) and sharded by cache_pspecs;
+# teacher-forced steps from two positions before the boundary of the 1 x 8
+# mesh's position shards (8192 / 8)
+MESH_DECODE_ROWS, MESH_DECODE_LEN, MESH_DECODE_STEPS = 16, 8192, 8
+MESH_DECODE_START = MESH_DECODE_LEN // 8 - 2
+# the depth cut: the phase's time beside the others (every layer adds two
+# host-staged bf16 all-reduces a step on each of the 8 ranks)
+MESH_DECODE_LAYERS = {"granite-3-2b": 8, "granite-moe-1b-a400m": 8, "falcon-mamba-7b": 8,
+                      "stablelm-12b": 8}
+MESH_DECODE_ARCHS = tuple(MESH_DECODE_LAYERS)
+# logits against one process, each step, and the cache's written window
+# (dequantized) after the last: relative norm of the difference.  f32 jobs
+# do the one process's arithmetic up to the order of sums: exact up to
+# rounding (NVIDIA H100 80GB HBM3, 700 W: 1.0e-5, the TP plan with an int8
+# cache, and 0.0).  bf16 jobs drift by the order of sums alone: with the
+# weights replicated, where only the softmax combine adds in another order,
+# the logits moved 0.7e-2 to 1.9e-2 at 8 layers; the search's plans, whose
+# TP partial sums are rounded to bf16 and added over 8 ranks, 1.7e-2 (the
+# falcon-mamba plan) to 7.7e-2 (granite-moe's, EP, whose combine is bf16
+# too); the cache windows 0.4e-2 to 1.9e-2.  Broken code is caught by the
+# f32 jobs' bounds (scripts/torch_fault_check.py)
+MESH_DECODE_REL = {"float32": 1e-3, "bfloat16": 1e-1}
+MESH_DECODE_CACHE_REL = {"float32": 1e-3, "bfloat16": 5e-2}
+MESH_DECODE_KERNELS = {"granite-3-2b": ("rmsnorm",), "granite-moe-1b-a400m": ("rmsnorm", "moe_gemm"),
+                       "falcon-mamba-7b": ("rmsnorm",), "stablelm-12b": ()}  # stablelm: layernorm
+
+
+def _mesh_decode_setup(job):
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.core.space import SchedulePlan
+
+    cfg = get_config(job["arch"])
+    cfg = cfg.reduced() if job.get("reduced") else cfg
+    cfg = dataclasses.replace(cfg, n_layers=job["layers"], dtype=job.get("dtype", cfg.dtype))
+    return cfg, SchedulePlan.from_dict(job["plan"]), InputShape("mesh_decode", job["len"], job["rows"],
+                                                                 "decode")
+
+
+def _mesh_decode_inputs(torch, cfg, job, device):
+    """Every step's tokens, positions and commit mask: a scalar position
+    for the search's plans; per-row positions (up to three behind) and a
+    row left out for the sequence-split ones."""
+    g = torch.Generator(device="cpu").manual_seed(SEED + 23)
+    B = job["rows"]
+    tok = torch.randint(0, cfg.vocab_size, (job["steps"], B, 1), generator=g).to(device)
+    if job["per_row"]:
+        start = job["start"] - torch.arange(B) % 4
+        commit = (torch.arange(B) != 3).to(device)
+    else:
+        start, commit = torch.tensor(job["start"]), None
+    return tok, [(start + t).to(device) for t in range(job["steps"])], commit
+
+
+def _fill_decode_cache(torch, transformer, cfg, cache, par, job, kv_dtype) -> int:
+    """Every leaf of ``cache`` (``par``'s shard, or whole on one device) from
+    the seed: each period's whole leaf drawn on the card, this rank's shard
+    kept.  Returns the whole cache's bytes."""
+    from repro_torch.sharding.parallel import shard_leaf
+
+    shapes = transformer.cache_shapes(cfg, job["rows"], job["len"], kv_dtype)
+    whole_bytes = 0
+    for bi, b in enumerate(sorted(cache)):
+        for li, name in enumerate(sorted(cache[b])):
+            leaf, shape = cache[b][name], shapes[b][name]
+            spec = par.cache_spec(name, shape)
+            whole_bytes += math.prod(shape) * leaf.element_size()
+            for p in range(shape[0]):
+                g = torch.Generator(device=leaf.device).manual_seed(SEED + 10_000 * bi + 100 * li + p)
+                kw = dict(generator=g, device=leaf.device)
+                if leaf.dtype == torch.int8:
+                    whole = torch.randint(-127, 128, shape[1:], dtype=torch.int8, **kw)
+                elif name in ("k_s", "v_s"):
+                    whole = torch.rand(shape[1:], **kw) * 0.04 + 0.01
+                else:
+                    whole = torch.randn(shape[1:], **kw) * (0.1 if name == "ssm" else 0.5)
+                leaf[p].copy_(shard_leaf(whole, spec[1:], par.mesh, name))
+                del whole
+    return whole_bytes
+
+
+def _decode_window(job):
+    """The global positions the check of the cache reads: the rows the run
+    writes, with the ones just before them."""
+    return job["start"] - 5, job["start"] + job["steps"]
+
+
+def _cache_window(torch, cache, par, job) -> dict:
+    """Of each attention leaf, the part of the written window this rank
+    holds (on the host), with its first KV head and position in the
+    window."""
+    from repro_torch.sharding.rules import axes_of
+
+    w0, w1 = _decode_window(job)
+    out = {}
+    for b, c in cache.items():
+        if "k" not in c:
+            continue
+        H, L = c["k"].shape[2], c["k"].shape[3]
+        h0 = par.mesh.index("model") * H if axes_of(par.kv[1]) else 0
+        seq = axes_of(par.kv[2])
+        o = par.mesh.index(seq) * L if seq else 0
+        lo, hi = max(o, w0), min(o + L, w1)
+        for name, leaf in c.items():
+            if hi > lo:
+                out[f"{b}.{name}"] = (leaf[:, :, :, lo - o:hi - o].to("cpu", copy=True), h0, lo - w0)
+    return out
+
+
+def _dequantized_window(torch, parts: dict, b: str):
+    k, v = parts[f"{b}.k"].float(), parts[f"{b}.v"].float()
+    if f"{b}.k_s" in parts:
+        k, v = k * parts[f"{b}.k_s"], v * parts[f"{b}.v_s"]
+    return torch.cat([k.flatten(), v.flatten()])
+
+
+def _mesh_decode_rank_job(torch, mesh, job, out_dir):
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.sharding import collectives as cc
+    from repro_torch.training.train_step import make_serve_step, shard_params
+
+    cfg, plan, shape = _mesh_decode_setup(job)
+    step = make_serve_step(cfg, shape, plan, mesh=mesh)
+    par = step.par
+    on_card = mesh.device.type == "cuda"
+    params = None
+    for r in range(mesh.spec.size):  # one rank at a time holds the whole weights
+        if mesh.rank == r:
+            full = transformer.init_params(cfg, SEED, device=mesh.device)
+            params = shard_params(full, par)
+            del full
+            gc.collect()
+            if on_card:
+                torch.cuda.empty_cache()
+        dist.barrier()
+    _sync(torch, mesh.device)
+    base = 0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()  # the weights' shards
+    cache = transformer.init_cache(cfg, job["rows"], job["len"], plan.kv_dtype, device=mesh.device,
+                                   par=par)
+    whole_bytes = _fill_decode_cache(torch, transformer, cfg, cache, par, job, plan.kv_dtype)
+    local_bytes = sum(t.numel() * t.element_size() for c in cache.values() for t in c.values())
+    ref = torch.load(os.path.join(out_dir, job["name"] + ".pt"), weights_only=True)["logits"]
+    tok, curs, commit = _mesh_decode_inputs(torch, cfg, job, mesh.device)
+    _sync(torch, mesh.device)
+    ops.reset_counters()
+    cc.reset_host_staged()
+    errs, ms = [], []
+    for t in range(job["steps"]):
+        t0 = time.perf_counter()
+        logits, cache = step(params, cache, tok[t], curs[t], commit)
+        _sync(torch, mesh.device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        got = logits.float().cpu()
+        errs.append(((got - ref[t]).norm() / ref[t].norm()).item()
+                    if torch.isfinite(got).all() else math.inf)
+    counts, staged = ops.launch_counts(), dict(cc.HOST_STAGED)
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    window = _cache_window(torch, cache, par, job)
+    del params, cache, logits, step
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return {"rel_err": errs, "ms": ms, "launches": counts, "host_staged": staged,
+            "peak_gib": peak / 2**30, "peak_above_weights_gib": (peak - base) / 2**30 if on_card else 0,
+            "cache_local_gib": local_bytes / 2**30, "cache_whole_gib": whole_bytes / 2**30,
+            "kv": list(par.kv), "window": window}
+
+
+def mesh_decode_rank(mesh, jobs, out_dir):
+    """What each rank of the mesh_decode phase runs (``run_on_mesh``)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the f32 jobs in true f32, as the one process
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"backend": mesh.backend, "device": str(mesh.device), "jobs": {}}
+    for job in jobs:
+        t0 = time.perf_counter()
+        out["jobs"][job["name"]] = _mesh_decode_rank_job(torch, mesh, job, out_dir)
+        if mesh.rank == 0:
+            print(json.dumps({"phase": "mesh_decode_progress", "job": job["name"],
+                              "seconds": time.perf_counter() - t0}), flush=True)
+    return out
+
+
+def _mesh_decode_reference(torch, mods, job, device, out_dir) -> dict:
+    """One process on the card from the same seed's weights and cache: each
+    step's logits (f32, on the host) and the cache's written window, saved
+    for the ranks and the check."""
+    cfg, plan, shape = _mesh_decode_setup(job)
+    params = mods.transformer.init_params(cfg, SEED, device=device)
+    step = mods.make_serve_step(cfg, shape, plan, device=device)
+    cache = mods.transformer.init_cache(cfg, job["rows"], job["len"], plan.kv_dtype, device=device)
+    _fill_decode_cache(torch, mods.transformer, cfg, cache, step.par, job, plan.kv_dtype)
+    tok, curs, commit = _mesh_decode_inputs(torch, cfg, job, device)
+    logits, ms = [], []
+    for t in range(job["steps"]):
+        t0 = time.perf_counter()
+        lg, cache = step(params, cache, tok[t], curs[t], commit)
+        _sync(torch, device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        logits.append(lg.float().cpu())
+    window = {k: v[0] for k, v in _cache_window(torch, cache, step.par, job).items()}
+    torch.save({"logits": torch.stack(logits), "window": window},
+               os.path.join(out_dir, job["name"] + ".pt"))
+    del params, cache, lg, step
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return {"ms": ms}
+
+
+def _window_rel(torch, job, per_rank, ref_window) -> float:
+    """The written window assembled from every rank's parts against one
+    process's: relative norm of the dequantized K and V."""
+    whole = {k: torch.zeros_like(v) for k, v in ref_window.items()}
+    for r in per_rank:
+        for k, (part, h0, p0) in r["window"].items():
+            whole[k][:, :, h0:h0 + part.shape[2], p0:p0 + part.shape[3]] = part
+    blocks = sorted({k.split(".")[0] for k in whole})
+    if not blocks:
+        return 0.0
+    got = torch.cat([_dequantized_window(torch, whole, b) for b in blocks])
+    exp = torch.cat([_dequantized_window(torch, ref_window, b) for b in blocks])
+    return ((got - exp).norm() / exp.norm()).item()
+
+
+def mesh_decode_jobs(mods, small: bool = False) -> list:
+    """The phase's jobs: each arch under its ``decode_32k`` plan, and
+    granite-3-2b with the cache split by position, bf16 and int8."""
+    plans = {a: mods.autotune(a, "decode_32k", algo="mcts_1s", hw="h100", mesh="single").plan.to_dict()
+             for a in MESH_DECODE_ARCHS}
+    seq = {**mods.SchedulePlan().to_dict(), "param_strategy": "replicated", "seq_shard": True}
+    cell = dict(rows=MESH_DECODE_ROWS, len=MESH_DECODE_LEN, steps=MESH_DECODE_STEPS,
+                start=MESH_DECODE_START)
+    if small:
+        cell = dict(cell, reduced=True, len=64, rows=8, start=64 // 8 - 2)
+    jobs = [dict(name=a, arch=a, layers=MESH_DECODE_LAYERS[a], plan=plans[a], per_row=False, **cell)
+            for a in MESH_DECODE_ARCHS]
+    jobs += [dict(name=f"granite_seq_{kv}", arch="granite-3-2b", plan={**seq, "kv_dtype": kv},
+                  layers=MESH_DECODE_LAYERS["granite-3-2b"], per_row=True, **cell)
+             for kv in ("bf16", "int8")]
+    # the same layouts in f32, held to one process up to rounding
+    jobs += [dict(j, name=j["name"] + "_f32", dtype="float32") for j in jobs
+             if j["arch"] in ("granite-3-2b", "falcon-mamba-7b")]
+    if small:
+        for j in jobs:
+            j["layers"] = len(mods.get_config(j["arch"]).layer_plan()) * 2
+    return jobs
+
+
+def phase_mesh_decode(torch, mods, device="cuda", small=False, jobs=None) -> dict:
+    """Decode over the H100 node's mesh (1 x 8) as 8 ranks sharing the one
+    card over gloo: ``mesh_decode_jobs``' granite-3-2b,
+    granite-moe-1b-a400m, falcon-mamba-7b and stablelm-12b (head_dim 160)
+    under the plans ``mcts_1s`` picks for ``decode_32k`` (``hw="h100"``,
+    mesh ``single``), and granite-3-2b with its cache split by position
+    (``replicated``, ``seq_shard``), bf16 and int8; and the granite-3-2b
+    and falcon-mamba-7b jobs again in f32.  Each job against one process on
+    the card: the logits at every step and the cache's written window after
+    the last (relative norms within ``MESH_DECODE_REL`` and
+    ``MESH_DECODE_CACHE_REL`` of the model's dtype); every rank's launches
+    (non-zero for the path's kernels, equal across ranks), host-staged
+    collectives a step, step ms (a rank on a shared card, not a node's) and
+    peak (what the cache's build and the steps add to the weights' shards:
+    below one whole cache).  Every job is reported before a failure raises.
+    ``device="cpu", small=True`` rehearses it on the CPU (reduced configs,
+    a short cache, the launch and memory checks off)."""
+    from repro_torch.core.space import get_mesh
+    from repro_torch.launch.mesh import run_on_mesh
+
+    spec = get_mesh("h100", "single")
+    jobs = jobs or mesh_decode_jobs(mods, small)
+    out_dir = ROOT / "build" / "chip_smoke_mesh_decode"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    refs = {j["name"]: _mesh_decode_reference(torch, mods, j, device, str(out_dir)) for j in jobs}
+    alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    t0 = time.perf_counter()
+    try:
+        ranks = run_on_mesh(spec, mesh_decode_rank, jobs, str(out_dir), device=device,
+                            share_card=True, timeout=900)
+    finally:
+        if alloc_conf is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
+    ranks_s = time.perf_counter() - t0
+    total = {n: 0 for n in KERNELS}
+    failed = []
+    for job in jobs:
+        name = job["name"]
+        per_rank = [r["jobs"][name] for r in ranks]
+        dtype = _mesh_decode_setup(job)[0].dtype
+        bound, cache_bound = MESH_DECODE_REL[dtype], MESH_DECODE_CACHE_REL[dtype]
+        ref = torch.load(out_dir / f"{name}.pt", weights_only=True)
+        cache_rel = _window_rel(torch, job, per_rank, ref["window"])
+        int8 = job["plan"]["kv_dtype"] == "int8"
+        need = MESH_DECODE_KERNELS[job["arch"]] + (("quantize_int8",) if int8 else ())
+        for i, r in enumerate(per_rank):
+            missing = [k for k in need if not r["launches"][k]] if device == "cuda" else []
+            if missing or r["launches"] != per_rank[0]["launches"]:
+                failed.append(f"{name} rank {i}: no launch of {missing}, launches {r['launches']} "
+                              f"against rank 0's {per_rank[0]['launches']}")
+            if not max(r["rel_err"]) <= bound:
+                failed.append(f"{name} rank {i}: logits error {r['rel_err']} (bound {bound})")
+            if device == "cuda" and not r["peak_above_weights_gib"] < r["cache_whole_gib"]:
+                failed.append(f"{name} rank {i}: peak {r['peak_above_weights_gib']} GiB above the "
+                              f"weights, not below one whole cache ({r['cache_whole_gib']} GiB)")
+            for k in KERNELS:
+                total[k] += r["launches"][k]
+        if not cache_rel <= cache_bound:
+            failed.append(f"{name}: the cache's written window {cache_rel} from one process's "
+                          f"(bound {cache_bound})")
+        emit("mesh_decode", job=name, arch=job["arch"], n_layers=job["layers"], dtype=dtype,
+             plan=job["plan"], rows=job["rows"],
+             cache_len=job["len"], steps=job["steps"], start=job["start"], per_row_cur=job["per_row"],
+             ranks=spec.size, backend=ranks[0]["backend"], kv_spec=per_rank[0]["kv"],
+             rel_err_per_rank=[r["rel_err"] for r in per_rank],
+             worst_rel_err=max(max(r["rel_err"]) for r in per_rank), bound=bound,
+             cache_window_rel=cache_rel, cache_bound=cache_bound,
+             launches_per_rank=[r["launches"] for r in per_rank],
+             host_staged_per_step_per_rank=[{op: n / job["steps"] for op, n in r["host_staged"].items()}
+                                            for r in per_rank],
+             step_ms_per_rank=[r["ms"] for r in per_rank], one_process_step_ms=refs[name]["ms"],
+             peak_gib_per_rank=[r["peak_gib"] for r in per_rank],
+             peak_above_weights_gib_per_rank=[r["peak_above_weights_gib"] for r in per_rank],
+             cache_local_gib=per_rank[0]["cache_local_gib"],
+             cache_whole_gib=per_rank[0]["cache_whole_gib"],
+             nvlink="not used: the 8 ranks share one card over gloo; a step's ms is a rank's on a "
+                    "shared card, not a node's")
+    emit("mesh_decode_summary", ranks=spec.size, ranks_seconds=ranks_s, launches_all_ranks=total)
+    if failed:
+        raise AssertionError("mesh_decode: " + "; ".join(failed))
+    return total
+
 def _summary_row(n: str, rows: list, launches: int) -> dict:
     """One kernel's entry of the ``kernels`` line; for the int8 pair, from the
     quantize phase's rows (``dequant_*`` fields for the dequantize)."""
@@ -3223,6 +3581,7 @@ def main() -> int:
     timed_phase("service", phase_service, torch, mods, res, measure_res, measure_cache, cut)
     # distribution: the H100 node's mesh as 8 ranks on the one card
     add(timed_phase("mesh", phase_mesh, torch, mods))
+    add(timed_phase("mesh_decode", phase_mesh_decode, torch, mods))
     for n in KERNELS:
         if launches[n] == 0:
             raise AssertionError(f"the main paths launched no {n} kernel")

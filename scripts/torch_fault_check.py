@@ -13,7 +13,17 @@ which run where JAX is (not on the card's machine):
 
 and one more, a sequence-parallel norm's gradient left unsummed over the
 model ranks (``sp_norm_grad_not_summed``), by the card's ``mesh`` phase,
-leaf by leaf.
+leaf by leaf.  Four faults of decode over a mesh (the partial softmaxes
+combined under each rank's own max, the mask on local positions, the new
+row at a shard's first position written on the shard before, and Mamba's
+``in_proj`` taken as a contiguous split) must be caught both by
+``tests/test_torch_mesh_decode.py`` and by the card's ``mesh_decode``
+phase: each machine runs the half it can (the tests where JAX is, the
+phase where the CUDA toolkit is), so run those cases on both:
+
+    PYTHONPATH=src python3 scripts/torch_fault_check.py DIR mesh_decode_combine_local_max \
+        mesh_decode_mask_local_positions mesh_decode_write_on_neighbour \
+        mamba_decode_in_proj_whole_split
 
 ``DIR`` must lie outside the checkout; naming cases runs the control and
 those cases only.  Each case is a copy of ``src/`` and ``chip_smoke.py`` in
@@ -24,12 +34,14 @@ archs' decode positions); the copy builds its own kernels and runs, in a
 fresh process, the ``chip_smoke`` phase that must catch it: the file's
 phase, or the case's own where it names one (the unedited control runs
 every phase of the cases run; a case checked by CPU tests runs them on
-its copy with ``pytest``).  The control must pass and every mutant
-(twenty-nine of them) must fail.  Prints one JSON line per case (with the
-failing check's numbers) and exits 1 if any case went the other way.
+its copy with ``pytest``).  The control must pass every check and every
+mutant (thirty-three of them) must fail every check it runs.  Prints one
+JSON line per case (with the failing check's numbers) and exits 1 if any
+case went the other way.
 """
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
 import shutil
@@ -53,12 +65,15 @@ PHASES = {
     "phase_embed_decode_parity": "chip_smoke.phase_embed_decode_parity(torch, np, chip_smoke.make_mods())",
     # the mesh's ranks find the kernels built
     "phase_mesh": "_build.build(chip_smoke.LIBRARIES); chip_smoke.phase_mesh(torch, chip_smoke.make_mods())",
+    "phase_mesh_decode": ("_build.build(chip_smoke.LIBRARIES); "
+                          "chip_smoke.phase_mesh_decode(torch, chip_smoke.make_mods())"),
 }
 # CPU tests (pytest arguments) that catch a case, run on the case's copy
 TESTS = {
     "tests_ring": ["tests/test_torch_sharding.py", "-k", "ring"],
     "tests_ep": ["tests/test_torch_sharding.py", "-k", "expert_parallel"],
     "tests_mesh_step": ["tests/test_torch_distributed.py", "-k", "2x2 and falcon"],
+    "tests_mesh_decode": ["tests/test_torch_mesh_decode.py"],
 }
 # the phase that must catch a fault in each file
 PHASE_OF = {
@@ -260,6 +275,31 @@ CASES = {
         "        pos = pos[:, None, :].expand(B, 3, 1)\n",
         "        pos = torch.cat([pos[:, None, :], torch.zeros_like(pos)[:, None, :].expand(B, 2, 1)], 1)\n",
     )], "phase_embed_decode_parity"),
+    # decode over a cache split by position: the partial softmaxes combined
+    # under each rank's own max, with no rescale to the global one
+    "mesh_decode_combine_local_max": ("sharding/collectives.py", [(
+        'm = all_reduce_(logits.amax(dim=-1, keepdim=True).contiguous(), mesh, axes, "max")',
+        "m = logits.amax(dim=-1, keepdim=True)",
+    )], ("tests_mesh_decode", "phase_mesh_decode")),
+    # the mask compares a rank's local position with the row's global cur
+    "mesh_decode_mask_local_positions": ("models/attention.py", [(
+        "t = torch.arange(o, o + L, device=x.device)  # global positions",
+        "t = torch.arange(L, device=x.device)  # global positions",
+    )], ("tests_mesh_decode", "phase_mesh_decode")),
+    # the new row at a shard's first position is written at the end of the
+    # shard before it
+    "mesh_decode_write_on_neighbour": ("models/attention.py", [(
+        "hit = (at >= o) & (at < o + L)", "hit = (at > o) & (at <= o + L)",
+    )], ("tests_mesh_decode", "phase_mesh_decode")),
+    # Mamba's decode takes in_proj's columns as a contiguous split of [x | z]
+    # (rank 0 all of x at tp 2) instead of its own channels of each half
+    "mamba_decode_in_proj_whole_split": ("models/mamba.py", [(
+        '    xi, z = (x[:, 0] @ p["in_proj"]).chunk(2, dim=-1)  # (B, Di) each: this rank\'s channels\n',
+        '    xz = cc.all_gather_raw(x[:, 0] @ p["in_proj"], par.mesh, "model", 1)\n'
+        "    n = par.ctx.tp\n"
+        "    xz = xz.reshape(xz.shape[0], n, 2, -1).transpose(1, 2).reshape(xz.shape[0], -1)\n"
+        "    xi, z = xz.chunk(n, dim=-1)[par.ctx.tp_rank].chunk(2, dim=-1)\n",
+    )], ("tests_mesh_decode", "phase_mesh_decode")),
 }
 
 RUN = """
@@ -276,8 +316,18 @@ torch.backends.cuda.matmul.allow_tf32 = False
 """
 
 
-def _phase(edit) -> str:
-    return edit[2] if len(edit) > 2 else PHASE_OF[edit[0]]
+def _phases(edit) -> list:
+    """The checks that must catch a case: one, or a tuple of a CPU test run
+    and a card phase, each run where it can (``_runnable``)."""
+    p = edit[2] if len(edit) > 2 else PHASE_OF[edit[0]]
+    return [q for q in p if _runnable(q)] if isinstance(p, tuple) else [p]
+
+
+def _runnable(phase: str) -> bool:
+    """CPU tests need JAX (the reference); a card phase needs the CUDA toolkit."""
+    if phase in TESTS:
+        return importlib.util.find_spec("jax") is not None
+    return shutil.which("nvcc") is not None or os.path.exists("/usr/local/cuda/bin/nvcc")
 
 
 def run_case(base: Path, name: str, edit, cases: dict) -> dict:
@@ -285,10 +335,10 @@ def run_case(base: Path, name: str, edit, cases: dict) -> dict:
     shutil.rmtree(work, ignore_errors=True)
     shutil.copytree(ROOT / "src", work / "src", ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy2(ROOT / "chip_smoke.py", work / "chip_smoke.py")
-    if any(_phase(c) in TESTS for c in cases.values() if c is not None):
+    if any(p in TESTS for c in cases.values() if c is not None for p in _phases(c)):
         shutil.copytree(ROOT / "tests", work / "tests", ignore=shutil.ignore_patterns("__pycache__"))
         shutil.copy2(ROOT / "pyproject.toml", work / "pyproject.toml")
-    phases = sorted({_phase(c) for c in cases.values() if c is not None})
+    phases = sorted({p for c in cases.values() if c is not None for p in _phases(c)})
     if edit is not None:
         rel, pairs = edit[:2]
         path = work / PORT / rel
@@ -298,8 +348,10 @@ def run_case(base: Path, name: str, edit, cases: dict) -> dict:
                 raise RuntimeError(f"{name}: the text to edit is not in {path.name}")
             text = text.replace(old, new, 1)
         path.write_text(text)
-        phases = [_phase(edit)]
-    failure, passed = [], True
+        phases = _phases(edit)
+        if not phases:
+            raise RuntimeError(f"{name}: none of its checks can run on this machine")
+    failure, passes = [], []
     for phase in phases:
         if phase in TESTS:
             proc = subprocess.run(
@@ -309,7 +361,7 @@ def run_case(base: Path, name: str, edit, cases: dict) -> dict:
             lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("FAILED")]
             if proc.returncode not in (0, 1) or (proc.returncode == 1 and not lines):
                 raise RuntimeError(f"{name}: the {phase} tests did not run:\n{proc.stdout[-4000:]}")
-            passed &= proc.returncode == 0
+            passes.append(proc.returncode == 0)
             failure += lines
             continue
         proc = subprocess.run([sys.executable, "-c", RUN.format(call=PHASES[phase])],
@@ -317,10 +369,12 @@ def run_case(base: Path, name: str, edit, cases: dict) -> dict:
         lines = [ln for ln in proc.stderr.splitlines() if ln.startswith("AssertionError")]
         if proc.returncode != 0 and not lines:
             raise RuntimeError(f"{name}: the {phase} phase did not run:\n{proc.stderr[-4000:]}")
-        passed &= proc.returncode == 0
+        passes.append(proc.returncode == 0)
         failure += lines
-    return {"case": name, "phases": phases, "phase_passed": passed,
-            "caught": failure[-1] if failure else None, "as_expected": passed == (edit is None)}
+    # the control must pass every check; a mutant must fail every one
+    ok = all(passes) if edit is None else not any(passes)
+    return {"case": name, "phases": phases, "phase_passed": passes,
+            "caught": failure[-1] if failure else None, "as_expected": ok}
 
 
 def main() -> int:

@@ -75,9 +75,16 @@ for arch, fields, dtype in {cases!r}:
         for t in range(3):
             lg, cache = serve(params, cache, inputs[:, t:t + 1], t)
             decoded.append(lg.clone())
+        # continuous batching: an int8 cache, per-row positions, a row left out
+        cache8 = transformer.init_cache(cfg, B, 8, kv_dtype="int8", device="cpu")
+        commit = torch.tensor([True, False, True, True])
+        for t in range(3):
+            cur = torch.tensor([t, t + 1, t, t + 2])
+            lg, cache8 = serve(params, cache8, inputs[:, t:t + 1], cur, commit)
+            decoded.append(lg.clone())
     out.append({{"metrics": metrics,
                  "params": {{k: v.detach().clone() for k, v in optim.leaves(params)}},
-                 "opt": opt, "logits": logits, "decoded": decoded}})
+                 "opt": opt, "logits": logits, "decoded": decoded, "caches": [cache, cache8]}})
 with open({path!r}, "wb") as f:
     pickle.dump(out, f)
 """

@@ -12,6 +12,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ops import KernelTiles
 from repro_torch.models import layers
+from repro_torch.sharding import collectives as cc
 from repro_torch.sharding.parallel import local_view
 
 
@@ -98,21 +99,30 @@ def forward(
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device,
-               kv_dtype: str = "bf16", n_periods: int = 0) -> dict:
+               kv_dtype: str = "bf16", n_periods: int = 0, par=None) -> dict:
+    """The KV cache of ``batch`` rows over ``max_len`` positions; given ``par``
+    (a ``ParallelContext``), only this rank's shard of each leaf, by the
+    rules' cache spec (a rank never holds the whole cache)."""
     lead = (n_periods,) if n_periods else ()
     shape = lead + (batch, cfg.n_kv_heads, max_len, cfg.resolved_head_dim)
+
+    def leaf(name, shape, make, dt):
+        if par is not None:
+            shape = par.cache_local_shape(name, shape, bool(lead))
+        return make(shape, dtype=dt, device=device)
+
     if kv_dtype == "int8":
         # rowwise (per b, h, position) symmetric int8 codes and an f32 scale
         # that starts at one, as in the JAX package
         return {
-            "k": torch.zeros(shape, dtype=torch.int8, device=device),
-            "v": torch.zeros(shape, dtype=torch.int8, device=device),
-            "k_s": torch.ones(shape[:-1] + (1,), dtype=torch.float32, device=device),
-            "v_s": torch.ones(shape[:-1] + (1,), dtype=torch.float32, device=device),
+            "k": leaf("k", shape, torch.zeros, torch.int8),
+            "v": leaf("v", shape, torch.zeros, torch.int8),
+            "k_s": leaf("k_s", shape[:-1] + (1,), torch.ones, torch.float32),
+            "v_s": leaf("v_s", shape[:-1] + (1,), torch.ones, torch.float32),
         }
     return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "k": leaf("k", shape, torch.zeros, dtype),
+        "v": leaf("v", shape, torch.zeros, dtype),
     }
 
 
@@ -125,16 +135,43 @@ def _quant_kv(x: torch.Tensor):
     return q.view(B, Hkv, 1, hd), s.view(B, Hkv, 1, 1)
 
 
-def _write_at_cur_(c: torch.Tensor, new: torch.Tensor, cur: torch.Tensor, commit) -> None:
-    """Write ``new (B,Hkv,1,hd)`` into ``c (B,Hkv,L,hd)`` in place at position
-    ``cur`` (scalar, or ``(B,)`` per row), in the rows where ``commit`` is
-    true (every row when ``commit`` is None); the other rows keep their slot."""
+def _write_at_cur_(c: torch.Tensor, new: torch.Tensor, cur: torch.Tensor, commit, o: int) -> None:
+    """Write ``new (B,Hkv,1,hd)`` in place at global position ``cur``
+    (scalar, or ``(B,)`` per row) into ``c (B,Hkv,L,hd)``, which holds
+    positions ``[o, o + L)``: in the rows whose ``cur`` lies there and that
+    ``commit`` holds (every row when it is None); the other rows keep their
+    slot."""
+    L = c.shape[2]
     rows = torch.arange(c.shape[0], device=c.device)
-    pos = cur.expand(c.shape[0])
-    new = new[:, :, 0]
+    at = cur.expand(c.shape[0])
+    hit = (at >= o) & (at < o + L)
     if commit is not None:
-        new = torch.where(commit[:, None, None], new, c[rows, :, pos])
-    c[rows, :, pos] = new
+        hit = hit & commit
+    pos = (at - o).clamp(0, L - 1)
+    c[rows, :, pos] = torch.where(hit[:, None, None], new[:, :, 0], c[rows, :, pos])
+
+
+def _project_decode(p, x, cfg, par, Hc: int):
+    """q of the heads this rank runs, the new K/V of the ``Hc`` KV heads its
+    cache holds, ``wo`` and whether the region is head-parallel.
+
+    Head-parallel as ``_project_heads``; K/V are the rank's KV heads where
+    the cache splits them over ``model``, else every KV head (``wk``/``wv``
+    gathered on use where they are split), which every model rank then
+    writes alike."""
+    H, hd = cfg.n_heads, cfg.resolved_head_dim
+    heads_tp = par.on_model("wq", 1) and H % par.ctx.tp == 0
+    x = par.ctx.enter(x, heads_tp)
+    B = x.shape[0]
+    split_kv = Hc < cfg.n_kv_heads
+
+    def proj(name, n):
+        w = par.w(p, name, want=1 if heads_tp and (name == "wq" or split_kv) else None, tp=heads_tp)
+        return (x @ w).reshape(B, 1, n, hd).transpose(1, 2)
+
+    q = proj("wq", H // par.ctx.tp if heads_tp else H)
+    wo = par.w(p, "wo", want=0 if heads_tp else None, tp=heads_tp)
+    return q, proj("wk", Hc), proj("wv", Hc), wo, heads_tp
 
 
 def decode_step(
@@ -144,6 +181,8 @@ def decode_step(
     x: torch.Tensor,  # (B, 1, d)
     cur: torch.Tensor,  # int position of the new token: scalar, or (B,) per-row
     commit=None,  # (B,) bool: the rows whose new K/V is written; None = all
+    *,
+    par=None,
 ) -> Tuple[torch.Tensor, dict]:
     """Attend one new token per row and write its K/V into ``cache`` in place
     (the JAX step returns a new cache instead).  A row outside ``commit``
@@ -153,13 +192,30 @@ def decode_step(
     An int8 cache (``k_s`` / ``v_s`` scales, ``init_cache(kv_dtype="int8")``)
     takes each new K and V row through the quantize kernel and is never
     dequantized: the scales fold into the logits and the probabilities, and
-    the codes go int8 -> bf16 -> f32 in the products, as in the JAX package."""
+    the codes go int8 -> bf16 -> f32 in the products, as in the JAX package.
+
+    ``par`` (a ``ParamView``, one device's by default) with its context's
+    decode layout (``ParallelContext.for_decode``): ``x`` holds this rank's
+    rows and ``cache`` its shard.  Heads split over ``model`` as in
+    ``forward``; where the cache keeps every KV head, every model rank
+    writes them all and reads its q heads' groups.  Where the cache's
+    positions are split (over ``model``, or the whole mesh for batch-1
+    long context) the rank holds ``[o, o + L)``, writes the new row only
+    where ``cur`` lies there, masks by global position, and the partial
+    softmaxes combine explicitly (``collectives.softmax_combine``); a rank
+    that runs only some q heads then attends with every head (q gathered
+    over ``model``: the other model ranks hold other positions of them)."""
+    par = par or local_view(p)
+    ctx = par.ctx
     B = x.shape[0]
     hd = cfg.resolved_head_dim
     cur = torch.as_tensor(cur, dtype=torch.long, device=x.device)
     per_row = cur.ndim == 1  # continuous batching: each row at its own length
+    Hc, L = cache["k"].shape[1], cache["k"].shape[2]  # the KV heads and positions this rank holds
+    seq_axes = ctx.kv_seq_axes()
+    o = ctx.mesh.index(seq_axes) * L if seq_axes else 0  # the first position this rank holds
 
-    q, k_new, v_new = _project(p, x, cfg)  # (B,H,1,hd), (B,Hkv,1,hd)
+    q, k_new, v_new, wo, heads_tp = _project_decode(p, x, cfg, par, Hc)
     pos = cur[:, None] if per_row else cur.expand(B, 1)
     if cfg.pos_kind == "mrope":  # a decoded token: the same id in all three components
         pos = pos[:, None, :].expand(B, 3, 1)
@@ -168,30 +224,46 @@ def decode_step(
     int8_kv = "k_s" in cache
     if int8_kv:
         (kq, ks), (vq, vs) = _quant_kv(k_new), _quant_kv(v_new)
-        _write_at_cur_(k, kq, cur, commit)
-        _write_at_cur_(v, vq, cur, commit)
-        _write_at_cur_(cache["k_s"], ks, cur, commit)
-        _write_at_cur_(cache["v_s"], vs, cur, commit)
+        _write_at_cur_(k, kq, cur, commit, o)
+        _write_at_cur_(v, vq, cur, commit, o)
+        _write_at_cur_(cache["k_s"], ks, cur, commit, o)
+        _write_at_cur_(cache["v_s"], vs, cur, commit, o)
         k_scale = cache["k_s"][..., 0][:, :, None, None, :]  # (B, Hkv, 1, 1, L)
         v_scale = cache["v_s"][..., 0][:, :, None, None, :]
         k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
     else:
-        _write_at_cur_(k, k_new.to(k.dtype), cur, commit)
-        _write_at_cur_(v, v_new.to(v.dtype), cur, commit)
-    # GQA-grouped masked attention over the full cache: query heads reshape
-    # to (Hkv, groups) so the cache is never repeated; f32 on the logits.
+        _write_at_cur_(k, k_new.to(k.dtype), cur, commit, o)
+        _write_at_cur_(v, v_new.to(v.dtype), cur, commit, o)
+        k_scale = v_scale = None
+    Hq = q.shape[1]
+    every_head = heads_tp and "model" in seq_axes
+    if every_head:
+        q = cc.all_gather_raw(q, ctx.mesh, "model", 1)
+    elif heads_tp and Hc == cfg.n_kv_heads:
+        # the whole cache's KV heads: read the groups of this rank's q heads
+        g = cfg.n_heads // cfg.n_kv_heads
+        lo, n_kv = ctx.tp_rank * Hq // g, max(1, Hq // g)
+        k, v = k[:, lo:lo + n_kv], v[:, lo:lo + n_kv]
+        if int8_kv:
+            k_scale, v_scale = k_scale[:, lo:lo + n_kv], v_scale[:, lo:lo + n_kv]
+    # GQA-grouped masked attention over the cache: query heads reshape to
+    # (Hkv, groups) so the cache is never repeated; f32 on the logits.
     # Plain PyTorch, as the JAX package's decode attention is plain jnp.
-    groups = cfg.n_heads // cfg.n_kv_heads
-    qg = q.reshape(B, cfg.n_kv_heads, groups, 1, hd)
+    Hk = k.shape[1]
+    qg = q.reshape(B, Hk, q.shape[1] // Hk, 1, hd)
     logits = torch.einsum("bkgqd,bktd->bkgqt", qg.float(), k.float()) * (hd ** -0.5)
     if int8_kv:
         logits = logits * k_scale
-    t = torch.arange(k.shape[2], device=x.device)
+    t = torch.arange(o, o + L, device=x.device)  # global positions
     lim = cur[:, None, None, None, None] if per_row else cur
     logits = logits.masked_fill(~(t <= lim), -1e30)
     probs = torch.softmax(logits, dim=-1)
     if int8_kv:
         probs = probs * v_scale
-    o = torch.einsum("bkgqt,bktd->bkgqd", probs, v.float()).to(x.dtype)
-    o = o.reshape(B, cfg.n_heads, 1, hd).transpose(1, 2).reshape(B, 1, -1)
-    return o @ p["wo"], cache
+    att = torch.einsum("bkgqt,bktd->bkgqd", probs, v.float())
+    att = cc.softmax_combine(att, logits, ctx.mesh, seq_axes).to(x.dtype)
+    att = att.reshape(B, -1, 1, hd)
+    if every_head:
+        att = att[:, ctx.tp_rank * Hq:(ctx.tp_rank + 1) * Hq]
+    att = att.transpose(1, 2).reshape(B, 1, -1)
+    return ctx.exit(att @ wo, heads_tp), cache

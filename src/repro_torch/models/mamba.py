@@ -73,6 +73,18 @@ def _ssm_inputs(p: dict, xc: torch.Tensor, cfg: ModelConfig, par=None):
     return dt, A, Bm, Cm
 
 
+_WANT = {"in_proj": 1, "conv_w": 1, "conv_b": 0, "x_proj": 0, "dt_w": 1, "dt_b": 0,
+         "A_log": 0, "Dp": 0, "out_proj": 0}
+
+
+def _weights(p: dict, cfg: ModelConfig, par):
+    """The block's weights as this rank uses them, whether it runs
+    ``d_inner``-parallel, and its ``ParamView`` (one device's by default)."""
+    par = par or local_view(p)
+    tp = par.on_model("in_proj", 1) and par.on_model("conv_w", 1) and cfg.d_inner % par.ctx.tp == 0
+    return {k: par.w(p, k, want=_WANT[k] if tp else None, tp=tp) for k in p}, tp, par
+
+
 def forward(
     p: dict,
     cfg: ModelConfig,
@@ -89,11 +101,7 @@ def forward(
     by row): the scan kernel runs at ``d_inner / tp`` channels and
     ``out_proj``'s partial sums add up over ``model``.  Otherwise every rank
     runs every channel."""
-    par = par or local_view(p)
-    tp = par.on_model("in_proj", 1) and par.on_model("conv_w", 1) and cfg.d_inner % par.ctx.tp == 0
-    want = {"in_proj": 1, "conv_w": 1, "conv_b": 0, "x_proj": 0, "dt_w": 1, "dt_b": 0,
-            "A_log": 0, "Dp": 0, "out_proj": 0}
-    p = {k: par.w(p, k, want=want[k] if tp else None, tp=tp) for k in p}
+    p, tp, par = _weights(p, cfg, par)
     x = par.ctx.enter(x, tp)
     xz = x @ p["in_proj"]  # (B, S, 2*Di)
     xi, z = xz.chunk(2, dim=-1)
@@ -107,12 +115,19 @@ def forward(
     return par.ctx.exit(y @ p["out_proj"], tp)
 
 
-def init_cache(cfg: ModelConfig, batch: int, dtype, device, n_periods: int = 0) -> dict:
+def init_cache(cfg: ModelConfig, batch: int, dtype, device, n_periods: int = 0, par=None) -> dict:
+    """The conv window and the f32 SSM state of ``batch`` rows; given ``par``
+    (a ``ParallelContext``), only this rank's shard of each (rows over the
+    batch axes, ``d_inner`` over ``model`` where ``mixer_tp`` splits it)."""
     lead = (n_periods,) if n_periods else ()
-    return {
-        "conv": torch.zeros(lead + (batch, cfg.conv_width - 1, cfg.d_inner), dtype=dtype, device=device),
-        "ssm": torch.zeros(lead + (batch, cfg.d_inner, cfg.ssm_state), dtype=torch.float32, device=device),
-    }
+    shapes = {"conv": (lead + (batch, cfg.conv_width - 1, cfg.d_inner), dtype),
+              "ssm": (lead + (batch, cfg.d_inner, cfg.ssm_state), torch.float32)}
+    out = {}
+    for name, (shape, dt) in shapes.items():
+        if par is not None:
+            shape = par.cache_local_shape(name, shape, bool(lead))
+        out[name] = torch.zeros(shape, dtype=dt, device=device)
+    return out
 
 
 def _commit_(c: torch.Tensor, new: torch.Tensor, commit) -> None:
@@ -129,18 +144,27 @@ def decode_step(
     cache: dict,
     x: torch.Tensor,  # (B, 1, d)
     commit=None,  # (B,) bool: the rows whose new state is written; None = all
+    *,
+    par=None,
 ) -> Tuple[torch.Tensor, dict]:
-    xz = x[:, 0] @ p["in_proj"]  # (B, 2*Di)
-    xi, z = xz.chunk(2, dim=-1)
+    """One token: the conv window and the SSM state advance in place.
+    ``par`` (a ``ParamView``, one device's by default) as in ``forward``:
+    ``d_inner``-parallel where ``mixer_tp`` split it, the cache's conv
+    window and state then this rank's channels (``in_proj`` per half,
+    ``x_proj`` row-split with its ``(dt, B, C)`` summed over ``model``,
+    ``out_proj`` row-split)."""
+    p, tp, par = _weights(p, cfg, par)
+    x = par.ctx.enter(x, tp)
+    xi, z = (x[:, 0] @ p["in_proj"]).chunk(2, dim=-1)  # (B, Di) each: this rank's channels
     # conv over (cached K-1 inputs, new input)
     window = torch.cat([cache["conv"], xi[:, None, :]], dim=1)  # (B, K, Di)
     xc = (window.float() * p["conv_w"].float()[None]).sum(dim=1) + p["conv_b"].float()
     xc = F.silu(xc).to(x.dtype)  # (B, Di)
-    dt, A, Bm, Cm = _ssm_inputs(p, xc, cfg)
+    dt, A, Bm, Cm = _ssm_inputs(p, xc, cfg, par if tp else None)
     new_state, y = ops.selective_scan_step(
         cache["ssm"], xc, dt.to(xc.dtype), A, Bm, Cm, p["Dp"]
     )
     y = y * F.silu(z)
     _commit_(cache["conv"], window[:, 1:, :], commit)
     _commit_(cache["ssm"], new_state, commit)
-    return (y @ p["out_proj"])[:, None, :], cache
+    return par.ctx.exit((y @ p["out_proj"])[:, None, :], tp), cache

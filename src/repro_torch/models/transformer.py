@@ -24,7 +24,7 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import DEFAULT_TILES, KernelTiles
 from repro_torch.models import attention, layers, mamba, moe
-from repro_torch.sharding.parallel import ParallelContext
+from repro_torch.sharding.parallel import ParallelContext, shard_tree
 
 
 # ---------------------------------------------------------------------------
@@ -255,19 +255,48 @@ def forward(
 # Decode (serve_step) with per-slot caches
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, kv_dtype: str = "bf16",
-               device="cuda") -> dict:
-    """Stacked (n_periods leading dim) cache matching the block structure."""
-    device = resolve_device(device)
+               device="cuda", par=None) -> dict:
+    """Stacked (n_periods leading dim) cache matching the block structure, of
+    ``batch`` rows over ``max_len`` positions; given ``par`` (a
+    ``ParallelContext``), only this rank's shard of each leaf
+    (``ShardingRules.cache_pspecs``)."""
+    return _cache_tree(cfg, batch, max_len, kv_dtype, resolve_device(device), par)
+
+
+def _cache_tree(cfg, batch, max_len, kv_dtype, device, par=None) -> dict:
     plan = cfg.layer_plan()
     dt = getattr(torch, cfg.dtype)
     return {
         f"b{i}": (
-            attention.init_cache(cfg, batch, max_len, dt, device, kv_dtype, n_periods=cfg.n_periods)
+            attention.init_cache(cfg, batch, max_len, dt, device, kv_dtype, n_periods=cfg.n_periods,
+                                 par=par)
             if spec.mixer == "attn"
-            else mamba.init_cache(cfg, batch, dt, device, n_periods=cfg.n_periods)
+            else mamba.init_cache(cfg, batch, dt, device, n_periods=cfg.n_periods, par=par)
         )
         for i, spec in enumerate(plan)
     }
+
+
+def cache_shapes(cfg: ModelConfig, batch: int, max_len: int, kv_dtype: str = "bf16") -> dict:
+    """The global shape of every leaf of the cache of ``batch`` rows over
+    ``max_len`` positions (nothing allocated)."""
+    meta = _cache_tree(cfg, batch, max_len, kv_dtype, torch.device("meta"))
+    return {b: {name: tuple(leaf.shape) for name, leaf in c.items()} for b, c in meta.items()}
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int, par, kv_dtype: str = "bf16") -> dict:
+    """The spec of every leaf of that cache under ``par``."""
+    return {b: {name: par.cache_spec(name, shape) for name, shape in c.items()}
+            for b, c in cache_shapes(cfg, batch, max_len, kv_dtype).items()}
+
+
+def shard_cache(cache: dict, par) -> dict:
+    """A whole cache (``init_cache`` without ``par``, e.g. built on one
+    process) -> this rank's shard of each leaf on the mesh's device, by the
+    same specs as ``init_cache(par=par)`` allocates (``shard_tree``)."""
+    specs = {b: {name: par.cache_spec(name, leaf.shape) for name, leaf in c.items()}
+             for b, c in cache.items()}
+    return shard_tree(cache, specs, par.mesh)
 
 
 @torch.no_grad()
@@ -286,8 +315,13 @@ def decode_step(
     this one writes the new token's K/V, conv window and SSM state into
     ``cache`` in place, in the rows of ``commit`` only: the logits of a row
     outside it are not its next step's (see ``attention.decode_step``).
-    ``tiles`` reaches the MoE MLP's grouped GEMMs; ``par``: one device's
-    context (built from ``params`` when not given)."""
+    ``tiles`` reaches the MoE MLP's grouped GEMMs.
+
+    ``par`` (``ParallelContext`` with its decode layout,
+    ``for_decode``; one device's by default): ``params`` and ``cache`` are
+    this rank's shards, ``inputs`` / ``cur`` / ``commit`` its rows, and the
+    logits its rows', vocab-split over ``model`` where ``vocab_split`` says
+    so."""
     plan = cfg.layer_plan()
     device = inputs.device
     cur = torch.as_tensor(cur, dtype=torch.long, device=device)
@@ -298,11 +332,13 @@ def decode_step(
         pp = period_params(params["blocks"], p)
         pc = period_params(cache, p)  # views: the writes land in the stacked cache
         for i, spec in enumerate(plan):
-            bp = pp[f"b{i}"]
-            hn = layers.norm(h, bp["norm1"], cfg.norm)
+            bp, bv = pp[f"b{i}"], par.view("blocks", f"b{i}")
+            hn = layers.norm(h, bv.w(bp, "norm1"), cfg.norm)
             if spec.mixer == "attn":
-                mixed, _ = attention.decode_step(bp["attn"], cfg, pc[f"b{i}"], hn, cur, commit)
+                mixed, _ = attention.decode_step(bp["attn"], cfg, pc[f"b{i}"], hn, cur, commit,
+                                                 par=bv.sub("attn"))
             else:
-                mixed, _ = mamba.decode_step(bp["mamba"], cfg, pc[f"b{i}"], hn, commit)
-            h = _mlp_slot(bp, spec, cfg, h + mixed, tiles, par.view("blocks", f"b{i}"))
+                mixed, _ = mamba.decode_step(bp["mamba"], cfg, pc[f"b{i}"], hn, commit,
+                                             par=bv.sub("mamba"))
+            h = _mlp_slot(bp, spec, cfg, h + mixed, tiles, bv)
     return _logits(params, cfg, h[:, -1, :], par), cache  # (B, V)

@@ -19,8 +19,9 @@ Differentiable (``autograd.Function``s, Megatron's conjugate pairs):
   all-reduce);
 * ``split(x, dim)`` (forward: this rank's chunk; backward: all-gather).
 
-Not differentiable: ``all_reduce_max`` and ``ppermute``, a ring shift over
-``batch_isend_irecv``.
+Not differentiable: ``all_reduce_max``, ``ppermute`` (a ring shift over
+``batch_isend_irecv``) and ``softmax_combine``, the decode attention's
+combine of the partial softmaxes of a KV cache split by position.
 
 On a mesh whose ranks share one card over gloo (``Mesh.host_staged``), gloo
 runs an f32 all-reduce, all-gather, reduce-scatter or broadcast on the card
@@ -79,6 +80,27 @@ def all_reduce_(t: torch.Tensor, mesh, axes, op: str = "sum") -> torch.Tensor:
 
 def all_reduce_max(t: torch.Tensor, mesh, axes) -> torch.Tensor:
     return all_reduce_(t.detach().contiguous().clone(), mesh, axes, "max")
+
+
+def softmax_combine(o: torch.Tensor, logits: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``softmax(l) . v`` over every rank's positions of ``axes``, from each
+    rank's own: ``o`` is ``softmax(logits) . v`` (f32) over this rank's
+    positions (the last dim of ``logits``, masked with a large negative
+    value) and the result is the softmax over all of them.
+
+    The row max is taken over the group (MAX); each rank's share of the sum
+    under that max is ``w = sum(exp(l - m))``; ``o * w`` and ``w`` add up over
+    the group in one f32 all-reduce (SUM), and their quotient is the whole
+    softmax's product.  A rank whose positions all lie past the row's
+    ``cur`` has ``w = 0`` and adds nothing.  A group of one rank holds the
+    whole softmax: ``o`` comes back as it is."""
+    if mesh.size(axes) == 1:
+        return o
+    m = all_reduce_(logits.amax(dim=-1, keepdim=True).contiguous(), mesh, axes, "max")
+    w = torch.exp(logits - m).sum(dim=-1, keepdim=True)
+    packed = all_reduce_(torch.cat([(o * w).flatten(), w.flatten()]), mesh, axes)
+    num, den = packed[:o.numel()].view(o.shape), packed[o.numel():].view(w.shape)
+    return num / den
 
 
 def all_gather_raw(t: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:

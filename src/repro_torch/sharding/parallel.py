@@ -32,6 +32,13 @@ in a region every model rank computes alike, nothing, or ``all_gather``
 Gradients over the batch axes: every rank takes the gradient of its own
 rows; ``reduce_batch_grads`` sums a leaf's gradient over the batch axes it
 is not split on (the FSDP leaves were summed by their gather's backward).
+
+**Decode.**  ``for_decode(batch, max_len)`` fixes a decode cell's layout:
+whether its rows split over the batch axes (a batch that does not divide
+there, the batch-1 long-context layout, is replicated) and the KV cache's
+spec (``ShardingRules``' ``kv_cache``: heads over ``model``, or positions
+over ``model`` or over the whole mesh).  ``cache_spec`` gives any cache
+leaf's spec, by which ``transformer.init_cache`` allocates a rank's shard.
 """
 from __future__ import annotations
 
@@ -169,9 +176,12 @@ class ParallelContext:
     context of ``local``: a mesh of size 1, every leaf whole."""
 
     def __init__(self, mesh, specs: dict, shapes: dict, *, batch_axes=("data",),
-                 seq_shard: bool = False, moe_ep: bool = False):
-        self.mesh, self.specs, self.shapes = mesh, specs, shapes
+                 seq_shard: bool = False, moe_ep: bool = False, rules=None):
+        self.mesh, self.specs, self.shapes, self.rules = mesh, specs, shapes, rules
         self.seq_shard, self.moe_ep, self.seq = seq_shard, moe_ep, False
+        # a decode cell's layout (``for_decode``); one device's is trivial
+        self.rows_split = True
+        self.kv = None if rules is not None else PartitionSpec(None, None, None, None)
         self.tp = mesh.size("model")
         self.tp_rank = mesh.index("model")
         self.batch_axes = tuple(batch_axes)
@@ -202,6 +212,50 @@ class ParallelContext:
         ctx = copy.copy(self)
         ctx.seq = seq
         return ctx
+
+    # -- decode -----------------------------------------------------------------
+    def cache_spec(self, name: str, shape) -> PartitionSpec:
+        """The spec of a stacked cache leaf (``k``, ``v``, ``k_s``, ``v_s``,
+        ``conv``, ``ssm``) of global ``shape`` (``ShardingRules.cache_pspecs``;
+        whole on one device)."""
+        if self.rules is None:
+            return PartitionSpec(*(None,) * len(shape))
+        return self.rules.cache_pspecs({name: tuple(shape)})[name]
+
+    def cache_local_shape(self, name: str, shape, stacked: bool = True) -> Tuple[int, ...]:
+        """This rank's shape of cache leaf ``name`` of global ``shape`` (the
+        period axis first where ``stacked``)."""
+        full = tuple(shape) if stacked else (1,) + tuple(shape)
+        local = local_shape(full, self.cache_spec(name, full), self.mesh)
+        return local if stacked else local[1:]
+
+    def for_decode(self, batch: int, max_len: int) -> "ParallelContext":
+        """This context for decode cells of ``batch`` global rows over a cache
+        of ``max_len`` positions: ``rows_split`` (the rows split over the
+        batch axes, else every rank takes them all) and ``kv``, the spec of
+        a ``(B, Hkv, L, hd)`` KV cache period."""
+        if self.rules is None:
+            return self
+        cfg = self.rules.cfg
+        ctx = copy.copy(self)
+        ctx.rows_split = batch % self.dp == 0
+        ctx.kv = self.rules.act_spec("kv_cache", 4, (batch, cfg.n_kv_heads, max_len,
+                                                     cfg.resolved_head_dim or 1))
+        return ctx
+
+    def kv_seq_axes(self) -> Tuple[str, ...]:
+        """The mesh axes the KV cache's positions are split over."""
+        if self.kv is None:
+            raise ValueError("decode over a mesh needs the cell's layout: ParallelContext.for_decode")
+        return axes_of(self.kv[2])
+
+    def decode_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows (dim 0) of a decode batch's tensor."""
+        if not self.rows_split or self.dp == 1:
+            return t
+        b = t.shape[0] // self.dp
+        i = self.mesh.index(self.batch_axes)
+        return t[i * b:(i + 1) * b]
 
     def view(self, *keys: str) -> "ParamView":
         node, stacked = self.specs, bool(keys) and keys[0] == "blocks"

@@ -13,10 +13,13 @@ of the global batch (split over the batch axes) and runs its microbatches,
 the model runs under a ``ParallelContext``, and the gradients are summed
 over the batch axes before the optimizer updates the shards in place.  The
 numbers are the one-device step's (``tests/test_torch_distributed.py``).
+The decode step over a mesh holds each rank's shard of the cache
+(``ShardingRules.cache_pspecs``): KV heads split over ``model``, or
+positions split over ``model`` (or the whole mesh for batch-1 long
+context) with the partial softmaxes combined explicitly, Mamba's state by
+``d_inner``, rows over the batch axes.
 Without a mesh the same steps run on one device, a mesh of size 1
 (``ParallelContext.local``) whose collectives are all the identity.
-Decode over a mesh (the sequence-sharded KV cache, the serving engine) is
-ROADMAP item A8.
 """
 from __future__ import annotations
 
@@ -88,7 +91,8 @@ def parallel_context(cfg: ModelConfig, shape: Optional[InputShape], plan: Schedu
         return ParallelContext.local(shapes, resolve_device(device))
     rules = ShardingRules(cfg, shape, plan, mesh.spec)
     return ParallelContext(mesh, rules.param_pspecs(shapes), shapes, batch_axes=rules.batch,
-                           seq_shard=plan.seq_shard, moe_ep=moe_dist_for(cfg, shape, plan, mesh))
+                           seq_shard=plan.seq_shard, moe_ep=moe_dist_for(cfg, shape, plan, mesh),
+                           rules=rules)
 
 
 def shardings_for_train(cfg, shape, plan, mesh, opt_state=None) -> dict:
@@ -279,14 +283,36 @@ def make_serve_step(
 ) -> Callable:
     """(params, cache, inputs, cur, commit=None) -> (logits, cache): one decode
     token, its cache state written into ``cache`` in place for the rows in
-    ``commit``; the plan's tiles reach the MoE MLP's grouped GEMMs."""
-    if mesh is not None:
-        raise NotImplementedError("decode over a mesh is not ported yet: ROADMAP item A8")
+    ``commit``; the plan's tiles reach the MoE MLP's grouped GEMMs.
+
+    ``mesh``: this rank's step.  ``shape`` is the decode cell's
+    ``InputShape``: ``global_batch`` rows over a cache of ``seq_len``
+    positions, as the JAX dry run passes it.  ``params`` are the rank's
+    shards (``shard_params``), ``cache`` its shard
+    (``transformer.init_cache(..., par=step.par)`` or ``shard_cache``),
+    ``inputs`` / ``cur`` / ``commit`` the global rows, and the logits
+    ``(B, V)`` every row's on every rank.  The step carries its context as
+    ``step.par``."""
     tiles = tiles_from_plan(plan)
-    par = parallel_context(cfg, shape, plan, None, device)
+    par = parallel_context(cfg, shape, plan, mesh, device)
+    if mesh is not None:
+        if shape is None:
+            raise ValueError("decode over a mesh needs the cell's InputShape (rows, cache length)")
+        par = par.for_decode(shape.global_batch, shape.seq_len)
+    vsplit = transformer.vocab_split(cfg, par)
 
     def serve_step(params, cache, inputs, cur, commit=None):
-        return transformer.decode_step(params, cfg, cache, inputs, cur, commit=commit, tiles=tiles,
-                                       par=par)
+        if mesh is not None and inputs.shape[0] != shape.global_batch:
+            raise ValueError(f"{inputs.shape[0]} rows, the cell has {shape.global_batch}")
+        cur = torch.as_tensor(cur, dtype=torch.long, device=inputs.device)
+        logits, cache = transformer.decode_step(
+            params, cfg, cache, par.decode_rows(inputs), par.decode_rows(cur) if cur.ndim else cur,
+            commit=None if commit is None else par.decode_rows(commit), tiles=tiles, par=par)
+        if vsplit:
+            logits = cc.all_gather_raw(logits, par.mesh, "model", logits.ndim - 1)
+        if par.rows_split:
+            logits = cc.all_gather_raw(logits, par.mesh, par.batch_axes, 0)
+        return logits, cache
 
+    serve_step.par = par
     return serve_step

@@ -31,7 +31,7 @@ from repro.training import optimizer as joptim
 from repro.training.train_step import make_train_step as jax_make_train_step
 from repro_torch import convert
 from repro_torch.checkpoint.ckpt import Checkpointer
-from repro_torch.configs import get_config
+from repro_torch.configs import InputShape, get_config
 from repro_torch.core.space import MeshSpec, SchedulePlan
 from repro_torch.launch.mesh import make_mesh_from_spec, run_on_mesh
 from repro_torch.models import transformer as ttf
@@ -356,9 +356,19 @@ def test_a_mesh_of_more_ranks_than_cards_needs_share_card():
 
 
 def test_decode_over_a_mesh_still_names_a8():
+    """Decode over a mesh is ported (it raised naming ROADMAP A8 until then;
+    ``tests/test_torch_mesh_decode.py`` runs it): the step needs the cell's
+    shape, and takes the rules' decode layout from it."""
     cfg = get_config("granite-3-2b").reduced()
-    with pytest.raises(NotImplementedError, match="A8"):
-        make_serve_step(cfg, None, SchedulePlan(), mesh=object())
+    mesh = _FakeMesh(MeshSpec(("data", "model"), (1, 4)))
+    with pytest.raises(ValueError, match="InputShape"):
+        make_serve_step(cfg, None, SchedulePlan(), mesh=mesh)
+    seq = SchedulePlan(param_strategy="replicated", seq_shard=True)
+    step = make_serve_step(cfg, InputShape("d", 16, 4, "decode"), seq, mesh=mesh)
+    assert step.par.kv == ("data", None, "model", None) and step.par.rows_split
+    heads = SchedulePlan(param_strategy="tp", mixer_tp=True)
+    step = make_serve_step(cfg, InputShape("d", 16, 4, "decode"), heads, mesh=mesh)
+    assert step.par.kv == ("data", None, None, None)  # 2 KV heads do not split over 4
 
 
 def test_a_rank_that_raises_fails_the_run_with_its_traceback(trees):

@@ -165,17 +165,21 @@ def test_decode_matches_forward(model):
 
 
 def test_unported_paths_raise_with_their_roadmap_item(model):
-    """Decode over a mesh still names A8; prefill over a mesh is ported: on a
-    (1, 1) gloo mesh its logits equal the one-device step's."""
+    """Prefill and decode over a mesh are ported (decode named ROADMAP A8
+    until then): on a (1, 1) gloo mesh the prefill logits equal the
+    one-device step's, and the serve step's decoded logits equal the
+    one-device serve step's bit for bit (one device is a mesh of size 1)."""
     _, cfg, jparams, params, toks = model
-    with pytest.raises(NotImplementedError, match="A8"):
-        make_serve_step(cfg, None, SchedulePlan(), mesh=object(), device="cpu")
     tree = jax.tree.map(np.asarray, jparams)
-    got = run_on_mesh(MeshSpec(("data", "model"), (1, 1)), dist_cases.prefill_one, "granite-3-2b",
-                      {}, tree, B, S, device="cpu")[0]
+    got, got_dec = run_on_mesh(MeshSpec(("data", "model"), (1, 1)), dist_cases.prefill_and_decode_one,
+                               "granite-3-2b", {}, tree, B, S, device="cpu")[0]
     batch = dist_cases.batch_for(cfg, B, S)
     exp = make_prefill_step(cfg, None, SchedulePlan(), device="cpu")(params, batch)
     np.testing.assert_allclose(got.numpy(), exp.numpy(), **TOL)
+    serve = make_serve_step(cfg, None, SchedulePlan(), device="cpu")
+    cache = ttf.init_cache(cfg, B, S, device="cpu")
+    exp_dec = torch.stack([serve(params, cache, batch["inputs"][:, t:t + 1], t)[0] for t in range(S)], 1)
+    assert torch.equal(got_dec, exp_dec)
     # A2 is ported: every arch resolves and M-RoPE has its positions
     assert get_config("qwen2-vl-72b").pos_kind == "mrope"
     assert get_config("nemotron-4-15b").n_layers == 32

@@ -181,10 +181,59 @@ def ring_cases(mesh, xs: np.ndarray, steps: int, axes) -> dict:
     return {"plain": plain, "first_err": first_err, "fed": torch.stack(fed), "last_err": err}
 
 
-def prefill_one(mesh, arch: str, plan: dict, tree: dict, B: int, S: int):
-    """The mesh prefill step's logits of this rank's rows."""
+def prefill_and_decode_one(mesh, arch: str, plan: dict, tree: dict, B: int, S: int):
+    """The mesh prefill step's logits of this rank's rows, and the mesh serve
+    step's logits of ``S`` teacher-forced decode steps of the same tokens
+    from an empty cache of ``S`` positions."""
+    from repro_torch.configs import InputShape
+    from repro_torch.models import transformer
+    from repro_torch.training.train_step import make_serve_step
+
     cfg = get_config(arch).reduced()
     step = make_prefill_step(cfg, None, SchedulePlan(**plan), mesh=mesh)
     params = shard_params(convert.params_from_numpy(tree, cfg, device="cpu"), step.par)
-    return step(params, batch_for(cfg, B, S))
+    batch = batch_for(cfg, B, S)
+    serve = make_serve_step(cfg, InputShape("decode", S, B, "decode"), SchedulePlan(**plan), mesh=mesh)
+    cache = transformer.init_cache(cfg, B, S, device="cpu", par=serve.par)
+    decoded = [serve(params, cache, batch["inputs"][:, t:t + 1], t)[0] for t in range(S)]
+    return step(params, batch), torch.stack(decoded, 1)
 
+
+def decode_cases(mesh, cases: list, trees: dict) -> list:
+    """Each decode case (``arch``, ``plan`` kwargs, ``kv_dtype``, ``B``, ``L``,
+    the whole starting ``cache`` as numpy, and per step ``tokens`` ``(B,)``,
+    ``cur`` (a scalar or ``(B,)``) and ``commit`` (``(B,)`` or None)) through
+    the mesh serve step from the whole cache sharded onto the mesh: every
+    step's logits, the local shapes of the shard and of ``init_cache``'s
+    allocation, the KV layout, and (rank 0) the cache gathered whole after
+    the last step."""
+    from repro_torch.configs import InputShape
+    from repro_torch.models import transformer
+    from repro_torch.training.train_step import make_serve_step
+
+    out = []
+    for case in cases:
+        cfg = get_config(case["arch"]).reduced()
+        plan = SchedulePlan(**case["plan"], kv_dtype=case["kv_dtype"])
+        B, L = case["B"], case["L"]
+        step = make_serve_step(cfg, InputShape("decode", L, B, "decode"), plan, mesh=mesh)
+        par = step.par
+        params = shard_params(convert.params_from_numpy(trees[case["arch"]], cfg, device="cpu"), par)
+        whole = {b: {k: torch.from_numpy(np.array(v)) for k, v in c.items()}
+                 for b, c in case["cache"].items()}
+        cache = transformer.shard_cache(whole, par)
+        alloc = transformer.init_cache(cfg, B, L, case["kv_dtype"], device="cpu", par=par)
+        logits = []
+        for tok, cur, commit in zip(case["tokens"], case["cur"], case["commit"]):
+            lg, cache = step(params, cache, torch.from_numpy(np.array(tok))[:, None],
+                             torch.as_tensor(np.array(cur)),
+                             None if commit is None else torch.from_numpy(np.array(commit)))
+            logits.append(lg)
+        shapes = lambda tree: {f"{b}.{k}": tuple(v.shape) for b, c in tree.items() for k, v in c.items()}
+        res = {"logits": torch.stack(logits), "local": shapes(cache), "alloc": shapes(alloc),
+               "kv": tuple(par.kv), "rows_split": par.rows_split}
+        gathered = gather_tree(cache, transformer.cache_specs(cfg, B, L, par, case["kv_dtype"]), mesh)
+        if mesh.rank == 0:
+            res["cache"] = gathered
+        out.append(res)
+    return out
