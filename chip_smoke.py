@@ -11,7 +11,8 @@ limit as ``nvidia-smi`` reports them):
    compiled with ``nvcc`` for ``sm_90a`` from ``src/repro_torch/kernels/csrc/``,
    one ``nvcc`` each, in parallel; seconds, ``ptxas -v`` lines, and the
    registers and spill bytes of the bf16 TMA -> wgmma kernels, which must
-   not spill.
+   not spill, and (``build_backward_160``) of the four flash backward
+   instantiations at head_dim 160, bf16 and f32, none spilling.
 3. ``kernels.rmsnorm`` / ``kernels.flash_attention`` / ``kernels.moe_gemm`` /
    ``kernels.selective_scan`` / ``kernels.quantize``: each kernel against its
    plain PyTorch version on the card, at the main paths' shapes and at the
@@ -29,7 +30,8 @@ limit as ``nvidia-smi`` reports them):
    version, on the card (rmsnorm's backward is a kernel of its own,
    ``rmsnorm_backward``, also held alone at more widths and timed; flash's
    is ``flash_attention_backward`` from the forward's lse, at head_dims
-   128, 32 and 16, Sq < Skv and ragged lengths, timed alone and fwd+bwd,
+   128, 32 and 16, Sq < Skv and ragged lengths, and at 160 (stablelm-12b's
+   training shape, f32 ragged, Sq < Skv in both dtypes, MQA), timed alone and fwd+bwd,
    each in turns with SDPA's backward alone and fwd+bwd; the scan's is
    ``selective_scan_backward`` from the forward's carry-ins, at every
    scan_chunk option at falcon-mamba's width, in f32, with slow decay, one
@@ -65,7 +67,10 @@ limit as ``nvidia-smi`` reports them):
    remat full, int8 moments and int8 grad_comm (all five of its kernels)
    and plan (b) remat dots, f32 moments; then falcon-mamba-7b at full width
    and ``MAMBA_TRAIN_LAYERS`` of its 64 layers, 1 x 4096, remat full, int8
-   moments (rmsnorm, the scan and both backward kernels, quantize): per-step
+   moments (rmsnorm, the scan and both backward kernels, quantize); then
+   stablelm-12b at full width and ``STABLELM_TRAIN_LAYERS`` of its 40, 1 x
+   4096, remat full, int8 moments, tile (128, 256) (flash and its backward
+   at head_dim 160, quantize; layernorm, so no rmsnorm): per-step
    loss, grad norm, lr, ms, tokens/s, peak memory, exact launches per step,
    every leaf moved by step 1, the plain attention never on the card, and a
    profile.
@@ -158,7 +163,9 @@ limit as ``nvidia-smi`` reports them):
    versions); for the MoE arch the routing must agree too.
    ``train_parity``: the same for the loss,
    every gradient and one int8-moment optimizer step of granite-moe (512
-   tokens) and falcon-mamba (320 tokens, scan_chunk 64).
+   tokens) and falcon-mamba (320 tokens, scan_chunk 64), and the loss and
+   every gradient of stablelm-12b (512 tokens, tile (128, 128): the flash
+   backward at head_dim 160 in f32).
 12. ``phase_seconds``: each phase's wall seconds; then ``kernels``: one
    summary entry per kernel (the six ported ones and the rmsnorm, flash and
    scan backward kernels).
@@ -251,6 +258,21 @@ TRAIN_STEPS = 3  # a plan's steps on the card: the first is timed apart (warm-up
 # (scripts/torch_train_fit.py); the widths are the published ones
 MAMBA_ARCH = "falcon-mamba-7b"
 MAMBA_TRAIN_LAYERS = 28
+# stablelm-12b training (the flash backward at head_dim 160): one 1x4096
+# sequence, remat full, int8 moments, the 160 forward's faster tile
+# (128, 256).  Full depth does not fit one card either (one layer is
+# ~277.8 M parameters, and the optimizer's f32 temporaries of the stacked
+# w_up leaf grow with the depth: ROADMAP A15), so the depth is cut to the
+# most layers scripts/torch_train_fit.py --arch stablelm-12b found to fit
+# (PERF.md section 4); the widths are the published ones
+STABLELM_ARCH = "stablelm-12b"
+STABLELM_TRAIN_LAYERS = 18
+# the plan and depth of each depth-cut train job (the fit script runs the same)
+TRAIN_CUTS = {
+    MAMBA_ARCH: (dict(remat="full", microbatches=1, opt_dtype="int8", scan_chunk=128), MAMBA_TRAIN_LAYERS),
+    STABLELM_ARCH: (dict(remat="full", microbatches=1, opt_dtype="int8", attn_block=(128, 256)),
+                    STABLELM_TRAIN_LAYERS),
+}
 # the decode cut of the card's measurement (core/measure.py CUT_ROWS): 16 rows
 # over a decode_32k cache, every step at cur = S - 1, so it attends the whole cache
 DECODE_ROWS, DECODE_LEN = 16, 32768
@@ -556,19 +578,7 @@ def phase_kernels_flash(torch, F, fa):
     ]
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     rows = [_flash_case(torch, F, fa, gen, case) for case in cases]
-    # the backward is not built at head_dim 160: a call that records autograd
-    # raises naming its ROADMAP item, and never runs a plain version
-    q = torch.randn((1, 4, 128, 160), generator=gen, device="cuda").to(torch.bfloat16).requires_grad_()
-    kv = torch.randn((1, 2, 128, 160), generator=gen, device="cuda").to(torch.bfloat16)
-    try:
-        fa.flash_attention(q, kv, kv)
-    except ValueError as e:
-        if "P2" not in str(e):
-            raise AssertionError(f"flash backward at head_dim 160 raised without naming P2: {e}") from e
-        backward_160 = str(e)
-    else:
-        raise AssertionError("flash at head_dim 160 with grad did not refuse its missing backward")
-    emit("kernels.flash_attention", cases=rows, backward_head_dim_160=backward_160)
+    emit("kernels.flash_attention", cases=rows)
     return rows
 
 
@@ -729,13 +739,26 @@ def _tie_rows(torch, gen, R: int, C: int):
     return x
 
 
-def phase_kernels_quantize(torch, qt):
+def stablelm_moment_rows(mods) -> dict:
+    """The ``(rows, width)`` views the int8 moments of stablelm-12b's train
+    job (``STABLELM_TRAIN_LAYERS``) are quantized and read in, from its
+    parameter shapes -> the leaves that share each."""
+    cfg = dataclasses.replace(mods.get_config(STABLELM_ARCH), n_layers=STABLELM_TRAIN_LAYERS)
+    out = {}
+    for path, shape in mods.optim.leaves(mods.transformer.param_shapes(cfg)):
+        if mods.optim._quantizable(shape):
+            out.setdefault((math.prod(shape[:-1]), shape[-1]), []).append(path.rsplit(".", 1)[-1])
+    return out
+
+
+def phase_kernels_quantize(torch, qt, stablelm_rows):
     """Both int8 kernels against their plain versions: q and the scale
     bit-equal, the f32 dequantize bit-equal and the bf16 one within one bf16
     step; at the optimizer's moment leaves of granite-moe (w_up, the tied
-    embedding, the router), the int8 KV cache's decode write (``(B*Hkv, 64)``
-    bf16), test_kernels.py's shapes, a bf16 input, a ragged width, zero rows
-    and exact .5 ties."""
+    embedding, the router) and of stablelm-12b's train job (every leaf's
+    row view, ``stablelm_moment_rows``), the int8 KV cache's decode write
+    (``(B*Hkv, 64)`` bf16), test_kernels.py's shapes, a bf16 input, a ragged
+    width, zero rows and exact .5 ties."""
     E, L, d, f = 32, 24, 1024, 512
     # (R, C, dtype, kind, role)
     cases = [  # the cheap tie rows first: they catch a rounding fault by design
@@ -745,6 +768,10 @@ def phase_kernels_quantize(torch, qt):
         (49155, d, "float32", "normal", "train moment embed"),
         (L * d, E, "float32", "normal", "train moment router"),
         (49155, d, "bfloat16", "normal", "bf16 gradient embed"),
+        *[(R, C, "float32", "normal", f"train moment stablelm {', '.join(names)}")
+          for (R, C), names in stablelm_rows.items()],
+        # the widest rows stablelm's leaves have (the untied head), in bf16
+        (*max(stablelm_rows, key=lambda rc: rc[1]), "bfloat16", "normal", "bf16 stablelm head rows"),
         # the int8 KV cache's write: one row per (slot, kv head), DECODE_ROWS x 8 heads of 64
         (DECODE_ROWS * 8, 64, "bfloat16", "normal", "decode KV rows"),
         (8, 128, "float32", "normal", "test"), (16, 64, "float32", "normal", "test"),
@@ -811,7 +838,7 @@ def phase_kernels_quantize(torch, qt):
                 dequant_bound_ms=db, dequant_bound_by=dby, dequant_bytes=dq_bytes,
             )
         rows.append(row)
-        del x, q, s, qp, sp
+        del x, q, s, qp, sp, got, exp, err, step
     emit("kernels.quantize", cases=rows,
          library="quantize: none (no one PyTorch call computes it); dequantize: torch.mul(q, scale)")
     return rows
@@ -852,6 +879,105 @@ def _check_bit_equal(torch, what: str, call) -> None:
         if not torch.equal(a, b):
             raise AssertionError(f"{what}: gradient {i} differs between two calls, max "
                                  f"{(a.float() - b.float()).abs().max().item()}")
+
+
+# the flash backward's cases: the Function (the forward writing lse, the
+# backward kernel) at granite-moe's training shape first (the summary line's
+# row), then f32, head_dim 128, 32 and 16, Sq < Skv and ragged lengths, then
+# head_dim 160 (stablelm-12b's training shape first); each against autograd
+# through the plain version
+FLASH_GRAD_CASES = [  # ((B, Hq, Hkv, Sq, Skv, D), dtype, role)
+    ((1, 16, 8, SEQ, SEQ, 64), "bfloat16", "train granite-moe"),
+    ((1, 4, 2, 512, 512, 64), "float32", "f32"),
+    ((1, 8, 2, 1024, 1024, 128), "bfloat16", "head_dim 128"),
+    ((1, 4, 2, 200, 200, 128), "float32", "head_dim 128"),
+    ((2, 4, 2, 100, 333, 64), "bfloat16", "Sq < Skv, ragged"),
+    ((2, 4, 2, 100, 333, 64), "float32", "Sq < Skv, ragged"),
+    ((1, 4, 2, 300, 300, 32), "bfloat16", "ragged Sq = Skv = 300, head_dim 32"),
+    ((1, 4, 4, 200, 200, 16), "bfloat16", "head_dim 16, one q-head a kv-head"),
+    ((1, 32, 8, SEQ, SEQ, 160), "bfloat16", "train stablelm-12b, head_dim 160"),
+    ((1, 4, 2, 300, 300, 160), "float32", "head_dim 160, ragged Sq = Skv = 300"),
+    ((2, 4, 2, 100, 333, 160), "bfloat16", "head_dim 160, Sq < Skv, ragged"),
+    ((2, 4, 2, 100, 333, 160), "float32", "head_dim 160, Sq < Skv, ragged"),
+    ((2, 4, 1, 256, 256, 160), "bfloat16", "head_dim 160, MQA"),
+]
+
+
+def grad_flash(torch, F, fa, gen, cases=FLASH_GRAD_CASES) -> list:
+    """Each flash backward case on the card: forward and gradients of the
+    Function against autograd through the plain version, two calls of the
+    backward bit-equal, the backward timed alone beside its bound, the
+    plain version and SDPA's backward alone (``Sq == Skv``)."""
+    f32 = dict(atol=1e-4, rtol=1e-4)
+    rows = []
+
+    def randn(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(getattr(torch, dtype))
+
+    for shape, dtype, role in cases:
+        B, Hq, Hkv, Sq, Skv, D = shape
+        tol = TOL_BF16 if dtype == "bfloat16" else f32
+        # the forward's tile: the training plans' (256, 256); at head_dim 128
+        # in bf16 and at 160 only block_q <= 128 launches (the backward's
+        # tile is its own)
+        bq = 128 if (D > 64 and dtype == "bfloat16") or D > 128 else 256
+        q, k, v = randn((B, Hq, Sq, D), dtype), randn((B, Hkv, Skv, D), dtype), randn((B, Hkv, Skv, D), dtype)
+        stats, xs, gy = _grad_case(
+            torch, f"flash {role} {dtype}",
+            lambda a, b, c: fa.flash_attention(a, b, c, causal=True, block_q=bq, block_kv=bq),
+            lambda a, b, c: fa.attention_plain(a, b, c, causal=True), [q, k, v], gen, tol,
+            {fa.LAUNCHES: 1, fa.BWD_LAUNCHES: 1})
+        grads = [stats[f"d{i}"] for i in range(3)]
+        bwd = fa.flash_backward_launch(B, Hq, Hkv, Sq, Skv, D, dtype)
+        row = {"kernel": "flash_attention_backward", "shape": list(shape), "dtype": dtype, "role": role,
+               "forward_tile": [bq, bq], "tiles": sorted(fa.BWD_LAUNCHES.tiles),
+               "threads": [bwd.dkdv_threads, bwd.dq_threads], **stats,
+               "max_abs_err": max(g["max_abs_err"] for g in grads),
+               "rel_err": max(g["rel_err"] for g in grads), "mean_abs_exp": grads[0]["mean_abs_exp"],
+               "launches": {"flash_attention": 1, "flash_attention_backward": 1},
+               "main_path": role.startswith("train")}
+        # the five products: 10 D operations a visible (query, key) pair a
+        # q-head; q, k, v, lse and do read once, dq, dk, dv written once
+        pairs = _visible_pairs(Sq, Skv, True) * B * Hq
+        ops = 10 * D * pairs
+        esz = q.element_size()
+        nbytes = (3 * q.numel() + 4 * k.numel()) * esz + 4 * B * Hq * Sq
+        b_ms, b_by = bound(nbytes, ops, dtype)
+        _, lse = fa._launch(q, k, v, True, fa.flash_launch(B, Hq, Sq, Skv, D, dtype, bq, bq),
+                            with_lse=True)
+        _check_bit_equal(torch, f"flash_attention_backward {role} {dtype}",
+                         lambda: fa._launch_backward(q, k, v, lse, gy, True, bwd))
+        fwd_bwd = lambda: torch.autograd.grad(fa.flash_attention(  # noqa: E731
+            *xs, causal=True, block_q=bq, block_kv=bq), xs, gy)
+        # SDPA's is_causal aligns the diagonal top-left: the same function only when Sq == Skv
+        sdpa, sdpa_bwd = None, None
+        if Sq == Skv:
+            sdpa = lambda: torch.autograd.grad(F.scaled_dot_product_attention(  # noqa: E731
+                *xs, is_causal=True, enable_gqa=True), xs, gy)
+            ys = F.scaled_dot_product_attention(*xs, is_causal=True, enable_gqa=True)
+            sdpa_bwd = lambda: torch.autograd.grad(ys, xs, gy, retain_graph=True)  # noqa: E731
+        both = timed(torch, fwd_bwd, sdpa, ops + 4 * D * pairs, iters=10)
+        alone = timed(torch, lambda: fa._launch_backward(q, k, v, lse, gy, True, bwd), sdpa_bwd, ops,
+                      iters=10)
+        row.update(
+            **{k_: v_ for k_, v_ in alone.items() if k_ not in ("library_ms", "vs_library")},
+            bit_equal=True, library_ms=both["library_ms"],
+            library_bwd_ms=alone["library_ms"], bwd_vs_library=alone.get("vs_library"),
+            fwd_bwd_ms=both["ms"], fwd_bwd_ms_runs=both["ms_runs"],
+            fwd_bwd_vs_library=both.get("vs_library"),
+            plain_ms=cuda_ms(torch, lambda: fa.attention_backward_plain(q, k, v, lse, gy),
+                             iters=3, warmup=1),
+            plain_fwd_bwd_ms=cuda_ms(torch, lambda: torch.autograd.grad(
+                fa.attention_plain(*xs, causal=True), xs, gy), iters=3, warmup=1),
+            bound_ms=b_ms, bound_by=b_by, ops=ops, bytes=nbytes,
+            library="torch.autograd.grad through F.scaled_dot_product_attention: library_ms "
+                    "fwd+bwd, in turns with the kernels' fwd+bwd; library_bwd_ms its backward alone "
+                    "(retain_graph on one output), in turns with the backward kernel; never called "
+                    "by the port")
+        rows.append(row)
+        del lse
+        del q, k, v, xs, gy
+    return rows
 
 
 def phase_grad(torch, rn, fa, mg, ss):
@@ -939,82 +1065,7 @@ def phase_grad(torch, rn, fa, mg, ss):
         bwd_rows.append(row)
         del x, gy, w, dx, dw, xp, wp, edx, edw
 
-    # flash: the Function (the forward writing lse, the backward kernel) at
-    # granite-moe's training shape first (the summary line's row), then f32,
-    # head_dim 128, 32 and 16, Sq < Skv and ragged lengths; each against
-    # autograd through the plain version
-    flash_rows = []
-    flash_cases = [  # ((B, Hq, Hkv, Sq, Skv, D), dtype, role)
-        ((1, 16, 8, SEQ, SEQ, 64), "bfloat16", "train granite-moe"),
-        ((1, 4, 2, 512, 512, 64), "float32", "f32"),
-        ((1, 8, 2, 1024, 1024, 128), "bfloat16", "head_dim 128"),
-        ((1, 4, 2, 200, 200, 128), "float32", "head_dim 128"),
-        ((2, 4, 2, 100, 333, 64), "bfloat16", "Sq < Skv, ragged"),
-        ((2, 4, 2, 100, 333, 64), "float32", "Sq < Skv, ragged"),
-        ((1, 4, 2, 300, 300, 32), "bfloat16", "ragged Sq = Skv = 300, head_dim 32"),
-        ((1, 4, 4, 200, 200, 16), "bfloat16", "head_dim 16, one q-head a kv-head"),
-    ]
-    for shape, dtype, role in flash_cases:
-        B, Hq, Hkv, Sq, Skv, D = shape
-        tol = TOL_BF16 if dtype == "bfloat16" else f32
-        # the forward's tile: the training plans' (256, 256); at head_dim 128
-        # in bf16 only block_q <= 128 launches (the backward's tile is its own)
-        bq = 128 if (D > 64 and dtype == "bfloat16") else 256
-        q, k, v = randn((B, Hq, Sq, D), dtype), randn((B, Hkv, Skv, D), dtype), randn((B, Hkv, Skv, D), dtype)
-        stats, xs, gy = _grad_case(
-            torch, f"flash {role} {dtype}",
-            lambda a, b, c: fa.flash_attention(a, b, c, causal=True, block_q=bq, block_kv=bq),
-            lambda a, b, c: fa.attention_plain(a, b, c, causal=True), [q, k, v], gen, tol,
-            {fa.LAUNCHES: 1, fa.BWD_LAUNCHES: 1})
-        grads = [stats[f"d{i}"] for i in range(3)]
-        row = {"kernel": "flash_attention_backward", "shape": list(shape), "dtype": dtype, "role": role,
-               "forward_tile": [bq, bq], "tiles": sorted(fa.BWD_LAUNCHES.tiles), **stats,
-               "max_abs_err": max(g["max_abs_err"] for g in grads),
-               "rel_err": max(g["rel_err"] for g in grads), "mean_abs_exp": grads[0]["mean_abs_exp"],
-               "launches": {"flash_attention": 1, "flash_attention_backward": 1},
-               "main_path": role.startswith("train")}
-        # the five products: 10 D operations a visible (query, key) pair a
-        # q-head; q, k, v, lse and do read once, dq, dk, dv written once
-        pairs = _visible_pairs(Sq, Skv, True) * B * Hq
-        ops = 10 * D * pairs
-        esz = q.element_size()
-        nbytes = (3 * q.numel() + 4 * k.numel()) * esz + 4 * B * Hq * Sq
-        b_ms, b_by = bound(nbytes, ops, dtype)
-        _, lse = fa._launch(q, k, v, True, fa.flash_launch(B, Hq, Sq, Skv, D, dtype, bq, bq),
-                            with_lse=True)
-        bwd = fa.flash_backward_launch(B, Hq, Hkv, Sq, Skv, D, dtype)
-        _check_bit_equal(torch, f"flash_attention_backward {role} {dtype}",
-                         lambda: fa._launch_backward(q, k, v, lse, gy, True, bwd))
-        fwd_bwd = lambda: torch.autograd.grad(fa.flash_attention(  # noqa: E731
-            *xs, causal=True, block_q=bq, block_kv=bq), xs, gy)
-        # SDPA's is_causal aligns the diagonal top-left: the same function only when Sq == Skv
-        sdpa, sdpa_bwd = None, None
-        if Sq == Skv:
-            sdpa = lambda: torch.autograd.grad(F.scaled_dot_product_attention(  # noqa: E731
-                *xs, is_causal=True, enable_gqa=True), xs, gy)
-            ys = F.scaled_dot_product_attention(*xs, is_causal=True, enable_gqa=True)
-            sdpa_bwd = lambda: torch.autograd.grad(ys, xs, gy, retain_graph=True)  # noqa: E731
-        both = timed(torch, fwd_bwd, sdpa, ops + 4 * D * pairs, iters=10)
-        alone = timed(torch, lambda: fa._launch_backward(q, k, v, lse, gy, True, bwd), sdpa_bwd, ops,
-                      iters=10)
-        row.update(
-            **{k_: v_ for k_, v_ in alone.items() if k_ not in ("library_ms", "vs_library")},
-            bit_equal=True, library_ms=both["library_ms"],
-            library_bwd_ms=alone["library_ms"], bwd_vs_library=alone.get("vs_library"),
-            fwd_bwd_ms=both["ms"], fwd_bwd_ms_runs=both["ms_runs"],
-            fwd_bwd_vs_library=both.get("vs_library"),
-            plain_ms=cuda_ms(torch, lambda: fa.attention_backward_plain(q, k, v, lse, gy),
-                             iters=3, warmup=1),
-            plain_fwd_bwd_ms=cuda_ms(torch, lambda: torch.autograd.grad(
-                fa.attention_plain(*xs, causal=True), xs, gy), iters=3, warmup=1),
-            bound_ms=b_ms, bound_by=b_by, ops=ops, bytes=nbytes,
-            library="torch.autograd.grad through F.scaled_dot_product_attention: library_ms "
-                    "fwd+bwd, in turns with the kernels' fwd+bwd; library_bwd_ms its backward alone "
-                    "(retain_graph on one output), in turns with the backward kernel; never called "
-                    "by the port")
-        flash_rows.append(row)
-        del lse
-        del q, k, v, xs, gy
+    flash_rows = grad_flash(torch, F, fa, gen)
 
     # granite-moe's training shapes: 1x4096 tokens a microbatch, C = 1280
     for dtype, (E, C, d, f), tol in (("bfloat16", (32, 1280, 1024, 512), TOL_BF16),
@@ -1410,8 +1461,7 @@ def phase_parity(torch, np, base_cfg, plan, ops, transformer, moe, make_position
     CPU path (plain versions); for MoE also the routing of every layer."""
     cfg = dataclasses.replace(base_cfg, n_layers=2, dtype="float32")
     tiles = tiles_from_plan(plan)
-    params_cpu = transformer.init_params(cfg, SEED, device="cpu")
-    params_gpu = _tree_to(params_cpu, "cuda")
+    params_cpu, params_gpu = _parity_params(transformer, cfg)
     S = 320  # ragged against the default (256, 256) attention tile
     rng = np.random.default_rng(SEED + 2)
     if cfg.input_kind == "tokens":
@@ -1474,7 +1524,8 @@ def _expected_train_counts(cfg, plan, params, moment_dtype: str, optim) -> dict:
     fwd = _expected_counts(cfg)
     rerun = int(plan.remat != "none")
     counts = {
-        "rmsnorm": fwd["rmsnorm"] + rerun * (fwd["rmsnorm"] - 1),
+        # a layernorm arch (stablelm-12b) launches no rmsnorm at all
+        "rmsnorm": fwd["rmsnorm"] + rerun * max(fwd["rmsnorm"] - 1, 0),
         "rmsnorm_backward": fwd["rmsnorm"],
         "flash_attention": fwd["flash_attention"] * (1 + rerun),
         "flash_attention_backward": fwd["flash_attention"],
@@ -1586,7 +1637,7 @@ def phase_train(torch, name, plan, mods, arch=TRAIN_ARCH, batch=2, n_layers=None
     prof = _profile_one(torch, lambda: tr.step_fn(params, opt_state, step_batch))
     emit("train", arch=cfg.name, plan=name, n_layers=cfg.n_layers, params=n_params, plan_fields={
              k: getattr(plan, k) for k in ("remat", "microbatches", "opt_dtype", "grad_comm",
-                                           "scan_chunk")},
+                                           "scan_chunk", "attn_block")},
          batch=batch, seq=SEQ, microbatch_tokens=tokens // plan.microbatches,
          steps=[{"step": r["step"], "loss": r["loss"], "grad_norm": r["grad_norm"], "lr": r["lr"],
                  "step_ms": r["step_time_s"] * 1e3,
@@ -2330,17 +2381,16 @@ def phase_service(torch, mods, base_res, measure_res, measure_cache, cut, device
          seconds=time.perf_counter() - t_phase)
 
 
-def phase_train_parity(torch, np, mods, arch=TRAIN_ARCH, S=512, plan=None):
+def phase_train_parity(torch, np, mods, arch=TRAIN_ARCH, S=512, plan=None, optimizer=True):
     """A 2-layer f32 ``arch`` at full width, B=1, ``S`` tokens: loss and
     every gradient leaf on the card (kernels and their Functions: the flash
     and scan backward kernels among them) against the port's CPU path; then
-    one ``apply_updates`` with int8 moments from the same gradients on
-    both."""
+    (``optimizer``) one ``apply_updates`` with int8 moments from the same
+    gradients on both."""
     optim, transformer, moe, ops = mods.optim, mods.transformer, mods.moe, mods.ops
     cfg = dataclasses.replace(mods.get_config(arch), n_layers=2, dtype="float32")
     tiles = mods.tiles_from_plan(plan or mods.SchedulePlan())
-    params = {"cpu": transformer.init_params(cfg, SEED, device="cpu")}
-    params["cuda"] = _tree_to(params["cpu"], "cuda")
+    params = dict(zip(("cpu", "cuda"), _parity_params(transformer, cfg)))
     toks = torch.from_numpy(np.random.default_rng(SEED + 7).integers(0, cfg.vocab_size, (1, S)))
     routes = {"cuda": [], "cpu": []}
     real_route = moe.route
@@ -2390,10 +2440,23 @@ def phase_train_parity(torch, np, mods, arch=TRAIN_ARCH, S=512, plan=None):
         gaps.append((top[:, k_top - 1] - top[:, k_top]).min().item())
 
     # one optimizer step with int8 moments from the same (CPU) gradients
+    opt = _train_parity_optimizer(torch, mods, params, out["cpu"][1]) if optimizer else None
+    emit("train_parity", arch=cfg.name, n_layers=2, dtype="float32", tokens=S, launches=counts,
+         tiles=launched, loss_cuda=out["cuda"][0].item(), loss_cpu=out["cpu"][0].item(), loss=loss_stats,
+         worst_grad_rel=max(grad_rel.values()), grad_rel=grad_rel,
+         routing={"layers": len(gaps), "topi_equal": True,
+                  "min_gap_kth_to_next_prob": min(gaps) if gaps else None},
+         optimizer=opt)
+
+
+def _train_parity_optimizer(torch, mods, params, grads) -> dict:
+    """One ``apply_updates`` with int8 moments from the same gradients on the
+    card and the CPU: launches, parameters, moments and int8 codes."""
+    optim, ops = mods.optim, mods.ops
     oc = optim.OptimizerConfig(peak_lr=1e-3, warmup_steps=2, moment_dtype="int8")
     states = {d: optim.init_opt_state(params[d], oc) for d in ("cuda", "cpu")}
     for d in ("cuda", "cpu"):
-        g = optim.tree_from_leaves(params[d], {k: v.to(d) for k, v in out["cpu"][1].items()})
+        g = optim.tree_from_leaves(params[d], {k: v.to(d) for k, v in grads.items()})
         ops.reset_counters()
         optim.apply_updates(params[d], g, states[d], oc)
         if d == "cuda":
@@ -2423,17 +2486,25 @@ def phase_train_parity(torch, np, mods, arch=TRAIN_ARCH, S=512, plan=None):
                 check_close(m_gpu.cpu(), m_cpu, f"train_parity {mom} {k}", atol=1e-7, rtol=1e-5)
     if n_diff > 1e-5 * n_codes:
         raise AssertionError(f"train_parity: {n_diff} of {n_codes} int8 codes differ (limit 1e-5)")
-    emit("train_parity", arch=cfg.name, n_layers=2, dtype="float32", tokens=S, launches=counts,
-         tiles=launched, loss_cuda=out["cuda"][0].item(), loss_cpu=out["cpu"][0].item(), loss=loss_stats,
-         worst_grad_rel=max(grad_rel.values()), grad_rel=grad_rel,
-         routing={"layers": len(gaps), "topi_equal": True,
-                  "min_gap_kth_to_next_prob": min(gaps) if gaps else None},
-         optimizer={"moment_dtype": "int8", "launches": opt_counts, "worst_param_abs_err": worst_param,
-                    "codes": n_codes, "codes_differing": n_diff})
+    return {"moment_dtype": "int8", "launches": opt_counts, "worst_param_abs_err": worst_param,
+            "codes": n_codes, "codes_differing": n_diff}
 
 
 def _tree_to(tree, device):
     return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}
+
+
+def _parity_params(transformer, cfg) -> tuple:
+    """The same weights on the CPU and the card.  A dense arch's are drawn on
+    the card and copied: the host took tens of seconds to draw stablelm-12b's
+    and qwen2-vl-72b's 1.6 and 4.2 B f32 weights at 2 layers.  An MoE arch's
+    (small) keep their host draw: its routing is held equal between card and
+    CPU, and where two experts' probabilities nearly tie (~1e-6 apart at the
+    closest here) the devices' rounding decides, so a new draw is a new test."""
+    device = "cpu" if cfg.n_experts else "cuda"
+    params = transformer.init_params(cfg, SEED, device=device)
+    other = _tree_to(params, "cuda" if device == "cpu" else "cpu")
+    return (params, other) if device == "cpu" else (other, params)
 
 
 def run_path(torch, np, arch, plans, mods, n_layers=None) -> tuple:
@@ -3490,6 +3561,12 @@ def main() -> int:
     spilled = [k["kernel"] for k in bf16 if k.get("spill_stores", 0) + k.get("spill_loads", 0)]
     if not bf16 or spilled:
         raise AssertionError(f"bf16 wgmma kernels spill registers: {spilled or 'none found in ptxas'}")
+    # the backward at head_dim 160 (bf16 and f32): four instantiations, none spilling
+    bwd160 = [k for k in ptxas["flash_attention_backward"] if k["kernel"].endswith("<160>")]
+    emit("build_backward_160", registers={k["kernel"]: k.get("registers") for k in bwd160},
+         spill_bytes={k["kernel"]: k.get("spill_stores", 0) + k.get("spill_loads", 0) for k in bwd160})
+    if len(bwd160) != 4 or any(k.get("spill_stores", 0) + k.get("spill_loads", 0) for k in bwd160):
+        raise AssertionError(f"flash backward at head_dim 160: {bwd160}")
 
     phase_s = {"build": time.perf_counter() - t0}
 
@@ -3506,7 +3583,7 @@ def main() -> int:
         "selective_scan": timed_phase("kernels", phase_kernels_scan, torch, F, ss),
     }
     rows["quantize_int8"] = rows["dequantize_int8"] = timed_phase(
-        "kernels", phase_kernels_quantize, torch, qt)
+        "kernels", phase_kernels_quantize, torch, qt, stablelm_moment_rows(mods))
     rows.update(timed_phase("grad", phase_grad, torch, rn, fa, mg, ss))
 
     plans = {
@@ -3557,11 +3634,18 @@ def main() -> int:
             raise AssertionError(f"train plan a launched {counts}")
         add(counts)
     # falcon-mamba-7b: the scan's backward on the main path
-    mamba_plan = SchedulePlan(remat="full", microbatches=1, opt_dtype="int8", scan_chunk=128)
+    mamba_plan = SchedulePlan(**TRAIN_CUTS[MAMBA_ARCH][0])
     counts = timed_phase("train", phase_train, torch, "mamba", mamba_plan, mods, MAMBA_ARCH, 1,
                          MAMBA_TRAIN_LAYERS)
     if not all(counts[n] for n in ("selective_scan", "selective_scan_backward", "rmsnorm_backward")):
         raise AssertionError(f"train falcon-mamba launched {counts}")
+    add(counts)
+    # stablelm-12b: the flash backward at head_dim 160 on the main path
+    # (layernorm: no rmsnorm launches)
+    counts = timed_phase("train", phase_train, torch, "stablelm", SchedulePlan(**TRAIN_CUTS[STABLELM_ARCH][0]),
+                         mods, STABLELM_ARCH, 1, STABLELM_TRAIN_LAYERS)
+    if not all(counts[n] for n in ("flash_attention", "flash_attention_backward", "quantize_int8")):
+        raise AssertionError(f"train stablelm-12b launched {counts}")
     add(counts)
     # the quickstart: tune on the host, then train and serve with the tuned plan
     res, tuned_row = timed_phase("search", phase_search, torch, F, fa, mods)
@@ -3599,6 +3683,12 @@ def main() -> int:
     timed_phase("train_parity", phase_train_parity, torch, np, mods)
     timed_phase("train_parity", phase_train_parity, torch, np, mods, MAMBA_ARCH, 320,
                 SchedulePlan(scan_chunk=64))
+    # head_dim 160 in f32: (128, 128) is the one JAX tile the f32 forward
+    # launches there.  The int8 optimizer step, the same code for every
+    # arch, is held by the two runs above: over stablelm's 1.58 B f32
+    # parameters on the host it would add minutes to the script
+    timed_phase("train_parity", phase_train_parity, torch, np, mods, STABLELM_ARCH, 512,
+                SchedulePlan(attn_block=(128, 128)), False)
     emit("phase_seconds", seconds=phase_s, total_s=time.perf_counter() - T_START)
 
     summary = [_summary_row(n, rows[n], launches[n]) for n in KERNELS]

@@ -35,7 +35,7 @@ fresh process, the ``chip_smoke`` phase that must catch it: the file's
 phase, or the case's own where it names one (the unedited control runs
 every phase of the cases run; a case checked by CPU tests runs them on
 its copy with ``pytest``).  The control must pass every check and every
-mutant (thirty-three of them) must fail every check it runs.  Prints one
+mutant (thirty-five of them) must fail every check it runs.  Prints one
 JSON line per case (with the failing check's numbers) and exits 1 if any
 case went the other way.
 """
@@ -58,7 +58,8 @@ PHASES = {
     "phase_kernels_flash": "chip_smoke.phase_kernels_flash(torch, F, fa)",
     "phase_kernels_moe": "chip_smoke.phase_kernels_moe(torch, F, mg)",
     "phase_kernels_scan": "chip_smoke.phase_kernels_scan(torch, F, ss)",
-    "phase_kernels_quantize": "chip_smoke.phase_kernels_quantize(torch, qt)",
+    "phase_kernels_quantize": ("chip_smoke.phase_kernels_quantize(torch, qt, "
+                               "chip_smoke.stablelm_moment_rows(chip_smoke.make_mods()))"),
     "phase_grad": "chip_smoke.phase_grad(torch, rn, fa, mg, ss)",
     "phase_decode_int8": "chip_smoke.phase_decode_int8(torch, np, chip_smoke.make_mods())",
     "phase_positions": "chip_smoke.phase_positions(torch, chip_smoke.make_mods())",
@@ -171,6 +172,23 @@ CASES = {
         "          sm90::wgmma_rs<0>(adv, pa[kk], sm90::make_desc(osm + kk * 32, 16, 8 * K::kSpan,\n"
         "                            sm90::swizzle_code(K::kSpan)), 1);\n",
     )]),
+    # the dK/dV kernel's S^T and dP^T leave out the last 32-element chunk of
+    # the head dimension (their last two k-steps) at head_dim 160 only
+    "flash_backward_160_dkdv_drops_last_head_chunk": ("kernels/csrc/flash_attention_backward.cu", [(
+        "        product_hd<D>(st, kw, qsm);\n        product_hd<D>(dpt, vw, osm);\n",
+        "        for (int kk = 0; kk < D / 16 - (D == 160 ? 2 : 0); ++kk) {\n"
+        "          constexpr uint32_t swz = sm90::swizzle_code(K::kSpan);\n"
+        "          sm90::wgmma_ss<0, 0>(st, sm90::make_desc(kw + kstep<D>(kk, kRows), 16, 8 * K::kSpan, swz),\n"
+        "                               sm90::make_desc(qsm + kstep<D>(kk, BQ), 16, 8 * K::kSpan, swz), kk > 0);\n"
+        "          sm90::wgmma_ss<0, 0>(dpt, sm90::make_desc(vw + kstep<D>(kk, kRows), 16, 8 * K::kSpan, swz),\n"
+        "                               sm90::make_desc(osm + kstep<D>(kk, BQ), 16, 8 * K::kSpan, swz), kk > 0);\n"
+        "        }\n",
+    )]),
+    # the dK/dV kernel takes each query row's Delta from its neighbour's row
+    "flash_backward_delta_from_wrong_row": ("kernels/csrc/flash_attention_backward.cu", [(
+        "dpt[i] = p * (dpt[i] - lsm[BQ + col]);",
+        "dpt[i] = p * (dpt[i] - lsm[BQ + (col ^ 1)]);",
+    )]),
     # the scan backward never folds the adjoint carried in from later
     # chunks: each chunk's walk starts from zero
     "scan_backward_skips_reverse_fold": ("kernels/csrc/selective_scan.cu", [(
@@ -225,10 +243,10 @@ CASES = {
     # the int8 KV cache writes the new row's K and V scales one position
     # early: the row at cur keeps the scale it had
     "int8_kv_scale_written_one_position_off": ("models/attention.py", [(
-        '        _write_at_cur_(cache["k_s"], ks, cur, commit)\n'
-        '        _write_at_cur_(cache["v_s"], vs, cur, commit)\n',
-        '        _write_at_cur_(cache["k_s"], ks, cur - 1, commit)\n'
-        '        _write_at_cur_(cache["v_s"], vs, cur - 1, commit)\n',
+        '        _write_at_cur_(cache["k_s"], ks, cur, commit, o)\n'
+        '        _write_at_cur_(cache["v_s"], vs, cur, commit, o)\n',
+        '        _write_at_cur_(cache["k_s"], ks, cur - 1, commit, o)\n'
+        '        _write_at_cur_(cache["v_s"], vs, cur - 1, commit, o)\n',
     )]),
     # the decode path quantizes the new K and V rows with the plain version,
     # on the card too

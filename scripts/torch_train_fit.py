@@ -4,11 +4,13 @@ train phase at each depth asked for, its peak memory or the out-of-memory
 error where it does not fit.
 
     python3 scripts/torch_train_fit.py [--arch falcon-mamba-7b] [--layers 24 28 32]
+    python3 scripts/torch_train_fit.py --arch stablelm-12b --layers 10 12 14
 
 Runs on a machine with one CUDA card, from the root of a checkout.  The
-plan is ``chip_smoke.py``'s for the arch (falcon-mamba-7b: 1 x 4096, remat
-full, int8 moments, scan_chunk 128); each depth runs the phase's three
-steps with its exact launch counts and checks.  Prints one JSON line per
+plan is ``chip_smoke.py``'s for the arch (``TRAIN_CUTS``: 1 x 4096, remat
+full, int8 moments; falcon-mamba-7b scan_chunk 128, stablelm-12b tile
+(128, 256)); each depth runs the phase's three steps with its exact launch
+counts and checks.  Prints one JSON line per
 depth (the phase's own ``train`` line first where it fits), then the card's
 name and power limit.
 """
@@ -25,7 +27,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="falcon-mamba-7b")
+    ap.add_argument("--arch", default="falcon-mamba-7b", help="an arch of chip_smoke.TRAIN_CUTS")
     ap.add_argument("--layers", type=int, nargs="+", default=[24, 28, 32])
     args = ap.parse_args()
     import torch
@@ -39,7 +41,7 @@ def main() -> int:
     name, _, limit = cs.nvidia_smi().partition(",")
     cs.CARD.update(card=name.strip(), power_limit=limit.strip())
     mods = cs.make_mods()
-    plan = mods.SchedulePlan(remat="full", microbatches=1, opt_dtype="int8", scan_chunk=128)
+    plan = mods.SchedulePlan(**cs.TRAIN_CUTS[args.arch][0])
     for layers in args.layers:
         try:
             cs.phase_train(torch, f"fit {layers}", plan, mods, args.arch, 1, layers)

@@ -47,7 +47,8 @@
 //    other side through a ring of four stages under full / empty mbarriers
 //    (dQ: K and V 64 keys a stage; dK/dV: Q, dO and, by a bulk copy, their
 //    rows' lse and Delta from the scratch); setmaxnreg moves its registers to
-//    the two consumers (40 -> 232).  Products with both operands as stored
+//    the two consumers (40 -> 232) (not at head_dim 160's one-consumer dK/dV
+//    block, below).  Products with both operands as stored
 //    are wgmma_ss (K-major: K, Q, V and dO rows over the head dimension);
 //    the products over rows take P, P^T, dS or dS^T from registers, where
 //    the accumulator fragment is the A fragment (rounded to bf16, as the
@@ -61,8 +62,30 @@
 //    stages 16 q rows, so that dK and dV (64 registers each), S^T and dP^T
 //    fit the 168 registers ptxas allocates a thread (the launch bound's
 //    share: a consumer's setmaxnreg does not raise what it compiles for).
+//  * head_dim 160 (stablelm-12b), bf16: tiles at their true width in five
+//    32-element chunks under the 64-byte swizzle, as the forward's (a wgmma
+//    N over an MN-major operand must be whole swizzle chunks, and 160 is no
+//    multiple of the 128-byte swizzle's 64); dV += P^T.dO, dK += dS^T.Q and
+//    dQ += dS.K are each one m64n160k16 a k-step.  Registers decide the
+//    rest.  A dK/dV thread holds dK and dV at 80 floats each: 160 before
+//    S^T and dP^T (8 + 8 at 16 q rows a stage), over the 168 a thread
+//    compiles for at 384 threads.  So the dK/dV block at 160 is one
+//    consumer warpgroup of 64 keys and the producer (256 threads, launch
+//    bound (256, 1): ptxas may take up to 255 registers, and no setmaxnreg
+//    is needed) -- option (a) of three: (b) dV and dK in two passes over
+//    the q tiles would add an S^T product a tile, and (c) alone does not
+//    bring the 160 floats under 168.  The dQ kernel keeps its two consumers
+//    at 168 registers and narrows its stage to 32 keys (c): dQ is 80 floats,
+//    S and dP of 64 keys would be 32 + 32 more with nothing left to address,
+//    at 32 keys they are 16 + 16 (m64n32k16 for S and dP).  Shared memory:
+//    dK/dV 83,528 bytes, dQ 164,936; the price is K and V read by twice as
+//    many dK/dV blocks' q-tile walks and twice as many dQ stages.
 //  * f32: true f32 on the CUDA cores (no TF32), a thread a key (dK/dV) or a
-//    query row (dQ), the other side staged 16 rows at a time.
+//    query row (dQ), the other side staged 16 rows at a time; at head_dim
+//    160 two neighbouring threads a key or row, 80 columns each (a thread's
+//    dK and dV, 320 floats, would not fit 255 registers), as the forward's
+//    f32 kernel: their partial dot products meet by one shuffle, both take
+//    P and dS, each accumulates its own columns.
 //
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W, in one call of
 // scripts/torch_kernel_variants.py: 0.421 ms at (1,16,8,4096,4096,64) (the
@@ -97,23 +120,39 @@ constexpr int kConsumerRegs = 232;
 constexpr int kStages = 4;        // bf16: ring stages
 static_assert(kProducerRegs * 128 + kConsumerRegs * 128 * kConsumers <= kRegs * kThreadsBf16,
               "setmaxnreg asks for more registers than the block holds");
-constexpr int kThreadsF32 = 64;   // a thread a row
+constexpr int kThreadsF32 = 64;   // f32: rows a block (a thread a row, two at head_dim 160)
 constexpr int kStagedF32 = 16;    // f32: rows of the other side staged at a time
 constexpr int kSmemPerBlock = 232448;
 constexpr int kSmemDefault = 48 * 1024;
 
 __host__ __device__ constexpr int q_rows_bf16(int D) { return D <= 64 ? 64 : 16; }
+// dQ: keys a ring stage; 32 at head_dim 160, where dQ (80 floats a thread)
+// beside S and dP of 64 keys (32 + 32) would not fit 168 registers
+__host__ __device__ constexpr int dq_keys_bf16(int D) { return D <= 128 ? kRows : 32; }
+// dK/dV: consumer warpgroups a block; one at head_dim 160, where dK and dV
+// alone are 160 floats a thread (see the header)
+__host__ __device__ constexpr int dkdv_consumers(int D) { return D <= 128 ? kConsumers : 1; }
+__host__ __device__ constexpr int dkdv_threads_bf16(int D) { return 128 * (dkdv_consumers(D) + 1); }
+// f32: threads a row (two at head_dim 160: a row's dK and dV, or dQ, in
+// 80-column halves)
+__host__ __device__ constexpr int f32_lanes(int D) { return D > 128 ? 2 : 1; }
 __host__ __device__ __forceinline__ int cdiv(int x, int m) { return (x + m - 1) / m; }
 __host__ __device__ __forceinline__ int pad_rows(int S) { return cdiv(S, kRows) * kRows; }
 
 // The bf16 kernels' tiles at head_dim D.
 template <int D>
 struct Bwd {
-  static constexpr int kSpan = D >= 64 ? 128 : 2 * D;  // bytes of a swizzled row chunk
+  // bytes of a swizzled row chunk: 128 where D is whole 64-element chunks,
+  // else 64 (D = 32, 160) or 32 (D = 16)
+  static constexpr int kSpan = D % 64 == 0 ? 128 : D % 32 == 0 ? 64 : 32;
   static constexpr int kW = kSpan / 2;                 // head-dim elements of a row chunk
   static constexpr int kBQ = q_rows_bf16(D);           // dK/dV: q rows a ring stage
+  static constexpr int kQC = dq_keys_bf16(D);          // dQ: keys a ring stage
+  static constexpr int kKvConsumers = dkdv_consumers(D);
+  static constexpr int kKvThreads = dkdv_threads_bf16(D);
   static constexpr int kTile = kRows * D * 2;          // bytes of 64 rows
   static constexpr int kQTile = kBQ * D * 2;           // bytes of a dK/dV stage's Q (or dO)
+  static constexpr int kKTile = kQC * D * 2;           // bytes of a dQ stage's K (or V)
 };
 
 // the blocks' shared memory, as kernels/geometry.py computes it: alignment
@@ -121,9 +160,12 @@ struct Bwd {
 // (one for the own rows, full and empty a stage)
 int smem_dkdv_bf16(int D) {
   const int bq = q_rows_bf16(D);
-  return 1024 + 2 * kBlockRows * D * 2 + kStages * (2 * bq * D * 2 + 2 * bq * 4) + 8 * (1 + 2 * kStages);
+  return 1024 + 2 * kRows * dkdv_consumers(D) * D * 2 + kStages * (2 * bq * D * 2 + 2 * bq * 4) +
+         8 * (1 + 2 * kStages);
 }
-int smem_dq_bf16(int D) { return 1024 + 2 * kBlockRows * D * 2 + kStages * 2 * kRows * D * 2 + 8 * (1 + 2 * kStages); }
+int smem_dq_bf16(int D) {
+  return 1024 + 2 * kBlockRows * D * 2 + kStages * 2 * dq_keys_bf16(D) * D * 2 + 8 * (1 + 2 * kStages);
+}
 int smem_dq_f32(int D) { return 2 * kThreadsF32 * (D + 1) * 4 + 2 * kStagedF32 * D * 4; }
 int smem_dkdv_f32(int D) { return smem_dq_f32(D) + 2 * kStagedF32 * 4; }
 
@@ -193,8 +235,8 @@ __device__ __forceinline__ void load_rows(unsigned char* dst, const CUtensorMap*
 
 // ---------------------------------------------------------------------------
 // bf16 dQ (and Delta): a block a (128-row q tile, q head, batch).  Shared
-// memory: Q and dO of every consumer, the ring (each stage K then V, 64
-// keys), barriers.
+// memory: Q and dO of every consumer, the ring (each stage K then V, QC
+// keys: 64, 32 at head_dim 160), barriers.
 // ---------------------------------------------------------------------------
 template <int D>
 __global__ void __launch_bounds__(kThreadsBf16, 1)
@@ -203,11 +245,12 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constan
                   const float* __restrict__ lse, float* __restrict__ lse2, float* __restrict__ delta,
                   bf16* __restrict__ dq, int Hq, int Hkv, int Sq, int Skv, int causal, float scale) {
   using K = Bwd<D>;
+  constexpr int QC = K::kQC;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* qs = sm90::align1024(smem_raw);
   unsigned char* os = qs + kConsumers * K::kTile;
   unsigned char* ring = os + kConsumers * K::kTile;
-  uint64_t* own_full = reinterpret_cast<uint64_t*>(ring + kStages * 2 * K::kTile);
+  uint64_t* own_full = reinterpret_cast<uint64_t*>(ring + kStages * 2 * K::kKTile);
   uint64_t* full = own_full + 1;
   uint64_t* empty = full + kStages;
 
@@ -216,7 +259,7 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constan
   const int q0 = (gridDim.z - 1 - blockIdx.z) * kBlockRows;  // the last q tiles, which see the most keys, first
   const int q_end = min(q0 + kBlockRows, Sq);
   const int kv_end = causal ? min(Skv, max(q_off + q_end, 0)) : Skv;  // up to the last row's diagonal
-  const int n_sub = cdiv(kv_end, kRows);
+  const int n_sub = cdiv(kv_end, QC);
 
   if (threadIdx.x == 0) {
     sm90::tma_prefetch_map(&qmap);
@@ -245,10 +288,10 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constan
       for (int it = 0; it < 2 * n_sub; ++it) {  // the keys twice: walk 1, then walk 2
         const int s = it < n_sub ? it : it - n_sub;
         sm90::mbar_wait(&empty[stage], phase ^ 1);
-        unsigned char* ks = ring + stage * 2 * K::kTile;
-        sm90::mbar_arrive_expect_tx(&full[stage], 2 * K::kTile);
-        load_rows<D>(ks, &kmap, &full[stage], kRows, s * kRows, b * Hkv + hk);
-        load_rows<D>(ks + K::kTile, &vmap, &full[stage], kRows, s * kRows, b * Hkv + hk);
+        unsigned char* ks = ring + stage * 2 * K::kKTile;
+        sm90::mbar_arrive_expect_tx(&full[stage], 2 * K::kKTile);
+        load_rows<D>(ks, &kmap, &full[stage], QC, s * QC, b * Hkv + hk);
+        load_rows<D>(ks + K::kKTile, &vmap, &full[stage], QC, s * QC, b * Hkv + hk);
         if (++stage == kStages) {
           stage = 0;
           phase ^= 1;
@@ -280,18 +323,18 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constan
     int stage = 0;
     uint32_t phase = 0;
     // P (in sc) and dP of the warpgroup's rows against the stage's keys
-    float sc[kRows / 2], dp[kRows / 2];
+    float sc[QC / 2], dp[QC / 2];
     auto scores = [&](int key0, const unsigned char* ks) {
       sm90::wgmma_fence();
       product_hd<D>(sc, qw, ks);
-      product_hd<D>(dp, ow, ks + K::kTile);
+      product_hd<D>(dp, ow, ks + K::kKTile);
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::fence_regs(sc);
       sm90::fence_regs(dp);
-      const bool masked = key0 + kRows > Skv || (causal && key0 + kRows - 1 > q_off + w0);
+      const bool masked = key0 + QC > Skv || (causal && key0 + QC - 1 > q_off + w0);
 #pragma unroll
-      for (int i = 0; i < kRows / 2; ++i) {
+      for (int i = 0; i < QC / 2; ++i) {
         float p = fast_exp2(fmaf(sc[i], sl2, (i & 2) ? -l2b : -l2a));
         if (masked) {
           const int key = key0 + i / 4 * 8 + 2 * t4 + (i & 1);
@@ -312,10 +355,10 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constan
     // walk 1: Delta = rowsum(P * dP)
     for (int s = 0; s < n_sub; ++s) {
       sm90::mbar_wait(&full[stage], phase);
-      if (s * kRows < w_kv_end) {  // tiles right of this warpgroup's rows are skipped
-        scores(s * kRows, ring + stage * 2 * K::kTile);
+      if (s * QC < w_kv_end) {  // tiles right of this warpgroup's rows are skipped
+        scores(s * QC, ring + stage * 2 * K::kKTile);
 #pragma unroll
-        for (int j = 0; j < kRows / 8; ++j) {
+        for (int j = 0; j < QC / 8; ++j) {
           dl_a = fmaf(sc[4 * j], dp[4 * j], fmaf(sc[4 * j + 1], dp[4 * j + 1], dl_a));
           dl_b = fmaf(sc[4 * j + 2], dp[4 * j + 2], fmaf(sc[4 * j + 3], dp[4 * j + 3], dl_b));
         }
@@ -335,15 +378,15 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constan
     // walk 2: dS = P (dP - Delta), dQ += dS.K
     for (int s = 0; s < n_sub; ++s) {
       sm90::mbar_wait(&full[stage], phase);
-      if (s * kRows < w_kv_end) {
-        const unsigned char* ks = ring + stage * 2 * K::kTile;
-        scores(s * kRows, ks);
+      if (s * QC < w_kv_end) {
+        const unsigned char* ks = ring + stage * 2 * K::kKTile;
+        scores(s * QC, ks);
 #pragma unroll
-        for (int i = 0; i < kRows / 2; ++i) sc[i] *= dp[i] - ((i & 2) ? dl_b : dl_a);
-        uint32_t da[kRows / 16][4];
+        for (int i = 0; i < QC / 2; ++i) sc[i] *= dp[i] - ((i & 2) ? dl_b : dl_a);
+        uint32_t da[QC / 16][4];
         to_a(da, sc);
         sm90::wgmma_fence();
-        product_rows<D, kRows>(acc, da, ks);
+        product_rows<D, QC>(acc, da, ks);
         sm90::wgmma_commit();
         sm90::wgmma_wait<0>();
         sm90::fence_regs(acc);
@@ -366,29 +409,30 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constan
 }
 
 // ---------------------------------------------------------------------------
-// bf16 dK / dV: a block a (128-key tile, kv head, batch).  Shared memory: K
+// bf16 dK / dV: a block a (64-key tile a consumer, kv head, batch): 128
+// keys, 64 at head_dim 160 (one consumer, no setmaxnreg).  Shared memory: K
 // and V of every consumer, the ring (each stage Q then dO, BQ rows), the
 // ring's lse and Delta (a stage: BQ of each), barriers.
 // ---------------------------------------------------------------------------
 template <int D>
-__global__ void __launch_bounds__(kThreadsBf16, 1)
+__global__ void __launch_bounds__(Bwd<D>::kKvThreads, 1)
 flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
                     const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap omap,
                     const float* __restrict__ lse2, const float* __restrict__ delta, bf16* __restrict__ dk,
                     bf16* __restrict__ dv, int Hq, int Hkv, int Sq, int Skv, int causal, float scale) {
   using K = Bwd<D>;
-  constexpr int BQ = K::kBQ;
+  constexpr int BQ = K::kBQ, NC = K::kKvConsumers;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ks = sm90::align1024(smem_raw);
-  unsigned char* vs = ks + kConsumers * K::kTile;
-  unsigned char* ring = vs + kConsumers * K::kTile;
+  unsigned char* vs = ks + NC * K::kTile;
+  unsigned char* ring = vs + NC * K::kTile;
   float* lsd = reinterpret_cast<float*>(ring + kStages * 2 * K::kQTile);
   uint64_t* own_full = reinterpret_cast<uint64_t*>(lsd + kStages * 2 * BQ);
   uint64_t* full = own_full + 1;
   uint64_t* empty = full + kStages;
 
   const int hk = blockIdx.x, b = blockIdx.y;
-  const int k0 = blockIdx.z * kBlockRows;  // kv tile 0, which every q tile sees, first
+  const int k0 = blockIdx.z * kRows * NC;  // kv tile 0, which every q tile sees, first
   const int groups = Hq / Hkv, q_off = Skv - Sq;
   // the q tiles from the first with a row that sees key k0 (the causal
   // diagonal) to the end, for each of the group's q-heads: the group's sum
@@ -404,17 +448,17 @@ flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap kmap, const __grid_const
     sm90::mbar_init(own_full, 1);
     for (int s = 0; s < kStages; ++s) {
       sm90::mbar_init(&full[s], 1);
-      sm90::mbar_init(&empty[s], 4 * kConsumers);
+      sm90::mbar_init(&empty[s], 4 * NC);
     }
     sm90::fence_barrier_init();
   }
   __syncthreads();
 
   if (threadIdx.x < 128) {
-    sm90::setmaxnreg_dec<kProducerRegs>();
+    if constexpr (NC > 1) sm90::setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x == 0) {
-      sm90::mbar_arrive_expect_tx(own_full, 2 * kConsumers * K::kTile);
-      for (int w = 0; w < kConsumers; ++w) {
+      sm90::mbar_arrive_expect_tx(own_full, 2 * NC * K::kTile);
+      for (int w = 0; w < NC; ++w) {
         load_rows<D>(ks + w * K::kTile, &kmap, own_full, kRows, k0 + w * kRows, b * Hkv + hk);
         load_rows<D>(vs + w * K::kTile, &vmap, own_full, kRows, k0 + w * kRows, b * Hkv + hk);
       }
@@ -438,7 +482,7 @@ flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap kmap, const __grid_const
       }
     }
   } else {  // consumer warpgroups: 64 keys each
-    sm90::setmaxnreg_inc<kConsumerRegs>();
+    if constexpr (NC > 1) sm90::setmaxnreg_inc<kConsumerRegs>();
     const int cw = threadIdx.x / 128 - 1;
     const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
     const int wk0 = k0 + cw * kRows;  // first key of this warpgroup
@@ -517,7 +561,9 @@ flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap kmap, const __grid_const
 }
 
 // ---------------------------------------------------------------------------
-// f32: a thread a key (dK / dV) or a query row (dQ), true f32 FMAs
+// f32: a thread a key (dK / dV) or a query row (dQ), true f32 FMAs; at
+// head_dim 160 two neighbouring threads a row, 80 columns each, whose
+// partial dot products meet by one shuffle
 // ---------------------------------------------------------------------------
 // rows [r0, r0 + n) of one head's (S, D) rows into a [n][ld] tile, zero past S
 __device__ __forceinline__ void stage_f32(float* dst, int ld, const float* src, int r0, int n, int S,
@@ -528,14 +574,41 @@ __device__ __forceinline__ void stage_f32(float* dst, int ld, const float* src, 
   }
 }
 
+// the row's whole dot product from its lanes' partial ones (every thread of
+// the block calls it: the loops around it are uniform)
 template <int D>
-__global__ void __launch_bounds__(kThreadsF32)
+__device__ __forceinline__ float row_sum(float x) {
+  if constexpr (f32_lanes(D) == 2) x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x;
+}
+
+// A thread's partial S and dP of a staged row (q, o) against its own key
+// (k, v), over its kDL columns.  At head_dim 160 the loop stays rolled:
+// fully unrolled, the compiler keeps the key's K and V columns in
+// registers across the staged rows, 160 floats beside dK and dV's 160, and
+// ptxas spilled 1.7 KB a thread: two lanes a row unroll by 4, one fully.
+template <int D>
+__device__ __forceinline__ void dot_own_row(const float* q, const float* k, const float* o, const float* v,
+                                            float& s, float& dp) {
+  constexpr int kDL = D / f32_lanes(D);
+  constexpr int kUnroll = f32_lanes(D) == 2 ? 4 : kDL;
+  s = dp = 0.f;
+#pragma unroll (kUnroll)
+  for (int d = 0; d < kDL; ++d) {
+    s = fmaf(q[d], k[d], s);
+    dp = fmaf(o[d], v[d], dp);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsF32 * f32_lanes(D))
 flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, const float* __restrict__ dout,
                    const float* __restrict__ lse, const float* __restrict__ delta,
                    float* __restrict__ dk, float* __restrict__ dv, int Hq, int Hkv, int Sq, int Skv,
                    int causal, float scale) {
   constexpr int LP = D + 1;  // the block's own rows, padded: thread i reads row i
+  constexpr int kDL = D / f32_lanes(D);  // columns a thread
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* Ks = reinterpret_cast<float*>(smem_raw);
   float* Vs = Ks + kThreadsF32 * LP;
@@ -546,14 +619,15 @@ flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   const int hk = blockIdx.y, b = blockIdx.z, k0 = blockIdx.x * kThreadsF32;
   const int groups = Hq / Hkv, q_off = Skv - Sq;
-  const int key = k0 + threadIdx.x;
+  const int t = threadIdx.x / f32_lanes(D), c0 = threadIdx.x % f32_lanes(D) * kDL;  // key, first column
+  const int key = k0 + t;
   const bool valid = key < Skv;
   const long long kvbase = static_cast<long long>(b * Hkv + hk) * Skv * D;
   stage_f32(Ks, LP, k + kvbase, k0, kThreadsF32, Skv, D);
   stage_f32(Vs, LP, v + kvbase, k0, kThreadsF32, Skv, D);
-  float ak[D], av[D];
+  float ak[kDL], av[kDL];
 #pragma unroll
-  for (int d = 0; d < D; ++d) ak[d] = av[d] = 0.f;
+  for (int d = 0; d < kDL; ++d) ak[d] = av[d] = 0.f;
   const int i0 = causal ? max(0, k0 - q_off) : 0;
 
   for (int hh = 0; hh < groups; ++hh) {
@@ -570,38 +644,37 @@ flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
       }
       __syncthreads();
       for (int r = 0; r < kStagedF32 && q0 + r < Sq; ++r) {
-        float s = 0.f, dp = 0.f;
-#pragma unroll
-        for (int d = 0; d < D; ++d) {
-          s = fmaf(Qs[r * D + d], Ks[threadIdx.x * LP + d], s);
-          dp = fmaf(Os[r * D + d], Vs[threadIdx.x * LP + d], dp);
-        }
+        float s, dp;
+        dot_own_row<D>(Qs + r * D + c0, Ks + t * LP + c0, Os + r * D + c0, Vs + t * LP + c0, s, dp);
+        s = row_sum<D>(s);
+        dp = row_sum<D>(dp);
         const bool seen = valid && (!causal || key <= q_off + q0 + r);
         const float p = seen ? expf(s * scale - Ls[r]) : 0.f;
         const float ds = p * (dp - Ds[r]);
 #pragma unroll
-        for (int d = 0; d < D; ++d) {
-          av[d] = fmaf(p, Os[r * D + d], av[d]);
-          ak[d] = fmaf(ds, Qs[r * D + d], ak[d]);
+        for (int d = 0; d < kDL; ++d) {
+          av[d] = fmaf(p, Os[r * D + c0 + d], av[d]);
+          ak[d] = fmaf(ds, Qs[r * D + c0 + d], ak[d]);
         }
       }
     }
   }
   if (!valid) return;
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    dk[kvbase + static_cast<long long>(key) * D + d] = ak[d] * scale;
-    dv[kvbase + static_cast<long long>(key) * D + d] = av[d];
+  for (int d = 0; d < kDL; ++d) {
+    dk[kvbase + static_cast<long long>(key) * D + c0 + d] = ak[d] * scale;
+    dv[kvbase + static_cast<long long>(key) * D + c0 + d] = av[d];
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreadsF32)
+__global__ void __launch_bounds__(kThreadsF32 * f32_lanes(D))
 flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse, float* __restrict__ delta,
                  float* __restrict__ dq, int Hq, int Hkv, int Sq, int Skv, int causal, float scale) {
   constexpr int LP = D + 1;
+  constexpr int kDL = D / f32_lanes(D);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* Qs = reinterpret_cast<float*>(smem_raw);
   float* Os = Qs + kThreadsF32 * LP;
@@ -610,7 +683,8 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * kThreadsF32;
   const int hk = h / (Hq / Hkv), q_off = Skv - Sq;
-  const int row = q0 + threadIdx.x;
+  const int t = threadIdx.x / f32_lanes(D), c0 = threadIdx.x % f32_lanes(D) * kDL;  // row, first column
+  const int row = q0 + t;
   const bool valid = row < Sq;
   const long long qrow = static_cast<long long>(b * Hq + h) * Sq;
   const long long kvbase = static_cast<long long>(b * Hkv + hk) * Skv * D;
@@ -624,10 +698,12 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
     float s = 0.f;
     dp = 0.f;
 #pragma unroll
-    for (int d = 0; d < D; ++d) {
-      s = fmaf(Qs[threadIdx.x * LP + d], Ks[j * D + d], s);
-      dp = fmaf(Os[threadIdx.x * LP + d], Vs[j * D + d], dp);
+    for (int d = 0; d < kDL; ++d) {
+      s = fmaf(Qs[t * LP + c0 + d], Ks[j * D + c0 + d], s);
+      dp = fmaf(Os[t * LP + c0 + d], Vs[j * D + c0 + d], dp);
     }
+    s = row_sum<D>(s);
+    dp = row_sum<D>(dp);
     const bool seen = valid && (!causal || k0 + j <= q_off + row);
     p = seen ? expf(s * scale - lv) : 0.f;
   };
@@ -644,9 +720,9 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
       dl = fmaf(p, dp, dl);
     }
   }
-  float acc[D];  // walk 2: dQ
+  float acc[kDL];  // walk 2: dQ
 #pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
+  for (int d = 0; d < kDL; ++d) acc[d] = 0.f;
   for (int k0 = 0; k0 < kv_end; k0 += kStagedF32) {
     __syncthreads();
     stage_f32(Ks, D, k + kvbase, k0, kStagedF32, Skv, D);
@@ -657,13 +733,13 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
       pdp(k0, j, p, dp);
       const float ds = p * (dp - dl);
 #pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] = fmaf(ds, Ks[j * D + d], acc[d]);
+      for (int d = 0; d < kDL; ++d) acc[d] = fmaf(ds, Ks[j * D + c0 + d], acc[d]);
     }
   }
   if (!valid) return;
-  delta[qrow + row] = dl;
+  if (c0 == 0) delta[qrow + row] = dl;
 #pragma unroll
-  for (int d = 0; d < D; ++d) dq[(qrow + row) * D + d] = acc[d] * scale;
+  for (int d = 0; d < kDL; ++d) dq[(qrow + row) * D + c0 + d] = acc[d] * scale;
 }
 
 // ---------------------------------------------------------------------------
@@ -679,23 +755,23 @@ cudaError_t launch_bf16(int B, int Hq, int Hkv, int Sq, int Skv, int causal, flo
                         const float* lse, float* scratch, void* dq, void* dk, void* dv) {
   using K = Bwd<D>;
   const uint64_t bhq = static_cast<uint64_t>(B) * Hq, bhkv = static_cast<uint64_t>(B) * Hkv;
-  // boxes of 64 rows x one swizzled row chunk; the dK/dV ring's Q and dO of BQ rows
-  CUtensorMap qmap, omap, kmap, vmap, qmap_bq, omap_bq;
+  // boxes of 64 rows x one swizzled row chunk (the blocks' own rows); the
+  // dK/dV ring's Q and dO of BQ rows, the dQ ring's K and V of QC rows
+  CUtensorMap qmap, omap, kmap, vmap, qmap_bq, omap_bq, kmap_qc, vmap_qc;
   cudaError_t e = sm90::encode_bf16_3d(&qmap, q, D, Sq, bhq, K::kW, kRows);
   if (e == cudaSuccess) e = sm90::encode_bf16_3d(&omap, dout, D, Sq, bhq, K::kW, kRows);
   if (e == cudaSuccess) e = sm90::encode_bf16_3d(&kmap, k, D, Skv, bhkv, K::kW, kRows);
   if (e == cudaSuccess) e = sm90::encode_bf16_3d(&vmap, v, D, Skv, bhkv, K::kW, kRows);
-  if (K::kBQ == kRows) {
-    qmap_bq = qmap;
-    omap_bq = omap;
-  } else {
-    if (e == cudaSuccess) e = sm90::encode_bf16_3d(&qmap_bq, q, D, Sq, bhq, K::kW, K::kBQ);
-    if (e == cudaSuccess) e = sm90::encode_bf16_3d(&omap_bq, dout, D, Sq, bhq, K::kW, K::kBQ);
-  }
+  if (e == cudaSuccess) e = sm90::encode_bf16_3d(&qmap_bq, q, D, Sq, bhq, K::kW, K::kBQ);
+  if (e == cudaSuccess) e = sm90::encode_bf16_3d(&omap_bq, dout, D, Sq, bhq, K::kW, K::kBQ);
+  if (e == cudaSuccess) e = sm90::encode_bf16_3d(&kmap_qc, k, D, Skv, bhkv, K::kW, K::kQC);
+  if (e == cudaSuccess) e = sm90::encode_bf16_3d(&vmap_qc, v, D, Skv, bhkv, K::kW, K::kQC);
   if (e != cudaSuccess) return e;
   static const cudaError_t ready = [] {  // once per head_dim
     cudaError_t r = sm90::check_registers(flash_bwd_dq_bf16<D>, kRegs);
-    if (r == cudaSuccess) r = sm90::check_registers(flash_bwd_dkdv_bf16<D>, kRegs);
+    // the one-consumer dK/dV block runs no setmaxnreg: its registers are
+    // whatever ptxas took within the launch bound's 255
+    if (r == cudaSuccess && K::kKvConsumers > 1) r = sm90::check_registers(flash_bwd_dkdv_bf16<D>, kRegs);
     if (r == cudaSuccess) r = allow_smem(flash_bwd_dq_bf16<D>, smem_dq_bf16(D));
     return r == cudaSuccess ? allow_smem(flash_bwd_dkdv_bf16<D>, smem_dkdv_bf16(D)) : r;
   }();
@@ -703,10 +779,12 @@ cudaError_t launch_bf16(int B, int Hq, int Hkv, int Sq, int Skv, int causal, flo
   float* lse2 = scratch;  // then Delta: (B, Hq, Sq padded to 64) each
   float* delta = scratch + bhq * pad_rows(Sq);
   flash_bwd_dq_bf16<D><<<dim3(Hq, B, cdiv(Sq, kBlockRows)), kThreadsBf16, smem_dq_bf16(D), s>>>(
-      qmap, omap, kmap, vmap, lse, lse2, delta, static_cast<bf16*>(dq), Hq, Hkv, Sq, Skv, causal, scale);
+      qmap, omap, kmap_qc, vmap_qc, lse, lse2, delta, static_cast<bf16*>(dq), Hq, Hkv, Sq, Skv, causal,
+      scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  flash_bwd_dkdv_bf16<D><<<dim3(Hkv, B, cdiv(Skv, kBlockRows)), kThreadsBf16, smem_dkdv_bf16(D), s>>>(
+  flash_bwd_dkdv_bf16<D><<<dim3(Hkv, B, cdiv(Skv, kRows * K::kKvConsumers)), K::kKvThreads,
+                           smem_dkdv_bf16(D), s>>>(
       kmap, vmap, qmap_bq, omap_bq, lse2, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), Hq, Hkv, Sq,
       Skv, causal, scale);
   return cudaGetLastError();
@@ -721,14 +799,14 @@ cudaError_t launch_f32(int B, int Hq, int Hkv, int Sq, int Skv, int causal, floa
   if (e != cudaSuccess) return e;
   const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
               *vf = static_cast<const float*>(v), *of = static_cast<const float*>(dout);
-  flash_bwd_dq_f32<D><<<dim3((Sq + kThreadsF32 - 1) / kThreadsF32, Hq, B), kThreadsF32,
-                        smem_dq_f32(D), s>>>(qf, kf, vf, of, lse, delta, static_cast<float*>(dq), Hq,
-                                             Hkv, Sq, Skv, causal, scale);
+  const int threads = kThreadsF32 * f32_lanes(D);
+  flash_bwd_dq_f32<D><<<dim3((Sq + kThreadsF32 - 1) / kThreadsF32, Hq, B), threads, smem_dq_f32(D), s>>>(
+      qf, kf, vf, of, lse, delta, static_cast<float*>(dq), Hq, Hkv, Sq, Skv, causal, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  flash_bwd_dkdv_f32<D><<<dim3((Skv + kThreadsF32 - 1) / kThreadsF32, Hkv, B), kThreadsF32,
-                          smem_dkdv_f32(D), s>>>(qf, kf, vf, of, lse, delta, static_cast<float*>(dk),
-                                                 static_cast<float*>(dv), Hq, Hkv, Sq, Skv, causal, scale);
+  flash_bwd_dkdv_f32<D><<<dim3((Skv + kThreadsF32 - 1) / kThreadsF32, Hkv, B), threads, smem_dkdv_f32(D),
+                          s>>>(qf, kf, vf, of, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv),
+                               Hq, Hkv, Sq, Skv, causal, scale);
   return cudaGetLastError();
 }
 
@@ -740,27 +818,27 @@ cudaError_t launch_f32(int B, int Hq, int Hkv, int Sq, int Skv, int causal, floa
 // units and Delta, each (B, Hq, Sq rounded up to 64); f32: Delta (B, Hq,
 // Sq)), which the dQ kernel fills for the dK/dV kernel.  The tiles (dK/dV:
 // keys a block, query rows a ring stage or staged; dQ: query rows a block,
-// keys a stage), threads and shared-memory sizes come from
+// keys a stage), each kernel's threads and shared-memory size come from
 // kernels/geometry.py; any that disagrees with this file's arithmetic is
 // refused.  Launches two kernels on `stream`; returns cudaGetLastError()
 // after the last.
 extern "C" int flash_attention_backward_launch(
     const void* q, const void* k, const void* v, const void* lse, const void* dout, void* scratch,
     void* dq, void* dk, void* dv, int B, int Hq, int Hkv, int Sq, int Skv, int D, int dkdv_keys,
-    int dkdv_rows, int dq_rows, int dq_keys, int threads, int dkdv_smem, int dq_smem, int causal,
-    float scale, int dtype, void* stream) {
+    int dkdv_rows, int dq_rows, int dq_keys, int dkdv_threads, int dq_threads, int dkdv_smem,
+    int dq_smem, int causal, float scale, int dtype, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || Sq <= 0 || Skv <= 0 || (dtype != 0 && dtype != 1) ||
-      (D != 16 && D != 32 && D != 64 && D != 128) || dkdv_smem > kSmemPerBlock ||
+      (D != 16 && D != 32 && D != 64 && D != 128 && D != 160) || dkdv_smem > kSmemPerBlock ||
       dq_smem > kSmemPerBlock)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool ok =
       dtype == 1
-          ? dkdv_keys == kBlockRows && dkdv_rows == q_rows_bf16(D) && dq_rows == kBlockRows &&
-                dq_keys == kRows && threads == kThreadsBf16 && dkdv_smem == smem_dkdv_bf16(D) &&
-                dq_smem == smem_dq_bf16(D)
+          ? dkdv_keys == kRows * dkdv_consumers(D) && dkdv_rows == q_rows_bf16(D) && dq_rows == kBlockRows &&
+                dq_keys == dq_keys_bf16(D) && dkdv_threads == dkdv_threads_bf16(D) &&
+                dq_threads == kThreadsBf16 && dkdv_smem == smem_dkdv_bf16(D) && dq_smem == smem_dq_bf16(D)
           : dkdv_keys == kThreadsF32 && dkdv_rows == kStagedF32 && dq_rows == kThreadsF32 &&
-                dq_keys == kStagedF32 && threads == kThreadsF32 && dkdv_smem == smem_dkdv_f32(D) &&
-                dq_smem == smem_dq_f32(D);
+                dq_keys == kStagedF32 && dkdv_threads == kThreadsF32 * f32_lanes(D) &&
+                dq_threads == dkdv_threads && dkdv_smem == smem_dkdv_f32(D) && dq_smem == smem_dq_f32(D);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* lf = static_cast<const float*>(lse);
@@ -778,6 +856,7 @@ extern "C" int flash_attention_backward_launch(
     REPRO_FLASH_BWD_CASE(32)
     REPRO_FLASH_BWD_CASE(64)
     REPRO_FLASH_BWD_CASE(128)
+    REPRO_FLASH_BWD_CASE(160)
     default:
       break;
   }

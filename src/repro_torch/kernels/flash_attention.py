@@ -27,8 +27,9 @@ scores), and its backward launches the backward kernel
 (``csrc/flash_attention_backward.cu``: a dQ kernel that also sums ``Delta
 = rowsum(P * dP)``, then a dK/dV kernel that sums each GQA group in its
 block; bf16 both TMA -> wgmma pipelines; deterministic, its tiles its own,
-``geometry.flash_backward_launch``, with an f32 scratch the wrapper
-allocates for the dQ kernel to hand lse and Delta to the dK/dV kernel).
+``geometry.flash_backward_launch``, at every head_dim the forward takes
+(16, 32, 64, 128, 160), with an f32 scratch the wrapper allocates for the
+dQ kernel to hand lse and Delta to the dK/dV kernel).
 ``BWD_LAUNCHES`` counts one per backward call, whatever its two kernel
 launches, and records the dK/dV and dQ tiles.  The JAX kernel is
 forward-only: the backward is held to ``jax.vjp`` of the JAX package's
@@ -53,7 +54,7 @@ _DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = (_P,) * 5 + (_I,) * 12 + (ctypes.c_float, _I, _P)
-_BWD_ARGS = (_P,) * 9 + (_I,) * 14 + (ctypes.c_float, _I, _P)
+_BWD_ARGS = (_P,) * 9 + (_I,) * 15 + (ctypes.c_float, _I, _P)
 
 
 def flash_attention(
@@ -156,8 +157,8 @@ def _launch_backward(q, k, v, lse, do, causal: bool, bwd):
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(), do.data_ptr(), scratch.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        B, Hq, Hkv, Sq, Skv, D, *bwd.dkdv_tile, *bwd.dq_tile, bwd.threads, bwd.dkdv_smem,
-        bwd.dq_smem, int(causal), float(D ** -0.5), _DTYPE_CODES[q.dtype], _build.stream(q),
+        B, Hq, Hkv, Sq, Skv, D, *bwd.dkdv_tile, *bwd.dq_tile, bwd.dkdv_threads, bwd.dq_threads,
+        bwd.dkdv_smem, bwd.dq_smem, int(causal), float(D ** -0.5), _DTYPE_CODES[q.dtype], _build.stream(q),
     )
     if err:
         _build.check(lib, "flash_attention_backward", err)

@@ -35,9 +35,9 @@ at head_dim 64 in bf16 the six with ``block_q`` in (128, 256) are
 launchable; ``block_q = 512`` would need 1,152 threads and raises.  At
 head_dim 128 and 160 in bf16, (128, 128) and (128, 256).
 
-The forward is built for ``FLASH_HEAD_DIMS``, the backward for
-``FLASH_BWD_HEAD_DIMS``: a backward at head_dim 160 (stablelm-12b training)
-is ROADMAP item P2, and its launch raises naming it.
+The forward and the backward are built for ``FLASH_HEAD_DIMS``; a
+backward at head_dim 160 (stablelm-12b training) runs a one-consumer dK/dV
+block and a 32-key dQ stage (``flash_backward_tiles``).
 
 **moe_gemm** (``csrc/moe_gemm.cu``).  Grid ``(E, C/block_c, f/block_f)``;
 one block owns a ``block_c x block_f`` output tile and loops over ``d``
@@ -86,7 +86,7 @@ from typing import List, Tuple
 SMEM_PER_BLOCK = 232_448  # bytes of shared memory one block may use on sm_90
 REGISTERS_PER_SM = 65_536
 FLASH_HEAD_DIMS = (16, 32, 64, 128, 160)  # head_dims the forward kernel is instantiated for
-FLASH_BWD_HEAD_DIMS = (16, 32, 64, 128)  # and the backward kernels
+FLASH_BWD_HEAD_DIMS = FLASH_HEAD_DIMS  # and the backward kernels
 
 # the JAX schedule space's attn_block and scan_chunk options (repro
 # core/space.py:136,140)
@@ -201,22 +201,32 @@ def flash_launch(
 # The backward (csrc/flash_attention_backward.cu): a dQ kernel (a block a
 # 128-row q tile of a q head, walking the kv tiles up to the diagonal twice:
 # Delta = rowsum(P * dP), then dQ) and a dK/dV kernel (a block a 128-key tile
-# of a kv head, looping over the group's q-heads and their q tiles from the
-# diagonal down).  bf16: both are TMA -> wgmma pipelines of one producer and
-# two consumer warpgroups (64 rows each) and a ring of four stages; f32: a
-# thread a row.  Its tiles are the kernel's own: the plan tunes only the
-# forward's, as in the JAX package.
-FLASH_BWD_THREADS = {"bfloat16": _WG * 3, "float32": 64}
+# of a kv head, 64 at head_dim 160, looping over the group's q-heads and
+# their q tiles from the diagonal down).  bf16: both are TMA -> wgmma
+# pipelines of one producer and two consumer warpgroups (64 rows each; the
+# dK/dV block at head_dim 160 one consumer) and a ring of four stages; f32:
+# a thread a row (two at 160).  Its tiles are the kernel's own: the plan
+# tunes only the forward's, as in the JAX package.
 FLASH_BWD_STAGES = 4  # bf16: ring stages of either kernel
-FLASH_BWD_REGISTERS = {"launch": 168, "producer": 40, "consumer": 232}  # bf16, a thread
 _BWD_PAD_ROWS = 64  # bf16: the dQ kernel's lse and Delta scratch pads each head's rows to 64
+_BWD_F32_ROWS = 64  # f32: rows (keys or queries) a block
+_BWD_F32_STAGED = 16  # f32: rows of the other side staged at a time
+
+
+def flash_backward_consumers(head_dim: int) -> Tuple[int, int]:
+    """bf16 (dK/dV, dQ) consumer warpgroups a block: at head_dim 160 a
+    dK/dV thread holds dK and dV at 80 floats each, more than the 168
+    registers a thread of three warpgroups compiles for, so that block is
+    one consumer and the producer."""
+    return (1 if head_dim > 128 else 2), 2
 
 
 @dataclass(frozen=True)
 class FlashBwdLaunch:
     dkdv_tile: Tuple[int, int]  # (keys a block owns, q rows a ring stage or staged at a time)
     dq_tile: Tuple[int, int]  # (q rows a block owns, keys a ring stage or staged at a time)
-    threads: int  # of either kernel
+    dkdv_threads: int
+    dq_threads: int
     dkdv_smem: int
     dq_smem: int
     dkdv_grid: Tuple[int, int, int]  # (kv heads, batch, kv tiles): heaviest tile first
@@ -224,16 +234,27 @@ class FlashBwdLaunch:
     scratch_floats: int  # f32 the wrapper allocates for the dQ kernel to hand the dK/dV kernel
 
 
-def flash_backward_tiles(head_dim: int, dtype: str) -> Tuple[Tuple[int, int], Tuple[int, int]]:
-    """((dk/dv keys, q rows a stage), (dq rows, keys a stage)).  bf16: two
-    consumer warpgroups of 64 rows a block; the dK/dV ring stages 64 q rows,
-    16 at head_dim 128 (so that dK, dV, S^T and dP^T fit the 168 registers a
-    thread is compiled for); the dQ ring 64 keys.  f32: a thread a row, 64 a block, 16 rows of the other
-    side staged."""
+def flash_backward_threads(head_dim: int, dtype: str) -> Tuple[int, int]:
+    """(dK/dV, dQ) threads a block."""
     if dtype == "float32":
-        return (64, 16), (64, 16)
-    rows = 2 * _WG_ROWS
-    return (rows, 64 if head_dim <= 64 else 16), (rows, _WG_ROWS)
+        n = _BWD_F32_ROWS * f32_lanes(head_dim)
+        return n, n
+    kv, q = flash_backward_consumers(head_dim)
+    return _WG * (kv + 1), _WG * (q + 1)
+
+
+def flash_backward_tiles(head_dim: int, dtype: str) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """((dk/dv keys, q rows a stage), (dq rows, keys a stage)).  bf16: 64
+    rows a consumer warpgroup; the dK/dV ring stages 64 q rows, 16 at
+    head_dim 128 and 160 (so that dK, dV, S^T and dP^T fit the registers a
+    thread is compiled for); the dQ ring 64 keys, 32 at head_dim 160 (dQ, S
+    and dP within 168 registers).  f32: a thread a row (two at head_dim
+    160), 64 rows a block, 16 rows of the other side staged."""
+    if dtype == "float32":
+        return (_BWD_F32_ROWS, _BWD_F32_STAGED), (_BWD_F32_ROWS, _BWD_F32_STAGED)
+    kv, q = flash_backward_consumers(head_dim)
+    return ((kv * _WG_ROWS, 64 if head_dim <= 64 else 16),
+            (q * _WG_ROWS, _WG_ROWS if head_dim <= 128 else 32))
 
 
 def flash_backward_smem_bytes(head_dim: int, dtype: str) -> Tuple[int, int]:
@@ -244,9 +265,9 @@ def flash_backward_smem_bytes(head_dim: int, dtype: str) -> Tuple[int, int]:
     own rows, two a stage)."""
     (kc, kr), (qr, qc) = flash_backward_tiles(head_dim, dtype)
     if dtype == "float32":
-        own = 2 * 64 * (head_dim + 1) * 4  # the block's K and V (or Q and dO) rows, padded
-        staged = 2 * 16 * head_dim * 4
-        return own + staged + 2 * 16 * 4, own + staged
+        own = 2 * kc * (head_dim + 1) * 4  # the block's K and V (or Q and dO) rows, padded
+        staged = 2 * kr * head_dim * 4
+        return own + staged + 2 * kr * 4, own + staged
     st, bars = FLASH_BWD_STAGES, _MBARRIER * (1 + 2 * FLASH_BWD_STAGES)
     dkdv = _ALIGN_SLACK + 2 * kc * head_dim * 2 + st * (2 * kr * head_dim * 2 + 2 * kr * 4) + bars
     dq = _ALIGN_SLACK + 2 * qr * head_dim * 2 + st * 2 * qc * head_dim * 2 + bars
@@ -270,7 +291,7 @@ def flash_backward_launch(
         raise ValueError(f"flash_attention backward takes float32 or bfloat16, not {dtype}")
     if head_dim not in FLASH_BWD_HEAD_DIMS:
         raise ValueError(f"flash_attention backward is built for head_dim in {FLASH_BWD_HEAD_DIMS}, "
-                         f"not {head_dim}: the backward at head_dim 160 is ROADMAP item P2")
+                         f"not {head_dim}")
     if q_heads % kv_heads:
         raise ValueError(f"q heads {q_heads} not a multiple of kv heads {kv_heads}")
     dkdv, dq = flash_backward_tiles(head_dim, dtype)
@@ -279,7 +300,7 @@ def flash_backward_launch(
         raise ValueError(f"flash backward at head_dim {head_dim} in {dtype} needs "
                          f"{max(s_kv, s_q)} bytes of shared memory; a Hopper block has {SMEM_PER_BLOCK}")
     return FlashBwdLaunch(
-        dkdv, dq, FLASH_BWD_THREADS[dtype], s_kv, s_q,
+        dkdv, dq, *flash_backward_threads(head_dim, dtype), s_kv, s_q,
         (kv_heads, batch, -(-seq_kv // dkdv[0])), (q_heads, batch, -(-seq_q // dq[0])),
         flash_backward_scratch_floats(batch, q_heads, seq_q, dtype))
 

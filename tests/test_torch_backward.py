@@ -16,6 +16,8 @@ backward) and jamba (attention, Mamba and MoE in one model) at
 ``reduced()``, f32, against the jitted JAX step.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -71,6 +73,7 @@ ATTN_CASES = [  # (B, Hq, Hkv, Sq, Skv, D): GQA groups 1, 2 and 4; Sq < Skv
     (2, 8, 2, 16, 16, 16),
     (1, 4, 2, 10, 30, 16),
     (1, 4, 1, 7, 40, 32),
+    (1, 4, 2, 16, 24, 160),  # stablelm-12b's head_dim, Sq < Skv
 ]
 
 
@@ -144,23 +147,29 @@ def test_flash_backward_launch_matches_the_kernel_layout(head_dim, dtype):
     launch = geometry.flash_backward_launch(2, 16, 8, 4096, 4000, head_dim, dtype)
     (kc, kr), (qr, qc) = launch.dkdv_tile, launch.dq_tile
     if dtype == "bfloat16":
-        # a producer and two consumer warpgroups of 64 rows (128 keys or
-        # query rows a block); the dK/dV ring stages 64 q rows (16 at
-        # head_dim 128), the dQ ring 64 keys, four stages each; 1,024 bytes
-        # of alignment slack, the block's own rows once (bf16), the ring
-        # (dK/dV also the stage's lse and Delta in f32), 8-byte mbarriers
-        # (one for the own rows, two a stage)
-        assert launch.threads == 384 and kc == qr == 128 and qc == 64
-        assert kr == (64 if head_dim <= 64 else 16)
+        # a producer and consumer warpgroups of 64 rows: two for dQ (128
+        # query rows a block), two for dK/dV (128 keys) but one at head_dim
+        # 160 (64 keys); the dK/dV ring stages 64 q rows (16 at head_dim 128
+        # and 160), the dQ ring 64 keys (32 at 160), four stages each;
+        # 1,024 bytes of alignment slack, the block's own rows once (bf16),
+        # the ring (dK/dV also the stage's lse and Delta in f32), 8-byte
+        # mbarriers (one for the own rows, two a stage)
+        kv_consumers = 1 if head_dim == 160 else 2
+        assert launch.dkdv_threads == 128 * (kv_consumers + 1) and launch.dq_threads == 384
+        assert kc == 64 * kv_consumers and qr == 128
+        assert kr == (64 if head_dim <= 64 else 16) and qc == (32 if head_dim == 160 else 64)
         bars = 8 * (1 + 2 * 4)
         assert launch.dkdv_smem == 1024 + 2 * kc * head_dim * 2 + 4 * (2 * kr * head_dim * 2 + 2 * kr * 4) + bars
         assert launch.dq_smem == 1024 + 2 * qr * head_dim * 2 + 4 * 2 * qc * head_dim * 2 + bars
         # lse (log2 units) and Delta, each of 4096 rows padded to a multiple of 64
         assert launch.scratch_floats == 2 * 2 * 16 * 4096
     else:
-        # a thread a row: its own rows padded to D + 1 floats, 16 of the
-        # other side staged, and (dK/dV) their lse and Delta
-        assert launch.threads == 64 and (kc, kr, qr, qc) == (64, 16, 64, 16)
+        # a thread a row (two at head_dim 160, 80 columns each), 64 rows a
+        # block: its own rows padded to D + 1 floats, 16 of the other side
+        # staged, and (dK/dV) their lse and Delta
+        lanes = 2 if head_dim == 160 else 1
+        assert launch.dkdv_threads == launch.dq_threads == 64 * lanes
+        assert (kc, kr, qr, qc) == (64, 16, 64, 16)
         own = 2 * 64 * (head_dim + 1) * 4
         assert launch.dkdv_smem == own + 2 * 16 * head_dim * 4 + 2 * 16 * 4
         assert launch.dq_smem == own + 2 * 16 * head_dim * 4
@@ -173,22 +182,29 @@ def test_flash_backward_launch_matches_the_kernel_layout(head_dim, dtype):
 @pytest.mark.parametrize("head_dim", geometry.FLASH_BWD_HEAD_DIMS)
 def test_flash_backward_bf16_tiles_threads_ring_and_smem_fit_a_hopper_block(head_dim):
     launch = geometry.flash_backward_launch(1, 32, 8, 4096, 4096, head_dim, "bfloat16")
-    regs = geometry.FLASH_BWD_REGISTERS
-    assert launch.threads <= geometry.MAX_BLOCK_THREADS
-    # the launch bound's share of the register file, and what setmaxnreg hands
-    # out (one producer warpgroup, two consumers) within it
-    assert regs["launch"] * launch.threads <= geometry.REGISTERS_PER_SM
-    assert regs["launch"] == geometry.REGISTERS_PER_SM // launch.threads // 8 * 8
-    assert regs["producer"] * 128 + regs["consumer"] * 256 <= regs["launch"] * launch.threads
-    assert all(r % 8 == 0 and 24 <= r <= 256 for r in (regs["producer"], regs["consumer"]))
     (kc, kr), (qr, qc) = launch.dkdv_tile, launch.dq_tile
     # each consumer's rows are one wgmma M of 64; a stage's rows are a wgmma N
     # (a multiple of 8 up to 256) and whole 16-row k-steps of the products over rows
-    assert kc == qr == 2 * 64 and all(r % 16 == 0 and 16 <= r <= 256 for r in (kr, qc))
+    assert kc % 64 == 0 and qr == 2 * 64 and all(r % 16 == 0 and 16 <= r <= 256 for r in (kr, qc))
     assert geometry.FLASH_BWD_STAGES >= 2 and max(launch.dkdv_smem, launch.dq_smem) <= geometry.SMEM_PER_BLOCK
-    # dK and dV (D/2 floats a thread each) and S^T, dP^T (kr/2 each) within
-    # the 168 registers a thread is compiled for, with room to address
-    assert 2 * head_dim // 2 + 2 * kr // 2 <= 160
+    share = {}
+    for name, threads in (("dkdv", launch.dkdv_threads), ("dq", launch.dq_threads)):
+        assert threads <= geometry.MAX_BLOCK_THREADS
+        # the launch bound's share of the register file (at most 255 a thread)
+        share[name] = min(255, geometry.REGISTERS_PER_SM // threads // 8 * 8)
+        if threads > 256:
+            # what the kernel's setmaxnreg hands out (one producer warpgroup
+            # at 40, the consumers at 232) within it
+            consumers = threads // 128 - 1
+            assert 40 * 128 + 232 * 128 * consumers <= share[name] * threads
+        else:
+            assert threads == 256  # one consumer: no setmaxnreg, each warpgroup keeps its share
+    # the accumulators a consumer thread holds within the registers its kernel
+    # is compiled for (the launch share), with room to address: dK/dV holds dK
+    # and dV (D/2 floats each) and S^T, dP^T (kr/2 each); dQ holds dQ (D/2)
+    # and S, dP (qc/2 each)
+    assert 2 * head_dim // 2 + 2 * kr // 2 <= share["dkdv"] - 8
+    assert head_dim // 2 + 2 * qc // 2 <= share["dq"] - 8
 
 
 @pytest.mark.parametrize("bad", [
@@ -438,6 +454,18 @@ def test_jamba_train_step_matches_jax():
     assert {s.mixer for s in cfg.layer_plan()} == {"attn", "mamba"}
     assert any(s.mlp == "moe" for s in cfg.layer_plan())
     _steps_match(jcfg, cfg, jp, toks, dict(microbatches=2, remat="none", scan_chunk=8))
+
+
+def test_stablelm_train_step_matches_jax():
+    # layernorm, 25 % partial rotary and the flash backward at head_dim 160
+    # in one reduced model (its reduced() shrinks the head to 16)
+    arch = "stablelm-12b"
+    jcfg = dataclasses.replace(jax_get_config(arch).reduced(), head_dim=160)
+    cfg = dataclasses.replace(get_config(arch).reduced(), head_dim=160)
+    assert cfg.norm == "layernorm" and cfg.rotary_pct == 0.25 and cfg.resolved_head_dim == 160
+    jp = jtf.init_params(jcfg, jax.random.PRNGKey(7))
+    toks = np.random.default_rng(7).integers(0, cfg.vocab_size, (2, B, S)).astype(np.int32)
+    _steps_match(jcfg, cfg, jp, toks, dict(microbatches=2, remat="full"))
 
 
 def test_train_cli_trains_falcon_mamba_on_the_cpu(tmp_path, capsys):

@@ -197,7 +197,7 @@ def test_flash_smem_formula_at_head_dim_160(dtype):
 
 
 def test_forward_launches_at_head_dim_160():
-    assert 160 in geometry.FLASH_HEAD_DIMS and 160 not in geometry.FLASH_BWD_HEAD_DIMS
+    assert 160 in geometry.FLASH_HEAD_DIMS and 160 in geometry.FLASH_BWD_HEAD_DIMS
     # bf16: a producer and two consumer warpgroups, as at 128
     launch = geometry.flash_launch(1, 32, 4096, 4096, 160, "bfloat16", 128, 256)
     assert (launch.threads, launch.kv_pad, launch.smem_bytes, launch.grid) == (384, 256, 205_896,
@@ -217,9 +217,21 @@ def test_forward_launches_at_head_dim_160():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_backward_at_head_dim_160_raises_naming_p2(dtype):
-    with pytest.raises(ValueError, match="P2"):
-        geometry.flash_backward_launch(1, 32, 8, 4096, 4096, 160, dtype)
+def test_backward_launches_at_head_dim_160(dtype):
+    # stablelm-12b's training shape: 32/8 heads of 160 over 4096 tokens
+    launch = geometry.flash_backward_launch(1, 32, 8, 4096, 4096, 160, dtype)
+    if dtype == "bfloat16":
+        # dK/dV: one consumer of 64 keys and the producer, 16 q rows a stage;
+        # dQ: two consumers of 64 rows and the producer, 32 keys a stage
+        assert (launch.dkdv_tile, launch.dq_tile) == ((64, 16), (128, 32))
+        assert (launch.dkdv_threads, launch.dq_threads) == (256, 384)
+        assert (launch.dkdv_smem, launch.dq_smem) == (83_528, 164_936)
+        assert (launch.dkdv_grid, launch.dq_grid) == ((8, 1, 64), (32, 1, 32))
+    else:
+        # two threads a row, 64 rows a block
+        assert (launch.dkdv_tile, launch.dq_tile) == ((64, 16), (64, 16))
+        assert (launch.dkdv_threads, launch.dq_threads) == (128, 128)
+        assert (launch.dkdv_grid, launch.dq_grid) == ((8, 1, 64), (32, 1, 64))
 
 
 def test_wrappers_refuse_other_devices():

@@ -4,6 +4,8 @@
 function it runs from here by name, so this module imports no JAX: a rank
 pays for torch alone.  Each function returns plain data (rank 0 the whole
 trees, every rank its local shapes)."""
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -214,15 +216,19 @@ def decode_cases(mesh, cases: list, trees: dict) -> list:
     out = []
     for case in cases:
         cfg = get_config(case["arch"]).reduced()
+        if case.get("dtype"):  # the model's dtype (the reduced configs are f32)
+            cfg = dataclasses.replace(cfg, dtype=case["dtype"])
         plan = SchedulePlan(**case["plan"], kv_dtype=case["kv_dtype"])
         B, L = case["B"], case["L"]
         step = make_serve_step(cfg, InputShape("decode", L, B, "decode"), plan, mesh=mesh)
         par = step.par
-        params = shard_params(convert.params_from_numpy(trees[case["arch"]], cfg, device="cpu"), par)
-        whole = {b: {k: torch.from_numpy(np.array(v)) for k, v in c.items()}
+        params = shard_params(convert.params_from_numpy(trees[case.get("tree", case["arch"])], cfg,
+                                                        device="cpu"), par)
+        alloc = transformer.init_cache(cfg, B, L, case["kv_dtype"], device="cpu", par=par)
+        # the whole cache, drawn in f32, in the dtypes the model's cache holds
+        whole = {b: {k: torch.from_numpy(np.array(v)).to(alloc[b][k].dtype) for k, v in c.items()}
                  for b, c in case["cache"].items()}
         cache = transformer.shard_cache(whole, par)
-        alloc = transformer.init_cache(cfg, B, L, case["kv_dtype"], device="cpu", par=par)
         logits = []
         for tok, cur, commit in zip(case["tokens"], case["cur"], case["commit"]):
             lg, cache = step(params, cache, torch.from_numpy(np.array(tok))[:, None],
