@@ -418,7 +418,8 @@ def ptxas_lines(text: str) -> list:
                              r"selective_scan_kernel|selective_scan_carry_kernel|"
                              r"selective_scan_bwd_chunk_kernel|selective_scan_bwd_carry_kernel|"
                              r"selective_scan_bwd_kernel|selective_scan_bwd_reduce_kernel|"
-                             r"dequantize_kernel|quantize_kernel)", name)
+                             r"dequantize_kernel|quantize_warp_kernel|quantize_cta_kernel|"
+                             r"quantize_cluster_kernel|quantize_two_pass_kernel)", name)
             label = base.group(1) if base else name
             # the template arguments: types, then integer and bool literals
             arg = r"f|13__nv_bfloat16|L[ib]\d+E"
@@ -751,6 +752,37 @@ def stablelm_moment_rows(mods) -> dict:
     return out
 
 
+def _quantize_edge_cases() -> list:
+    """Rows on both sides of each of ``geometry.quantize_launch``'s thresholds
+    (narrow / warp at 16 units, a lane's 1 / 2 / 4 units, warp / cta at 4
+    KiB, cta / cluster at ``QUANT_SLICE_BYTES``, cluster / two_pass at 8
+    slices) in both dtypes, a cluster width its cluster size does not
+    divide, a ragged cluster width and rows at an offset pointer (16-byte
+    loads refused: the scalar path of cta and narrow)."""
+    from repro_torch.kernels import geometry as geo
+
+    out = []
+    for dtype, esz in (("float32", 4), ("bfloat16", 2)):
+        warp_top = 32 * geo.QUANT_LANE_BYTES // esz
+        cta_top = geo.QUANT_SLICE_BYTES // (16 * esz) * 16
+        cluster_top = geo.QUANT_MAX_CLUSTER * cta_top
+        out += [(1024, 256, dtype, "normal", "edge narrow"), (1024, 272, dtype, "normal", "edge warp"),
+                (1024, warp_top // 2, dtype, "normal", "edge warp"),
+                (1024, warp_top // 2 + 16, dtype, "normal", "edge warp"),
+                (512, warp_top, dtype, "normal", "edge warp"),
+                (512, warp_top + 16, dtype, "normal", "edge cta"),
+                (96, cta_top, dtype, "normal", "edge cta"),
+                (96, cta_top + 16, dtype, "normal", "edge cluster"),
+                (4, cluster_top, dtype, "normal", "edge cluster"),
+                (4, cluster_top + 16, dtype, "normal", "edge two_pass")]
+    out += [(1024, 512, "bfloat16", "normal", "edge warp"), (1024, 528, "bfloat16", "normal", "edge warp"),
+            (64, 60016, "float32", "normal", "cluster of 3, not dividing 3,751 units"),
+            (64, 60001, "float32", "normal", "cluster, ragged"),
+            (64, 13824, "float32", "offset", "cta, offset pointer"),
+            (33, 64, "bfloat16", "offset", "narrow, offset pointer")]
+    return out
+
+
 def phase_kernels_quantize(torch, qt, stablelm_rows):
     """Both int8 kernels against their plain versions: q and the scale
     bit-equal, the f32 dequantize bit-equal and the bf16 one within one bf16
@@ -758,7 +790,11 @@ def phase_kernels_quantize(torch, qt, stablelm_rows):
     embedding, the router) and of stablelm-12b's train job (every leaf's
     row view, ``stablelm_moment_rows``), the int8 KV cache's decode write
     (``(B*Hkv, 64)`` bf16), test_kernels.py's shapes, a bf16 input, a ragged
-    width, zero rows and exact .5 ties."""
+    width, zero rows, exact .5 ties and each quantize regime's edges
+    (``_quantize_edge_cases``).  Each row names the regime
+    ``geometry.quantize_launch`` gave it; a timed row carries ``ms`` (CUDA
+    events over back-to-back calls, the host's launch included) and
+    ``device_ms`` (CUDA-graph replay: the device alone) for both kernels."""
     E, L, d, f = 32, 24, 1024, 512
     # (R, C, dtype, kind, role)
     cases = [  # the cheap tie rows first: they catch a rounding fault by design
@@ -778,6 +814,7 @@ def phase_kernels_quantize(torch, qt, stablelm_rows):
         (4, 256, "float32", "normal", "test"),
         (4099, 1000, "float32", "zero rows", "ragged width, zero rows"),
         (4099, 1000, "bfloat16", "normal", "ragged width"),
+        *_quantize_edge_cases(),
     ]
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     rows = []
@@ -785,6 +822,8 @@ def phase_kernels_quantize(torch, qt, stablelm_rows):
         dt = getattr(torch, dtype)
         if kind == "ties":
             x = _tie_rows(torch, gen, R, C).to(dt)
+        elif kind == "offset":  # one element past a 16-byte boundary
+            x = (torch.randn((R * C + 1,), generator=gen, device="cuda") * 3.0).to(dt)[1:].view(R, C)
         else:
             x = (torch.randn((R, C), generator=gen, device="cuda") * 3.0).to(dt)
         if kind == "zero rows":
@@ -800,8 +839,12 @@ def phase_kernels_quantize(torch, qt, stablelm_rows):
                 f"quantize_int8 {role} {dtype} {(R, C)}: {q_diff} codes differ from the plain "
                 f"version (max |dq| {(q.int() - qp.int()).abs().max().item()}), scale equal: "
                 f"{torch.equal(s, sp)}")
-        row = {"shape": [R, C], "dtype": dtype, "role": role, "kind": kind,
-               "q_bit_equal": True, "scale_equal": True, "max_abs_err": 0.0}
+        g = qt.quantize_launch(R, C, dtype)
+        row = {"shape": [R, C], "dtype": dtype, "role": role, "kind": kind, "regime": g.regime,
+               "cluster": g.cluster, "threads": g.threads, "q_bit_equal": True, "scale_equal": True,
+               "max_abs_err": 0.0}
+        if role.startswith("edge") and not role.endswith(g.regime):
+            raise AssertionError(f"quantize {(R, C)} {dtype}: regime {g.regime}, not the {role}")
         if kind == "ties":
             k = torch.floor(x[:, 1:].float() / s)
             even = bool((q[:, 1:].int() % 2 == 0).all())
@@ -831,12 +874,16 @@ def phase_kernels_quantize(torch, qt, stablelm_rows):
             dq = timed(torch, lambda: qt.dequantize_int8(q, s), lambda: torch.mul(q, s), R * C)
             row.update(
                 **timed(torch, lambda: qt.quantize_int8(x), None, 4 * R * C),
+                device_ms=graph_ms(torch, lambda: qt.quantize_int8(x)),
                 plain_ms=cuda_ms(torch, lambda: qt.quantize_int8_plain(x)),
                 bound_ms=qb, bound_by=qby, bytes=q_bytes,
                 **{f"dequant_{k}": v for k, v in dq.items()},
+                dequant_device_ms=graph_ms(torch, lambda: qt.dequantize_int8(q, s)),
                 dequant_plain_ms=cuda_ms(torch, lambda: qt.dequantize_int8_plain(q, s)),
                 dequant_bound_ms=db, dequant_bound_by=dby, dequant_bytes=dq_bytes,
             )
+            row.update(bound_share_device=qb / row["device_ms"],
+                       dequant_bound_share_device=db / row["dequant_device_ms"])
         rows.append(row)
         del x, q, s, qp, sp, got, exp, err, step
     emit("kernels.quantize", cases=rows,
@@ -3464,8 +3511,9 @@ def _summary_row(n: str, rows: list, launches: int) -> dict:
         err = (lambda r: 0.0) if n == "quantize_int8" else (  # q and scale bit-equal
             lambda r: max(r["dequant_float32_max_abs_err"], r["dequant_bfloat16_max_abs_err"]))
         main_shapes = [{"shape": r["shape"], "dtype": r["dtype"], "role": r["role"],
-                        "max_abs_err": err(r), **{k: r[pre + k] for k in (
-                            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+                        "max_abs_err": err(r), **({} if pre else {"regime": r["regime"]}),
+                        **{k: r[pre + k] for k in (
+                            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
                        for r in timed_rows]
         return {**head, **main_shapes[0], "max_abs_err": max(err(r) for r in rows),
                 "main_path_shapes": main_shapes}

@@ -35,7 +35,7 @@ fresh process, the ``chip_smoke`` phase that must catch it: the file's
 phase, or the case's own where it names one (the unedited control runs
 every phase of the cases run; a case checked by CPU tests runs them on
 its copy with ``pytest``).  The control must pass every check and every
-mutant (thirty-five of them) must fail every check it runs.  Prints one
+mutant (thirty-seven of them) must fail every check it runs.  Prints one
 JSON line per case (with the failing check's numbers) and exits 1 if any
 case went the other way.
 """
@@ -219,20 +219,35 @@ CASES = {
         "    for (int b = sy; b < blocks; b += kDwSlices)",
         "    for (int b = sy; b < blocks - 1; b += kDwSlices)",
     )], "phase_grad"),
-    # quantize rounds half away from zero (roundf) instead of half to even
+    # quantize rounds half away from zero (roundf) instead of half to even:
+    # every regime's codes go through RowQuant::code
     "quantize_round_half_away_from_zero": ("kernels/csrc/quantize.cu", [(
-        "const float r = rintf(__fdiv_rn(x, scale));",
-        "const float r = roundf(__fdiv_rn(x, scale));",
+        "const float r = rintf(__fdiv_rn(x, s));",
+        "const float r = roundf(__fdiv_rn(x, s));",
     )]),
-    # quantize multiplies by 127 / amax instead of dividing by amax / 127
+    # quantize multiplies by 127 / amax instead of dividing by amax / 127, in
+    # every regime (row_quant and RowQuant::code)
     "quantize_scale_by_reciprocal": ("kernels/csrc/quantize.cu", [
-        ("const float r = rintf(__fdiv_rn(x, scale));", "const float r = rintf(x * scale);"),
-        ("  if (lane == 0) scale[row] = s;\n",
-         "  if (lane == 0) scale[row] = s;\n"
-         "  const float inv = amax > 0.f ? __fdiv_rn(127.0f, amax) : 1.0f;\n"),
-        ("quant_one(to_f32(e[j]), s)", "quant_one(to_f32(e[j]), inv)"),
-        ("quant_one(to_f32(xr[i]), s)", "quant_one(to_f32(xr[i]), inv)"),
+        ("  float s;  // the row's scale\n", "  float s, inv;  // the row's scale\n"),
+        ("  return RowQuant{amax > 0.f ? __fdiv_rn(amax, 127.0f) : 1.0f};",
+         "  return RowQuant{amax > 0.f ? __fdiv_rn(amax, 127.0f) : 1.0f,"
+         " amax > 0.f ? __fdiv_rn(127.0f, amax) : 1.0f};"),
+        ("const float r = rintf(__fdiv_rn(x, s));", "const float r = rintf(x * inv);"),
     ]),
+    # the cluster regime's row max leaves out the partial of the cluster's
+    # first block (rows whose amax lies in the first slice get too small a
+    # scale)
+    "quantize_cluster_drops_first_partial": ("kernels/csrc/quantize.cu", [(
+        "  for (int r = 0; r < k; ++r) m = fmaxf(m, part[r]);",
+        "  for (int r = 1; r < k; ++r) m = fmaxf(m, part[r]);",
+    )]),
+    # the narrow regime's segmented max starts one step too wide: each row's
+    # group also takes the max of its neighbour row's group (a whole-warp row
+    # is unaffected: a shuffle across 32 lanes returns the lane's own value)
+    "quantize_narrow_max_reads_neighbour_row": ("kernels/csrc/quantize.cu", [(
+        "  for (int off = lanes >> 1; off > 0; off >>= 1)  // within the row's group only",
+        "  for (int off = lanes; off > 0; off >>= 1)  // within the row's group only",
+    )]),
     # the rmsnorm wrapper launches without its autograd Function: the output
     # is cut from the graph and every gradient below it is lost
     "rmsnorm_output_detached": ("kernels/rmsnorm.py", [(

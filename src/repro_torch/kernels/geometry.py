@@ -75,6 +75,27 @@ Di * (N + 1)`` floats (the chunks' end states and their sums of ``dt``).
 At ``N = 16`` every ``scan_chunk`` option of the JAX space (64, 128, 256)
 launches in both dtypes (256 takes 32,768 bytes); a chunk above 1,816
 steps would not fit a block.
+
+**quantize_int8** (``csrc/quantize.cu``).  A row's elements stay on chip
+between its amax and the write of q, so x is read once; ``quantize_launch``
+picks one of five regimes from the width ``C`` and the dtype alone, counted
+in units of 16 elements (one 16-byte store of q):
+
+* ``narrow`` (at most 16 units): a group of ``lanes`` lanes (the units
+  rounded up to a power of two) holds a row, a unit a lane, and several
+  rows share a warp; the row's max is a shuffle max within the group.
+* ``warp`` (at most 128 bytes of x a lane, a 4 KiB row): one warp a row, 1
+  or 2 units a lane in f32, 1, 2 or 4 in bf16, every load issued before the
+  reduction.
+* ``cta`` (a row that fits ``QUANT_SLICE_BYTES``, 115,456 bytes: two blocks
+  an SM): one block a row; bulk copies bring the row into shared memory,
+  a block reduction gives the amax and q is written from the copy.
+* ``cluster`` (at most ``QUANT_MAX_CLUSTER`` such slices): a thread-block
+  cluster of 2-8 blocks a row, each block a slice of ``slice_units`` units
+  loaded as in ``cta``; the blocks' partial maxima meet through distributed
+  shared memory.
+* ``two_pass`` (wider rows): one block a row reads it twice, so that no
+  width is refused, as the JAX kernel refuses none.
 """
 from __future__ import annotations
 
@@ -541,3 +562,62 @@ def launchable_scan_chunks(d_block: int = 256, n_state: int = 16, dtype: str = "
             continue
         out.append(ch)
     return out
+
+
+# ---------------------------------------------------------------------------
+# quantize_int8
+# ---------------------------------------------------------------------------
+QUANT_UNIT = 16  # elements a unit: one 16-byte store of q
+QUANT_WARP_THREADS = 256  # the warp regimes' block: 8 warps
+QUANT_LANE_BYTES = 128  # bytes of x one lane holds in the warp regimes (8 loads of 16 bytes)
+QUANT_WARP_UNITS = {"float32": (1, 2), "bfloat16": (1, 2, 4)}  # units a lane the kernel is built for
+QUANT_SLICE_THREADS = 512  # most threads of a cta / cluster / two_pass block: __launch_bounds__(512, 2)
+QUANT_HEADER_BYTES = 256  # shared memory before a slice: its mbarriers and the block reduction
+QUANT_PIECE_BYTES = 16_384  # bytes of one bulk copy; a slice takes at most QUANT_MAX_PIECES
+QUANT_MAX_PIECES = 8
+QUANT_SLICE_BYTES = SMEM_PER_SM // 2 - SMEM_RESERVED_PER_BLOCK - QUANT_HEADER_BYTES  # two blocks an SM
+QUANT_MAX_CLUSTER = 8  # the portable cluster size
+QUANT_REGIMES = ("narrow", "warp", "cta", "cluster", "two_pass")
+_QUANT_ESZ = {"float32": 4, "bfloat16": 2}
+
+
+@dataclass(frozen=True)
+class QuantLaunch:
+    regime: str  # one of QUANT_REGIMES
+    threads: int  # a block's
+    grid: int  # blocks
+    lanes: int  # narrow / warp: lanes a row (a power of two, at most 32); else 0
+    units_per_lane: int  # narrow / warp: units a lane holds; else 0
+    cluster: int  # blocks a row: 1, or 2-8 in the cluster regime
+    slice_units: int  # cta / cluster: units of a block's slice (the last may hold fewer); else 0
+    smem_bytes: int  # dynamic shared memory of a block
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+@functools.lru_cache(maxsize=1024)  # called on every launch: pure in its arguments
+def quantize_launch(rows: int, cols: int, dtype: str) -> QuantLaunch:
+    """The launch of one ``quantize_int8`` call of ``(rows, cols)``, or ``ValueError``."""
+    if dtype not in _QUANT_ESZ:
+        raise ValueError(f"quantize_int8 kernel takes float32 or bfloat16, not {dtype}")
+    if rows < 1 or cols < 1:
+        raise ValueError(f"quantize_int8 kernel takes a non-empty (R, C), not ({rows}, {cols})")
+    unit_bytes = QUANT_UNIT * _QUANT_ESZ[dtype]
+    units = -(-cols // QUANT_UNIT)
+    if units <= 16:
+        lanes = _pow2_at_least(units)
+        rows_a_block = QUANT_WARP_THREADS // lanes
+        return QuantLaunch("narrow", QUANT_WARP_THREADS, -(-rows // rows_a_block), lanes, 1, 1, 0, 0)
+    if units * unit_bytes <= 32 * QUANT_LANE_BYTES:
+        per_lane = min(k for k in QUANT_WARP_UNITS[dtype] if 32 * k >= units)
+        return QuantLaunch("warp", QUANT_WARP_THREADS, -(-rows // (QUANT_WARP_THREADS // 32)), 32,
+                           per_lane, 1, 0, 0)
+    cluster = -(-units // (QUANT_SLICE_BYTES // unit_bytes))
+    if cluster > QUANT_MAX_CLUSTER:
+        return QuantLaunch("two_pass", QUANT_SLICE_THREADS, rows, 0, 0, 1, 0, QUANT_HEADER_BYTES)
+    slice_units = -(-units // cluster)
+    threads = min(QUANT_SLICE_THREADS, max(128, _round_up(-(-slice_units // 2), 32)))
+    return QuantLaunch("cta" if cluster == 1 else "cluster", threads, rows * cluster, 0, 0, cluster,
+                       slice_units, QUANT_HEADER_BYTES + slice_units * unit_bytes)

@@ -5,33 +5,47 @@ Replaces the Pallas TPU kernels of ``src/repro/kernels/quantize.py``:
 line 17) and ``dequantize_int8`` (line 65, body ``_dequant_kernel`` at line
 26).  ``scale = amax/127`` (1 where ``amax == 0``), ``q = clip(round(x /
 scale), ±127)`` rounded half to even, and ``q * scale`` back.  Both kernels
-are ``csrc/quantize.cu``: bound by bytes, one warp per row with vector
-loads and the row's max reduced in registers and shuffles; any number of
-rows (the TPU's ``block_rows`` divisibility was a tiling artefact, and the
-optimizer quantizes leaves such as the tied embedding's ``(49155, 1024)``),
-a ragged width masked, never padded.  ``q`` is bit-equal to the plain
-version: both divide in true IEEE f32 (see ``ref.quantize_int8``).
+are ``csrc/quantize.cu`` and bound by bytes.  Quantize keeps each row on
+chip between its amax and the write of q, so x is read once, in the regime
+``geometry.quantize_launch`` picks from the width: several rows a warp
+(``narrow``: decode KV rows, the router, the int8 ring), a warp a row
+(``warp``, up to 4 KiB), a block a row through bulk copies into shared
+memory (``cta``, up to 115,456 bytes), a thread-block cluster of 2-8 blocks
+a row whose partial maxima meet in distributed shared memory
+(``cluster``: the untied head's rows), and a block reading a wider row
+twice (``two_pass``: no width is refused).  Any number of rows (the TPU's
+``block_rows`` divisibility was a tiling artefact, and the optimizer
+quantizes leaves such as the tied embedding's ``(49155, 1024)``); a ragged
+width or an offset pointer takes masked scalar loads, never padding.
+Dequantize is one warp a row.  ``q`` is bit-equal to the plain version:
+both divide in true IEEE f32 (see ``ref.quantize_int8``).
 
 A CPU tensor takes the plain version (``ref.quantize_int8`` /
-``ref.dequantize_int8``); a CUDA tensor launches the kernel or raises.
+``ref.dequantize_int8``); a CUDA tensor launches the kernel or raises: a
+launch the card refuses (a cluster it cannot place) raises too.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.geometry import QUANT_REGIMES, quantize_launch
 from repro_torch.kernels.ref import dequantize_int8 as dequantize_int8_plain
 from repro_torch.kernels.ref import quantize_int8 as quantize_int8_plain
 
 QUANT_LAUNCHES = _build.LaunchCounter("quantize_int8")
 DEQUANT_LAUNCHES = _build.LaunchCounter("dequantize_int8")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+_REGIME_CODES = {name: i for i, name in enumerate(QUANT_REGIMES)}
 
 
 _ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                   ctypes.c_void_p)
+_QUANT_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_longlong,) + (ctypes.c_int,) * 8 + (ctypes.c_void_p,)
 
 
 def _aligned(*ts: torch.Tensor) -> bool:
@@ -43,6 +57,15 @@ def _check_2d(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name} runs on cuda or cpu tensors, not {t.device}")
     if t.ndim != 2 or not t.is_contiguous():
         raise ValueError(f"{name} kernel takes a contiguous (R, C) tensor; got {tuple(t.shape)}")
+
+
+@functools.lru_cache(maxsize=1024)  # called on every launch: pure in its arguments
+def _launch_args(R: int, C: int, dtype: torch.dtype) -> tuple:
+    """The launcher's regime, threads, group, per_lane and smem arguments
+    for ``geometry.quantize_launch(R, C, dtype)``."""
+    g = quantize_launch(R, C, _DTYPE_NAMES[dtype])
+    group, per_lane = (g.lanes, g.units_per_lane) if g.lanes else (g.cluster, g.slice_units)
+    return _REGIME_CODES[g.regime], g.threads, group, per_lane, g.smem_bytes
 
 
 def quantize_int8(x: torch.Tensor):
@@ -57,10 +80,10 @@ def quantize_int8(x: torch.Tensor):
     scale = torch.empty((R, 1), dtype=torch.float32, device=x.device)
     if R == 0 or C == 0:
         return q, scale.fill_(1.0)
-    vec = int(C % (16 // x.element_size()) == 0 and _aligned(x, q))
-    lib, fn = _build.launcher("quantize", "quantize_int8_launch", _ARGS)
+    vec = int(C % 16 == 0 and _aligned(x, q))  # 16-byte loads of x and stores of q
+    lib, fn = _build.launcher("quantize", "quantize_int8_launch", _QUANT_ARGS)
     err = fn(x.data_ptr(), q.data_ptr(), scale.data_ptr(), R, C, _DTYPE_CODES[x.dtype], vec,
-             _build.stream(x))
+             *_launch_args(R, C, x.dtype), _build.stream(x))
     if err:
         _build.check(lib, "quantize", err)
     QUANT_LAUNCHES.add()
