@@ -157,6 +157,19 @@ limit as ``nvidia-smi`` reports them):
    one process on the card, launches (equal across ranks; rmsnorm,
    moe_gemm and quantize non-zero where the job runs them), host-staged
    collectives a step, step ms and peak GiB a rank (below one whole cache).
+10g. ``work_check``: each bound column's bytes, operations and peak from
+   ``kernels/work.py`` beside the formula this script wrote out before it
+   (they must be equal).  ``dryrun``: the production-mesh dry run
+   (``launch/dryrun_impl.py``): granite-moe-1b-a400m's measurement cut (6 of
+   24 layers: train under both remat policies, prefill at 32,768 tokens,
+   decode over an int8 cache) run on the card and dry on the meta device,
+   launches by kernel and ``FlopCounterMode`` FLOPs exactly equal and the
+   peak within 10 % of ``torch.cuda.max_memory_allocated`` (the measured
+   step beside the dry run's roofline, recorded); then full-depth dry-run
+   records on the H100's meshes (``single``, the 1 x 8 node, and
+   ``multi``) of granite-moe and stablelm-12b training, deepseek-67b's
+   training and prefill, and on the node qwen2-vl-72b's prefill and
+   falcon-mamba-7b's training, one subprocess each with no card visible.
 11. ``parity``: 2-layer f32 models at full width of each serving arch, and
    of stablelm-12b (head_dim 160) and qwen2-vl-72b (embeddings, M-RoPE ids
    whose rows differ), card (kernels) against the port's CPU path (plain
@@ -372,6 +385,24 @@ def bound(nbytes: float, ops: float, dtype: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# each bound column's work from ``kernels/work.py`` beside the formula this
+# script wrote out before it (emitted once, on the ``work_check`` line)
+WORK_CHECKS = []
+
+
+def work_bound(wk, nbytes: float, ops: float, dtype: str, what: str):
+    """``(ms, "bytes" or "operations")`` of ``wk`` (a ``work.Work``) by
+    ``work.bound_ms``; it must equal the written-out bytes, operations and
+    peak of the same call."""
+    from repro_torch.kernels import work
+
+    got, literal = [wk.bytes, wk.flops, wk.ops_dtype], [nbytes, ops, dtype]
+    WORK_CHECKS.append({"what": what, "work": got, "literal": literal})
+    if got != literal:
+        raise AssertionError(f"work.py's {what}: {got}, the written-out formula {literal}")
+    return work.bound_ms(wk, HBM_BYTES_PER_S, PEAK_OPS)
+
+
 # bf16 is held element by element and, since attention outputs at 4096 tokens
 # are far smaller than 5e-2, also in norm relative to what it compares: over
 # the whole output and over each row of the last axis
@@ -467,6 +498,8 @@ def phase_kernels_rmsnorm(torch, F, rn):
         ((7, 2050), "bfloat16", "ragged width"), ((9, 1000), "float32", "ragged width"),
         ((64, 8192), "float32", "widest f32 row"), ((16, 16384), "bfloat16", "widest bf16 row"),
     ]
+    from repro_torch.kernels import work
+
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
     for shape, dtype, role in cases:
@@ -480,7 +513,9 @@ def phase_kernels_rmsnorm(torch, F, rn):
         row = {"shape": list(shape), "dtype": dtype, "role": role, **stats}
         if role.startswith(("prefill", "decode")):
             n, d = x.numel(), shape[-1]
-            b_ms, b_by = bound(2 * n * x.element_size() + d * w.element_size(), 4 * n, "float32")
+            b_ms, b_by = work_bound(work.rmsnorm(n, d, dtype),
+                                    2 * n * x.element_size() + d * w.element_size(), 4 * n, "float32",
+                                    f"rmsnorm {shape} {dtype}")
             row.update(
                 **timed(torch, lambda: rn.rmsnorm(x, w), lambda: F.rms_norm(x, (d,), w, 1e-6), 4 * n),
                 plain_ms=cuda_ms(torch, lambda: rn.rmsnorm_plain(x, w)),
@@ -525,10 +560,13 @@ def _flash_case(torch, F, fa, gen, case) -> dict:
         "ragged": Sq % want[0] != 0 or Skv % want[1] != 0, **stats,
     }
     if role.startswith("prefill"):
+        from repro_torch.kernels import work
+
         esz = q.element_size()
         nbytes = 2 * q.numel() * esz + 2 * k.numel() * esz
         ops = 4 * D * _visible_pairs(Sq, Skv, causal) * B * Hq
-        b_ms, b_by = bound(nbytes, ops, dtype)
+        b_ms, b_by = work_bound(work.flash_attention(B, Hq, Hkv, Sq, Skv, D, dtype, causal), nbytes, ops,
+                                dtype, f"flash_attention {row['shape']} {dtype}")
         row.update(
             **timed(torch, lambda: fa.flash_attention(q, k, v, causal=causal, block_q=bq, block_kv=bkv),
                     lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True),
@@ -628,9 +666,12 @@ def phase_kernels_moe(torch, F, mg):
         row = {"shape": [E, C, d, f], "dtype": dtype, "role": role, "x_t": x_t, "w_t": w_t,
                "tile_requested": [bc, bf, bd], "tile_launched": list(want), **stats}
         if role.startswith(("prefill", "decode")):
+            from repro_torch.kernels import work
+
             nbytes = (x.numel() + w.numel() + E * C * f) * x.element_size()
             ops = 2 * E * C * d * f
-            b_ms, b_by = bound(nbytes, ops, dtype)
+            b_ms, b_by = work_bound(work.moe_gemm(E, C, d, f, dtype), nbytes, ops, dtype,
+                                    f"moe_gemm {[E, C, d, f]} {dtype}")
             row.update(
                 **timed(torch, lambda: mg.moe_gemm(x, w, block_c=bc, block_f=bf, block_d=bd),
                         lambda: torch.bmm(x, w), ops),
@@ -663,7 +704,7 @@ def phase_kernels_scan(torch, F, ss):
     # shapes, one chunk (the output pass alone), two chunks at B = 2, 5 and
     # 32 chunks in f32, and slow decay (dt ~ 0.02), where a state lives
     # across chunks and a carry folded wrongly shows
-    from repro_torch.kernels import geometry
+    from repro_torch.kernels import geometry, work
     from repro_torch.kernels.ops import KernelTiles
 
     launchable = geometry.launchable_scan_chunks(256, 16, "bfloat16")
@@ -716,7 +757,8 @@ def phase_kernels_scan(torch, F, ss):
             nbytes = (3 * B * L * Di + 2 * B * L * N) * esz + (Di * N + Di) * 4
             ops = B * L * Di * (7 * N + 3)  # dt*A, exp, 2 FMAs and du*B a state; dt*u, D*u, + a channel
             exps = B * L * Di * N
-            b_ms, b_by = bound(nbytes, ops, "float32")
+            b_ms, b_by = work_bound(work.selective_scan(B, L, Di, N, dtype), nbytes, ops, "float32",
+                                    f"selective_scan {[B, L, Di, N]} {dtype}")
             row.update(
                 **timed(torch, lambda: ss.selective_scan(*args, chunk=ch, d_block=db), None, ops, iters=10),
                 plain_ms=cuda_ms(torch, lambda: ss.selective_scan_plain(*args), iters=2, warmup=1),
@@ -816,6 +858,8 @@ def phase_kernels_quantize(torch, qt, stablelm_rows):
         (4099, 1000, "bfloat16", "normal", "ragged width"),
         *_quantize_edge_cases(),
     ]
+    from repro_torch.kernels import work
+
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     rows = []
     for R, C, dtype, kind, role in cases:
@@ -869,8 +913,10 @@ def phase_kernels_quantize(torch, qt, stablelm_rows):
             esz = x.element_size()
             q_bytes = R * C * esz + R * C + 4 * R  # x read, q and the scales written
             dq_bytes = R * C + 4 * R + R * C * 4  # q and the scales read, f32 written
-            qb, qby = bound(q_bytes, 4 * R * C, "float32")
-            db, dby = bound(dq_bytes, R * C, "float32")
+            qb, qby = work_bound(work.quantize_int8(R, C, dtype), q_bytes, 4 * R * C, "float32",
+                                 f"quantize_int8 {[R, C]} {dtype}")
+            db, dby = work_bound(work.dequantize_int8(R, C, "float32"), dq_bytes, R * C, "float32",
+                                 f"dequantize_int8 {[R, C]} float32")
             dq = timed(torch, lambda: qt.dequantize_int8(q, s), lambda: torch.mul(q, s), R * C)
             row.update(
                 **timed(torch, lambda: qt.quantize_int8(x), None, 4 * R * C),
@@ -985,11 +1031,14 @@ def grad_flash(torch, F, fa, gen, cases=FLASH_GRAD_CASES) -> list:
                "main_path": role.startswith("train")}
         # the five products: 10 D operations a visible (query, key) pair a
         # q-head; q, k, v, lse and do read once, dq, dk, dv written once
+        from repro_torch.kernels import work
+
         pairs = _visible_pairs(Sq, Skv, True) * B * Hq
         ops = 10 * D * pairs
         esz = q.element_size()
         nbytes = (3 * q.numel() + 4 * k.numel()) * esz + 4 * B * Hq * Sq
-        b_ms, b_by = bound(nbytes, ops, dtype)
+        b_ms, b_by = work_bound(work.flash_attention_backward(B, Hq, Hkv, Sq, Skv, D, dtype), nbytes, ops,
+                                dtype, f"flash_attention_backward {list(shape)} {dtype}")
         _, lse = fa._launch(q, k, v, True, fa.flash_launch(B, Hq, Sq, Skv, D, dtype, bq, bq),
                             with_lse=True)
         _check_bit_equal(torch, f"flash_attention_backward {role} {dtype}",
@@ -1032,6 +1081,7 @@ def phase_grad(torch, rn, fa, mg, ss):
     against autograd through its plain version (the rmsnorm, flash and scan
     backward kernels also timed alone, beside their bounds)."""
     from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import work
 
     F = torch.nn.functional
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
@@ -1092,7 +1142,8 @@ def phase_grad(torch, rn, fa, mg, ss):
             esz = x.element_size()
             # x and gy read, dx written, w read and dw written once; about 10
             # operations an element (two sums, dx, dw)
-            b_ms, b_by = bound(3 * n * esz + 2 * d * esz, 10 * n, "float32")
+            b_ms, b_by = work_bound(work.rmsnorm_backward(n, d, dtype), 3 * n * esz + 2 * d * esz,
+                                    10 * n, "float32", f"rmsnorm_backward {list(shape)} {dtype}")
             # the library's backward alone: autograd of F.rms_norm through a kept graph
             xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
             yl = F.rms_norm(xl, (d,), wl, eps=1e-6)
@@ -1136,7 +1187,8 @@ def phase_grad(torch, rn, fa, mg, ss):
                 f_ = bv.shape[2]
                 nbytes = (a.numel() + b.numel() + e_ * c_ * f_) * a.element_size()
                 ops = 2 * e_ * c_ * k_ * f_
-                b_ms, b_by = bound(nbytes, ops, dtype)
+                b_ms, b_by = work_bound(work.moe_gemm(e_, c_, k_, f_, dtype), nbytes, ops, dtype,
+                                        f"moe_gemm backward {name} {[e_, c_, k_, f_]} {dtype}")
                 row[name] = {
                     "shape": [e_, c_, k_, f_], "x_t": a_t, "w_t": b_t, "bound_ms": b_ms, "bound_by": b_by,
                     **timed(torch, lambda: mg.moe_gemm(a, b, block_c=128, block_f=256, block_d=256,
@@ -1190,7 +1242,8 @@ def phase_grad(torch, rn, fa, mg, ss):
         # recomputed, the adjoint, five gradient terms)
         nbytes = (5 * B * L * Di + 4 * B * L * N) * esz + 2 * (Di * N + Di) * 4
         ops = 25 * B * L * Di * N
-        b_ms, b_by = bound(nbytes, ops, "float32")
+        b_ms, b_by = work_bound(work.selective_scan_backward(B, L, Di, N, dtype), nbytes, ops, "float32",
+                                f"selective_scan_backward {[B, L, Di, N]} {dtype}")
         u, dt_, A, Bm, Cm, D = (x.detach() for x in xs)
         y, states = ss._launch(u, dt_, A, Bm, Cm, D, ss.scan_launch(B, L, Di, N, dtype, ch, db))
         _check_bit_equal(torch, f"selective_scan_backward {role} {dtype}",
@@ -3500,6 +3553,214 @@ def phase_mesh_decode(torch, mods, device="cuda", small=False, jobs=None) -> dic
         raise AssertionError("mesh_decode: " + "; ".join(failed))
     return total
 
+# the dry run's card check: granite-moe-1b-a400m's programs at the card
+# measurement's cut (6 of 24 layers, core/measure.CUT_ROWS rows), by shape
+# and plan: both remat policies' train steps (all five of its kernels under
+# the first), a 1 x 32,768 prefill and a 16-row decode over an int8 cache
+DRYRUN_CARD_PROGRAMS = (
+    ("train_4k", dict(remat="full", microbatches=2, opt_dtype="int8", grad_comm="int8")),
+    ("train_4k", dict(remat="dots", microbatches=2)),
+    ("prefill_32k", {}),
+    ("decode_32k", dict(kv_dtype="int8")),
+)
+DRYRUN_PEAK_REL = 0.10  # the dry run's peak against torch.cuda.max_memory_allocated
+# the production-mesh records, full config at full depth, each mesh of the
+# H100 (the 1 x 8 node and two of them); and the other cut archs on the node
+DRYRUN_CELLS = tuple((a, s, m) for a, s in (("granite-moe-1b-a400m", "train_4k"),
+                                           ("deepseek-67b", "train_4k"), ("deepseek-67b", "prefill_32k"),
+                                           ("stablelm-12b", "train_4k"))
+                     for m in ("single", "multi")) + (
+    ("qwen2-vl-72b", "prefill_32k", "single"), ("falcon-mamba-7b", "train_4k", "single"))
+DRYRUN_TIMEOUT_S = 600
+# what every dry-run record must hold (launch/dryrun_impl.py)
+DRYRUN_RECORD_FIELDS = frozenset({
+    "arch", "shape", "mesh", "plan", "hw", "source", "chips", "rank", "step_s", "compute_s",
+    "memory_s", "collective_s", "dominant", "flops_per_device", "dot_flops_per_device",
+    "flops_total", "hbm_bytes_total", "coll_bytes_per_chip", "coll_wire_bytes_per_chip",
+    "coll_by_kind", "coll_counts", "memory", "bytes_per_device", "fits_hbm", "launches",
+    "model_flops", "useful_flops_ratio", "mfu"})
+
+
+def _cut_program(mods, shape_name: str, plan_kw: dict):
+    """(config, input shape, plan) of granite-moe's program at the card
+    measurement's cut, as ``launch/measure.evaluate_cell`` builds it."""
+    from repro_torch.configs import get_shape
+
+    cfg = dataclasses.replace(mods.get_config(TRAIN_ARCH), n_layers=mods.quickstart.MEASURE_LAYERS)
+    shape = get_shape(shape_name)
+    rows = mods.measure.CUT_ROWS[shape.kind]
+    plan = mods.SchedulePlan(**plan_kw)
+    plan = dataclasses.replace(plan, microbatches=min(plan.microbatches, rows))
+    return cfg, mods.InputShape(f"{shape_name}-cut", shape.seq_len, rows, shape.kind), plan
+
+
+def _card_program(torch, np, mods, cfg, shape, plan) -> dict:
+    """One real run of the program on the card after a warm-up step, under
+    ``FlopCounterMode`` and the launch counters, its peak memory from a reset
+    just before it; then three runs timed without the counter."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    dev = torch.device("cuda")
+    kind, rows, seq = shape.kind, shape.global_batch, shape.seq_len
+    rng = np.random.default_rng(SEED)
+    params = mods.transformer.init_params(cfg, SEED, device=dev)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (rows, 1 if kind == "decode" else seq)))
+    tokens = tokens.to(dev)
+    if kind == "train":
+        oc = mods.optim.OptimizerConfig(peak_lr=0.0, moment_dtype=plan.opt_dtype)
+        state = {"opt": mods.optim.init_opt_state(params, oc)}
+        batch = {"inputs": tokens, "labels": tokens,
+                 "positions": mods.make_positions(cfg, rows, seq, device=dev)}
+        step = mods.make_train_step(cfg, shape, plan, oc, device=dev)
+
+        def run():
+            _, state["opt"], _ = step(params, state["opt"], batch)
+    elif kind == "prefill":
+        batch = {"inputs": tokens, "positions": mods.make_positions(cfg, rows, seq, device=dev)}
+        step = mods.make_prefill_step(cfg, shape, plan, device=dev)
+
+        def run():
+            step(params, batch)
+    else:
+        cache = mods.transformer.init_cache(cfg, rows, seq, kv_dtype=plan.kv_dtype, device=dev)
+        step = mods.make_serve_step(cfg, shape, plan, device=dev)
+
+        def run():
+            step(params, cache, tokens, seq - 1)
+    run()
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    mods.ops.reset_counters()
+    flops = FlopCounterMode(display=False)
+    with flops:
+        run()
+    torch.cuda.synchronize()
+    out = {"launches": mods.ops.launch_counts(), "flops": flops.get_total_flops(),
+           "peak_bytes": torch.cuda.max_memory_allocated(), "allocated_before": resident}
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    out["step_ms"] = statistics.median(times) * 1e3
+    out["step_runs_ms"] = [t * 1e3 for t in times]
+    return out
+
+
+def _dryrun_subprocesses(out_dir: Path):
+    """One ``python -m repro_torch.launch.dryrun`` a cell of ``DRYRUN_CELLS``,
+    all started at once with no card visible (a dry run is the host's:
+    meta tensors, no device)."""
+    env = {**os.environ, "PYTHONPATH": str(SRC), "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
+    procs = {}
+    for arch, shape, mesh in DRYRUN_CELLS:
+        out = out_dir / f"{arch}_{shape}_{mesh}.json"
+        procs[(arch, shape, mesh)] = (out, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+             "--mesh", mesh, "--hw", "h100", "--json-out", str(out)],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    return procs
+
+
+def phase_dryrun(torch, np, mods) -> dict:
+    """The production-mesh dry run (``launch/dryrun_impl.py``).  (a) The
+    card's check: each of ``DRYRUN_CARD_PROGRAMS`` run for real on the card
+    and dry on the meta device must give exactly equal launches by kernel
+    and ``FlopCounterMode`` FLOPs (the aten products: the kernels are no
+    aten op on the card), and a peak within ``DRYRUN_PEAK_REL`` of
+    ``torch.cuda.max_memory_allocated``; the measured step beside the dry
+    run's roofline ``step_s`` (their ratio recorded, not asserted).  (b)
+    ``DRYRUN_CELLS``' records at full depth on the H100's meshes, one
+    subprocess each, started together after (a): every field, and what a
+    rank holds beside the card's memory.  Returns the real runs' launches."""
+    from repro_torch.core.space import ONE_CARD
+    from repro_torch.launch import dryrun_impl
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    checks, failed = [], []
+    launches = {n: 0 for n in KERNELS}
+    for shape_name, plan_kw in DRYRUN_CARD_PROGRAMS:
+        cfg, shape, plan = _cut_program(mods, shape_name, plan_kw)
+        real = _card_program(torch, np, mods, cfg, shape, plan)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        dry = dryrun_impl.dry_run(cfg, shape, plan, ONE_CARD, hw="h100", local=True)
+        dry_s = time.perf_counter() - t0
+        for n in KERNELS:
+            launches[n] += real["launches"][n]
+        peak_rel = dry["memory"]["peak_bytes"] / real["peak_bytes"] - 1.0
+        what = f"{shape_name} {plan_kw}"
+        if dry["launches"] != real["launches"]:
+            failed.append(f"{what}: launches dry {dry['launches']} card {real['launches']}")
+        if dry["aten_flops_per_device"] != real["flops"]:
+            failed.append(f"{what}: FLOPs dry {dry['aten_flops_per_device']} card {real['flops']}")
+        if abs(peak_rel) > DRYRUN_PEAK_REL:
+            failed.append(f"{what}: peak dry {dry['memory']['peak_bytes']} card {real['peak_bytes']}")
+        checks.append({
+            "program": what, "layers": cfg.n_layers, "rows": shape.global_batch, "seq": shape.seq_len,
+            "launches": real["launches"], "launches_equal": dry["launches"] == real["launches"],
+            "flops_card": real["flops"], "flops_dry": dry["aten_flops_per_device"],
+            "kernel_flops_dry": dry["kernel_flops_per_device"],
+            "peak_gib_card": real["peak_bytes"] / 2**30,
+            "peak_gib_dry": dry["memory"]["peak_bytes"] / 2**30, "peak_rel": peak_rel,
+            "resident_gib_dry": dry["memory"]["resident_bytes"] / 2**30,
+            "allocated_before_gib_card": real["allocated_before"] / 2**30,
+            "step_ms_card": real["step_ms"], "step_runs_ms_card": real["step_runs_ms"],
+            "step_ms_dry": dry["step_s"] * 1e3, "dominant_dry": dry["dominant"],
+            "card_over_dry_step": real["step_ms"] / (dry["step_s"] * 1e3), "dryrun_s": dry_s})
+    out_dir = ROOT / "build" / "chip_smoke_dryrun"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    procs = _dryrun_subprocesses(out_dir)
+    records = []
+    try:
+        for (arch, shape, mesh), (out, proc) in procs.items():
+            _, err = proc.communicate(timeout=max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)))
+            if proc.returncode != 0:
+                raise AssertionError(f"dryrun {arch} x {shape} x {mesh}: exit {proc.returncode}\n"
+                                     f"{err[-3000:]}")
+            rec = json.loads(out.read_text())
+            missing = DRYRUN_RECORD_FIELDS - set(rec)
+            # what the step's prefill or training launches (decode: the plain attention and scan)
+            kernels = (set() if rec["shape"].startswith("decode") else
+                       {"flash_attention"} if mods.get_config(arch).n_heads else {"selective_scan"})
+            if missing or rec["source"] != "dryrun" or not all(rec["launches"][k] for k in kernels):
+                raise AssertionError(f"dryrun {arch} x {shape} x {mesh}: missing {missing}, "
+                                     f"launches {rec['launches']}")
+            mem = rec["memory"]
+            records.append({
+                "arch": arch, "shape": shape, "mesh": mesh, "chips": rec["chips"],
+                "layers": mods.get_config(arch).n_layers, "plan": rec["plan"],
+                "resident_gib": mem["resident_bytes"] / 2**30, "peak_gib": mem["peak_bytes"] / 2**30,
+                "params_gib": mem["params_bytes"] / 2**30, "opt_state_gib": mem["opt_state_bytes"] / 2**30,
+                "fits_hbm": rec["fits_hbm"], "flops_per_device": rec["flops_per_device"],
+                "dot_flops_per_device": rec["dot_flops_per_device"],
+                "hbm_bytes_total": rec["hbm_bytes_total"], "coll_bytes_per_chip": rec["coll_bytes_per_chip"],
+                "coll_by_kind": rec["coll_by_kind"], "compute_ms": rec["compute_s"] * 1e3,
+                "memory_ms": rec["memory_s"] * 1e3, "collective_ms": rec["collective_s"] * 1e3,
+                "step_ms": rec["step_s"] * 1e3, "dominant": rec["dominant"], "mfu": rec["mfu"],
+                "launches": {k: v for k, v in rec["launches"].items() if v},
+                "dryrun_s": rec["dryrun_s"]})
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    records_s = time.perf_counter() - t0
+    emit("dryrun", card_check=checks, card_launches=launches, records=records,
+         records_wall_s=records_s, seconds=time.perf_counter() - t_phase)
+    if failed:
+        raise AssertionError("dryrun: " + "; ".join(failed))
+    return launches
+
+
 def _summary_row(n: str, rows: list, launches: int) -> dict:
     """One kernel's entry of the ``kernels`` line; for the int8 pair, from the
     quantize phase's rows (``dequant_*`` fields for the dequantize)."""
@@ -3717,6 +3978,10 @@ def main() -> int:
     for n in KERNELS:
         if launches[n] == 0:
             raise AssertionError(f"the main paths launched no {n} kernel")
+    emit("work_check", cases=WORK_CHECKS)
+    # the production-mesh dry run: its card check and records (its real
+    # runs' launches on its own line, apart from the main paths')
+    timed_phase("dryrun", phase_dryrun, torch, np, mods)
 
     # 320 tokens: scan_chunk 64 divides them (JAX's divisibility)
     parity_plans = {"granite-3-2b": SchedulePlan(), "granite-moe-1b-a400m": SchedulePlan(),

@@ -25,8 +25,17 @@ phase where the CUDA toolkit is), so run those cases on both:
         mesh_decode_mask_local_positions mesh_decode_write_on_neighbour \
         mamba_decode_in_proj_whole_split
 
-``DIR`` must lie outside the checkout; naming cases runs the control and
-those cases only.  Each case is a copy of ``src/`` and ``chip_smoke.py`` in
+Three faults of the dry run (a meta branch recording a launch twice, an
+all-gather counted at a wrong group size, a ``work.py`` formula off by a
+factor) must be caught by ``tests/test_torch_dryrun.py`` and, where the card
+can see them, by its ``dryrun`` phase or its bound columns:
+
+    PYTHONPATH=src python3 scripts/torch_fault_check.py DIR dryrun_flash_launch_counted_twice \
+        collective_group_size_off_by_one work_flash_operations_halved
+
+``--card`` runs only the card phases (the CPU tests hold the port to the JAX
+package, which does not run on the card's machine).  ``DIR`` must lie
+outside the checkout; naming cases runs the control and those cases only.  Each case is a copy of ``src/`` and ``chip_smoke.py`` in
 ``DIR/<case>`` with one fault planted in one file under ``src/repro_torch/``
 (a CUDA source, a wrapper, the int8 KV cache's write in
 ``models/attention.py``, M-RoPE in ``models/layers.py``, the embeddings
@@ -35,7 +44,7 @@ fresh process, the ``chip_smoke`` phase that must catch it: the file's
 phase, or the case's own where it names one (the unedited control runs
 every phase of the cases run; a case checked by CPU tests runs them on
 its copy with ``pytest``).  The control must pass every check and every
-mutant (thirty-seven of them) must fail every check it runs.  Prints one
+mutant (forty of them) must fail every check it runs.  Prints one
 JSON line per case (with the failing check's numbers) and exits 1 if any
 case went the other way.
 """
@@ -64,6 +73,8 @@ PHASES = {
     "phase_decode_int8": "chip_smoke.phase_decode_int8(torch, np, chip_smoke.make_mods())",
     "phase_positions": "chip_smoke.phase_positions(torch, chip_smoke.make_mods())",
     "phase_embed_decode_parity": "chip_smoke.phase_embed_decode_parity(torch, np, chip_smoke.make_mods())",
+    "phase_dryrun": ("_build.build(chip_smoke.LIBRARIES); "
+                     "chip_smoke.phase_dryrun(torch, np, chip_smoke.make_mods())"),
     # the mesh's ranks find the kernels built
     "phase_mesh": "_build.build(chip_smoke.LIBRARIES); chip_smoke.phase_mesh(torch, chip_smoke.make_mods())",
     "phase_mesh_decode": ("_build.build(chip_smoke.LIBRARIES); "
@@ -75,6 +86,7 @@ TESTS = {
     "tests_ep": ["tests/test_torch_sharding.py", "-k", "expert_parallel"],
     "tests_mesh_step": ["tests/test_torch_distributed.py", "-k", "2x2 and falcon"],
     "tests_mesh_decode": ["tests/test_torch_mesh_decode.py"],
+    "tests_dryrun": ["tests/test_torch_dryrun.py"],
 }
 # the phase that must catch a fault in each file
 PHASE_OF = {
@@ -333,6 +345,24 @@ CASES = {
         "    xz = xz.reshape(xz.shape[0], n, 2, -1).transpose(1, 2).reshape(xz.shape[0], -1)\n"
         "    xi, z = xz.chunk(n, dim=-1)[par.ctx.tp_rank].chunk(2, dim=-1)\n",
     )], ("tests_mesh_decode", "phase_mesh_decode")),
+    # the dry run: the flash forward's meta branch records each launch twice
+    # (caught against a real step's launches, on the CPU and on the card)
+    "dryrun_flash_launch_counted_twice": ("kernels/flash_attention.py", [(
+        "        work.dry_launch(LAUNCHES.name, wk, plain, tile=(launch.block_q, launch.block_kv))\n",
+        "        work.dry_launch(LAUNCHES.name, wk, plain, tile=(launch.block_q, launch.block_kv))\n"
+        "        work.dry_launch(LAUNCHES.name, wk, plain, tile=(launch.block_q, launch.block_kv))\n",
+    )], ("tests_dryrun", "phase_dryrun")),
+    # an all-gather counted at one rank more than its group: its wire bytes
+    # (caught by the ring formulas and the pinned records of the CPU tests)
+    "collective_group_size_off_by_one": ("sharding/collectives.py", [(
+        '    _count("all-gather", src, n)', '    _count("all-gather", src, n + 1)',
+    )], "tests_dryrun"),
+    # work.py's flash forward counts 2·D operations a visible pair, not 4·D
+    # (caught by the CPU tests' bounds and the card's bound columns)
+    "work_flash_operations_halved": ("kernels/work.py", [(
+        "    return Work(4 * D * visible_pairs(Sq, Skv, causal) * B * Hq, nbytes, dtype)",
+        "    return Work(2 * D * visible_pairs(Sq, Skv, causal) * B * Hq, nbytes, dtype)",
+    )], ("tests_dryrun", "phase_kernels_flash")),
 }
 
 RUN = """
@@ -357,9 +387,10 @@ def _phases(edit) -> list:
 
 
 def _runnable(phase: str) -> bool:
-    """CPU tests need JAX (the reference); a card phase needs the CUDA toolkit."""
+    """CPU tests need JAX (the reference) and are not run with ``--card``; a
+    card phase needs the CUDA toolkit."""
     if phase in TESTS:
-        return importlib.util.find_spec("jax") is not None
+        return not CARD_ONLY and importlib.util.find_spec("jax") is not None
     return shutil.which("nvcc") is not None or os.path.exists("/usr/local/cuda/bin/nvcc")
 
 
@@ -410,7 +441,14 @@ def run_case(base: Path, name: str, edit, cases: dict) -> dict:
             "caught": failure[-1] if failure else None, "as_expected": ok}
 
 
+CARD_ONLY = False
+
+
 def main() -> int:
+    global CARD_ONLY
+    if "--card" in sys.argv:
+        CARD_ONLY = True
+        sys.argv.remove("--card")
     if len(sys.argv) < 2 or any(n not in CASES for n in sys.argv[2:]):
         print(__doc__, file=sys.stderr)
         return 2

@@ -40,4 +40,17 @@ def get_shape(name: str) -> InputShape:
     return SHAPES[name]
 
 
-__all__ = ["ARCH_IDS", "SHAPES", "InputShape", "LayerSpec", "ModelConfig", "get_config", "get_shape"]
+def cells(include_skipped: bool = False):
+    """Yield every (arch, shape) dry-run cell, as the JAX package's ``cells``:
+    ``long_500k`` needs sub-quadratic attention and is skipped for the pure
+    full-attention archs unless ``include_skipped``."""
+    for arch_id in ARCH_IDS:
+        cfg = get_config(arch_id)
+        for shape_name, shape in SHAPES.items():
+            if shape_name == "long_500k" and not cfg.sub_quadratic and not include_skipped:
+                continue
+            yield cfg, shape
+
+
+__all__ = ["ARCH_IDS", "SHAPES", "InputShape", "LayerSpec", "ModelConfig", "cells", "get_config",
+           "get_shape"]

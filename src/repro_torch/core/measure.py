@@ -24,7 +24,11 @@ on the **program** (``program_of``): the plan fields the card's step reads
 for the cell's kind, ``microbatches`` capped at the cut's rows.  On a 1x1
 mesh the sharding fields change nothing, so plans that differ only there
 share one measurement; the record keeps the first requester's ``plan`` and
-adds the ``program`` it measured.  Any other request keys on the whole plan.
+adds the ``program`` it measured.  A request on mesh ``single`` or
+``multi`` is the production-mesh dry run's (``launch/dryrun_impl.py``: the
+full config counted on the meta device, ``source: "dryrun"``): its key
+carries that source and leaves out the device and the cut, which it never
+reads.  Any other request keys on the whole plan.
 """
 from __future__ import annotations
 
@@ -55,6 +59,10 @@ CACHE_DIR = os.path.join(
 # the subprocess module a measurement spawns; tests point this at
 # ``repro_torch.launch.dryrun_stub`` (same CLI, analytic record, no card)
 DRYRUN_MODULE = "repro_torch.launch.measure"
+
+# meshes whose measurement is the production-mesh dry run (one rank's step
+# counted on the meta device, ``launch/dryrun_impl.py``), not a card's time
+DRYRUN_MESHES = ("single", "multi")
 
 # rows of the card's cut of a cell, by kind: what chip_smoke.py trains
 # (B = 2 x S), one prompt, and 16 decode rows over a full-length cache
@@ -118,12 +126,10 @@ KEY_VERSION = 3
 def _cache_key(
     arch: str, shape: str, mesh: str, plan: Optional[dict],
     devices: Optional[int] = None, hw: str = "h100", device: Optional[str] = None,
-    cut: Optional[dict] = None,
+    cut: Optional[dict] = None, source: Optional[str] = None,
 ) -> str:
-    blob = json.dumps(
-        [KEY_VERSION, arch, shape, mesh, devices, get_hardware(hw).name, device, cut, plan],
-        sort_keys=True,
-    )
+    fields = [KEY_VERSION, arch, shape, mesh, devices, get_hardware(hw).name, device, cut, plan]
+    blob = json.dumps(fields + ([source] if source else []), sort_keys=True)
     return hashlib.sha1(blob.encode()).hexdigest()[:20]
 
 
@@ -161,6 +167,11 @@ def make_request(
 
 def request_key(req: dict) -> str:
     plan = req["plan"]
+    if req["mesh"] in DRYRUN_MESHES:
+        # the dry run's record: the full config on the meta device, whatever
+        # device or cut the request names
+        return _cache_key(req["arch"], req["shape"], req["mesh"], plan, req.get("devices"),
+                          req.get("hw") or "h100", source="dryrun")
     if req.get("device") is not None and req["mesh"] == "card" and plan is not None:
         plan = {"program": program_of(plan, get_shape(req["shape"]).kind)}
     return _cache_key(

@@ -2,7 +2,9 @@
 
 Entry points default to ``device="cuda"``.  On a machine without a CUDA
 device they raise rather than quietly run on the CPU; the CPU is used only
-when the caller asks for it (``device="cpu"``), as the tests do.
+when the caller asks for it (``device="cpu"``), as the tests do.  The
+``meta`` device holds shapes and no data: the dry run
+(``launch/dryrun_impl.py``) builds its steps there.
 """
 from __future__ import annotations
 
@@ -20,8 +22,9 @@ def resolve_device(device) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the port's "
             "plain PyTorch path on the CPU"
         )
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"the port runs on 'cuda' or 'cpu', not {dev.type!r}")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"the port runs on 'cuda' or 'cpu' (and dry runs on 'meta'), "
+                         f"not {dev.type!r}")
     return dev
 
 

@@ -19,8 +19,11 @@ that does not fit a Hopper block; nothing else changes it.
 ``LAUNCHES.tiles`` records every tile launched since the last reset.
 
 A CPU tensor takes the plain version (``ref.attention``); a CUDA tensor
-launches the kernel or raises.  Where autograd records (grad enabled and an
-input that requires grad), the launch goes through ``FlashAttentionFn``:
+launches the kernel or raises; a meta tensor runs the CUDA branch's checks
+(the tile's launchability included) and allocations and records the launch
+instead of making it (``work.dry_launch``: the dry run).  Where autograd
+records (grad enabled and an input that requires grad), the launch goes
+through ``FlashAttentionFn``:
 the forward kernel also writes each row's log-sum-exp (``lse``), the
 Function saves ``q``, ``k``, ``v`` and ``lse`` (never the ``S x S``
 scores), and its backward launches the backward kernel
@@ -41,7 +44,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, work
 from repro_torch.kernels.geometry import flash_backward_launch, flash_launch
 from repro_torch.kernels.ref import attention as attention_plain
 from repro_torch.kernels.ref import attention_backward as attention_backward_plain
@@ -68,8 +71,8 @@ def flash_attention(
 ) -> torch.Tensor:
     if q.device.type == "cpu":
         return attention_plain(q, k, v, causal=causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu tensors, not {q.device}")
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"flash_attention runs on cuda, cpu or meta tensors, not {q.device}")
     B, Hq, Sq, D = q.shape
     _, Hkv, Skv, _ = k.shape
     if q.dtype not in _DTYPE_CODES:
@@ -130,6 +133,12 @@ def _launch(q, k, v, causal: bool, launch, with_lse: bool = False):
     o = torch.empty_like(q)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device) if with_lse else None
     _check_layout(q=q, k=k, v=v, o=o)
+    if q.device.type == "meta":
+        key = ("flash_attention", work.signature(q, k, v), causal)
+        plain = work.plain_products(("fwd", key), lambda: attention_plain(q, k, v, causal=causal))
+        wk = work.flash_attention(B, Hq, Hkv, Sq, Skv, D, _DTYPE_NAMES[q.dtype], causal, with_lse)
+        work.dry_launch(LAUNCHES.name, wk, plain, tile=(launch.block_q, launch.block_kv))
+        return o, lse
     lib, fn = _build.launcher("flash_attention", "flash_attention_launch", _ARGS)
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -153,6 +162,15 @@ def _launch_backward(q, k, v, lse, do, causal: bool, bwd):
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     scratch = torch.empty(bwd.scratch_floats, dtype=torch.float32, device=q.device)
     _check_layout(q=q, k=k, v=v, do=do, lse=lse)
+    if q.device.type == "meta":
+        needs = tuple(t.requires_grad for t in (q, k, v))
+        needs = needs if any(needs) else (True, True, True)
+        plain = work.autograd_products(
+            ("flash_attention", work.signature(q, k, v), causal, needs),
+            lambda a, b, c: attention_plain(a, b, c, causal=causal), (q, k, v), needs, do)
+        wk = work.flash_attention_backward(B, Hq, Hkv, Sq, Skv, D, _DTYPE_NAMES[q.dtype], causal)
+        work.dry_launch(BWD_LAUNCHES.name, wk, plain, tile=(bwd.dkdv_tile, bwd.dq_tile))
+        return dq, dk, dv
     lib, fn = _build.launcher("flash_attention_backward", "flash_attention_backward_launch", _BWD_ARGS)
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(), do.data_ptr(), scratch.data_ptr(),

@@ -22,7 +22,10 @@ changes nothing else.  ``LAUNCHES.tiles`` records every tile launched since
 the last reset.
 
 A CPU tensor takes the plain version (``ref.moe_gemm``, with the same
-layout flags); a CUDA tensor launches the kernel or raises.  Where autograd
+layout flags); a CUDA tensor launches the kernel or raises; a meta tensor
+runs the CUDA branch's checks (the tile against the shapes included) and
+allocations and records the launch instead of making it
+(``work.dry_launch``: the dry run).  Where autograd
 records (grad enabled and an input that requires grad), the launch goes
 through ``MoeGemmFn``, whose backward is two more grouped GEMMs of the same
 form, each a launch of the same kernel with the same tile, on the saved
@@ -35,7 +38,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, work
 from repro_torch.kernels.geometry import moe_gemm_launch
 from repro_torch.kernels.ref import moe_gemm as moe_gemm_plain
 
@@ -59,8 +62,8 @@ def moe_gemm(
 ) -> torch.Tensor:
     if x.device.type == "cpu":
         return moe_gemm_plain(x, w, x_t=x_t, w_t=w_t)
-    if x.device.type != "cuda":
-        raise ValueError(f"moe_gemm runs on cuda or cpu tensors, not {x.device}")
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"moe_gemm runs on cuda, cpu or meta tensors, not {x.device}")
     if x.dtype not in _DTYPE_CODES:
         raise ValueError(f"moe_gemm kernel takes float32 or bfloat16, not {x.dtype}")
     E = x.shape[0]
@@ -121,6 +124,12 @@ def _launch(x, w, tile, x_t: bool, w_t: bool) -> torch.Tensor:
     for name, t in (("x", x), ("w", w), ("out", out)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"moe_gemm kernel takes contiguous, 16-byte aligned {name}")
+    if x.device.type == "meta":
+        plain = work.plain_products(("fwd", ("moe_gemm", work.signature(x, w), x_t, w_t)),
+                                    lambda: moe_gemm_plain(x, w, x_t=x_t, w_t=w_t))
+        work.dry_launch(LAUNCHES.name, work.moe_gemm(E, C, d, f, _DTYPE_NAMES[x.dtype]), plain,
+                        tile=(launch.block_c, launch.block_f, launch.block_d))
+        return out
     lib, fn = _build.launcher("moe_gemm", "moe_gemm_launch", _ARGS)
     err = fn(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), E, C, d, f,

@@ -22,7 +22,10 @@ both divide in true IEEE f32 (see ``ref.quantize_int8``).
 
 A CPU tensor takes the plain version (``ref.quantize_int8`` /
 ``ref.dequantize_int8``); a CUDA tensor launches the kernel or raises: a
-launch the card refuses (a cluster it cannot place) raises too.
+launch the card refuses (a cluster it cannot place) raises too.  A meta
+tensor runs the CUDA branch's checks (the regime's launch included) and
+allocations and records the launch instead of making it
+(``work.dry_launch``: the dry run).
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, work
 from repro_torch.kernels.geometry import QUANT_REGIMES, quantize_launch
 from repro_torch.kernels.ref import dequantize_int8 as dequantize_int8_plain
 from repro_torch.kernels.ref import quantize_int8 as quantize_int8_plain
@@ -53,8 +56,8 @@ def _aligned(*ts: torch.Tensor) -> bool:
 
 
 def _check_2d(name: str, t: torch.Tensor) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} runs on cuda or cpu tensors, not {t.device}")
+    if t.device.type not in ("cuda", "meta"):
+        raise ValueError(f"{name} runs on cuda, cpu or meta tensors, not {t.device}")
     if t.ndim != 2 or not t.is_contiguous():
         raise ValueError(f"{name} kernel takes a contiguous (R, C) tensor; got {tuple(t.shape)}")
 
@@ -81,6 +84,12 @@ def quantize_int8(x: torch.Tensor):
     if R == 0 or C == 0:
         return q, scale.fill_(1.0)
     vec = int(C % 16 == 0 and _aligned(x, q))  # 16-byte loads of x and stores of q
+    if x.device.type == "meta":
+        _launch_args(R, C, x.dtype)  # the regime's launch, as the card's
+        plain = work.plain_products(("fwd", ("quantize_int8", work.signature(x))),
+                                    lambda: quantize_int8_plain(x))
+        work.dry_launch(QUANT_LAUNCHES.name, work.quantize_int8(R, C, _DTYPE_NAMES[x.dtype]), plain)
+        return q, scale
     lib, fn = _build.launcher("quantize", "quantize_int8_launch", _QUANT_ARGS)
     err = fn(x.data_ptr(), q.data_ptr(), scale.data_ptr(), R, C, _DTYPE_CODES[x.dtype], vec,
              *_launch_args(R, C, x.dtype), _build.stream(x))
@@ -107,6 +116,11 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor, dtype=torch.float32) -
     if R == 0 or C == 0:
         return out
     vec = int(C % 4 == 0 and _aligned(q, out))
+    if q.device.type == "meta":
+        plain = work.plain_products(("fwd", ("dequantize_int8", work.signature(q, scale), str(dtype))),
+                                    lambda: dequantize_int8_plain(q, scale, dtype=dtype))
+        work.dry_launch(DEQUANT_LAUNCHES.name, work.dequantize_int8(R, C, _DTYPE_NAMES[dtype]), plain)
+        return out
     lib, fn = _build.launcher("quantize", "dequantize_int8_launch", _ARGS)
     err = fn(q.data_ptr(), scale.data_ptr(), out.data_ptr(), R, C, _DTYPE_CODES[dtype], vec,
              _build.stream(q))

@@ -10,7 +10,9 @@ per-block partial rows and a second, column-wise kernel (deterministic, no
 atomics).
 
 A CPU tensor takes the plain version (``ref.rmsnorm`` /
-``ref.rmsnorm_backward``); a CUDA tensor launches the kernel or raises.
+``ref.rmsnorm_backward``); a CUDA tensor launches the kernel or raises; a
+meta tensor runs the CUDA branch's checks and allocations and records the
+launch instead of making it (``work.dry_launch``: the dry run).
 Where autograd records (grad enabled and an input that requires grad), the
 forward goes through ``RMSNormFn``, which saves ``x`` and ``w`` and whose
 backward launches the backward kernel (``rmsnorm_backward``).  ``LAUNCHES``
@@ -23,13 +25,14 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, work
 from repro_torch.kernels.ref import rmsnorm as rmsnorm_plain
 from repro_torch.kernels.ref import rmsnorm_backward as rmsnorm_backward_plain
 
 LAUNCHES = _build.LaunchCounter("rmsnorm")
 BWD_LAUNCHES = _build.LaunchCounter("rmsnorm_backward")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _FWD_ARGS = (_P, _P, _P, _LL, _I, _F, _I, _I, _P)
 _BWD_ARGS = (_P, _P, _P, _P, _P, _P, _I, _LL, _I, _F, _I, _I, _P)
@@ -91,6 +94,12 @@ def rmsnorm_backward(x: torch.Tensor, w: torch.Tensor, gy: torch.Tensor, *, eps:
         return dx, torch.zeros_like(w)
     dw = torch.empty_like(w)
     partial = torch.empty((min(rows, _PARTIAL_ROWS), d), dtype=torch.float32, device=x.device)
+    if x.device.type == "meta":
+        needs = (x.requires_grad, w.requires_grad) if x.requires_grad or w.requires_grad else (True, True)
+        plain = work.autograd_products(("rmsnorm", work.signature(x, w), eps, needs),
+                                       lambda a, b: rmsnorm_plain(a, b, eps=eps), (x, w), needs, gy)
+        work.dry_launch(BWD_LAUNCHES.name, work.rmsnorm_backward(x.numel(), d, _NAMES[x.dtype]), plain)
+        return dx, dw
     lib, fn = _build.launcher("rmsnorm", "rmsnorm_backward_launch", _BWD_ARGS)
     err = fn(x.data_ptr(), w.data_ptr(), gy.data_ptr(), dx.data_ptr(), dw.data_ptr(),
              partial.data_ptr(), partial.shape[0], rows, d, eps, _DTYPE_CODES[x.dtype], vec,
@@ -105,8 +114,8 @@ def _check(x: torch.Tensor, w: torch.Tensor, name: str) -> bool:
     """Raise on what the kernels do not take; return whether rows are read
     in 16-byte vectors (a width of whole vectors, x and w 16-byte aligned;
     an output from ``torch.empty_like`` is aligned by the allocator)."""
-    if x.device.type != "cuda":
-        raise ValueError(f"{name} runs on cuda or cpu tensors, not {x.device}")
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"{name} runs on cuda, cpu or meta tensors, not {x.device}")
     if x.dtype not in _DTYPE_CODES:
         raise ValueError(f"{name} kernel takes float32 or bfloat16, not {x.dtype}")
     d = x.shape[-1]
@@ -129,6 +138,11 @@ def _launch(x: torch.Tensor, w: torch.Tensor, eps: float, vec: bool) -> torch.Te
     y = torch.empty_like(x)
     rows = x.numel() // d if d else 0
     if rows == 0:
+        return y
+    if x.device.type == "meta":
+        plain = work.plain_products(("fwd", ("rmsnorm", work.signature(x, w), eps, (True, True))),
+                                    lambda: rmsnorm_plain(x, w, eps=eps))
+        work.dry_launch(LAUNCHES.name, work.rmsnorm(x.numel(), d, _NAMES[x.dtype]), plain)
         return y
     lib, fn = _build.launcher("rmsnorm", "rmsnorm_launch", _FWD_ARGS)
     err = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), rows, d, eps, _DTYPE_CODES[x.dtype], vec,

@@ -21,8 +21,11 @@ one per call, and ``LAUNCHES.tiles`` records every ``(chunk, d_block)``
 launched since the last reset.
 
 A CPU tensor takes the plain version (``ref.selective_scan``); a CUDA tensor
-launches the kernel or raises.  Where autograd records (grad enabled and an
-input that requires grad), the launch goes through ``ScanFn``: the forward
+launches the kernel or raises; a meta tensor runs the CUDA branch's checks
+(the chunk included) and allocations and records the launch instead of
+making it (``work.dry_launch``: the dry run).  Where autograd records
+(grad enabled and an input that requires grad), the launch goes through
+``ScanFn``: the forward
 keeps its scratch (each chunk's carry-in after the carry pass) and the
 backward launches the backward kernel at the forward's tile (the same
 ``.cu``: the chunks' local adjoints, their reverse fold, each chunk
@@ -41,7 +44,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, work
 from repro_torch.kernels.geometry import scan_backward_launch, scan_launch
 from repro_torch.kernels.ref import selective_scan as selective_scan_plain
 from repro_torch.kernels.ref import selective_scan_backward as selective_scan_backward_plain
@@ -104,8 +107,8 @@ class ScanFn(torch.autograd.Function):
 
 def _check(u, dt, A, Bm, Cm, D, chunk: int, d_block: int):
     """Raise on what the kernels do not take; return the forward's launch."""
-    if u.device.type != "cuda":
-        raise ValueError(f"selective_scan runs on cuda or cpu tensors, not {u.device}")
+    if u.device.type not in ("cuda", "meta"):
+        raise ValueError(f"selective_scan runs on cuda, cpu or meta tensors, not {u.device}")
     if u.dtype not in _DTYPE_CODES:
         raise ValueError(f"selective_scan kernel takes float32 or bfloat16, not {u.dtype}")
     B, L, Di = u.shape
@@ -128,6 +131,13 @@ def _check(u, dt, A, Bm, Cm, D, chunk: int, d_block: int):
     return launch
 
 
+def _steps(ins, l: int):
+    """The scan's inputs cut to their first ``l`` time steps (the plain
+    version's products are the same each step: ``work.per_step``)."""
+    u, dt, A, Bm, Cm, D = ins
+    return u[:, :l], dt[:, :l], A, Bm[:, :l], Cm[:, :l], D
+
+
 def _launch(u, dt, A, Bm, Cm, D, launch):
     """``(y, scratch)``: the scratch holds each chunk's carry-in after the
     carry pass (None for one chunk)."""
@@ -136,6 +146,14 @@ def _launch(u, dt, A, Bm, Cm, D, launch):
     y = torch.empty_like(u)
     scratch = (torch.empty(launch.scratch_floats, dtype=torch.float32, device=u.device)
                if launch.scratch_floats else None)
+    if u.device.type == "meta":
+        ins = (u, dt, A, Bm, Cm, D)
+        plain = work.per_step(L, lambda l: work.plain_products(
+            ("fwd", ("selective_scan", work.signature(*_steps(ins, l)))),
+            lambda: selective_scan_plain(*_steps(ins, l))))
+        work.dry_launch(LAUNCHES.name, work.selective_scan(B, L, Di, N, _DTYPE_NAMES[u.dtype]), plain,
+                        tile=(launch.chunk, launch.d_block))
+        return y, scratch
     lib, fn = _build.launcher("selective_scan", "selective_scan_launch", _ARGS)
     err = fn(
         u.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), D.data_ptr(),
@@ -160,6 +178,16 @@ def _launch_backward(u, dt, A, Bm, Cm, D, states, gy, bwd):
     du, ddt = torch.empty_like(u), torch.empty_like(dt)
     dA, dBm, dCm, dD = (torch.empty_like(t) for t in (A, Bm, Cm, D))
     scratch = torch.empty(bwd.scratch_floats, dtype=torch.float32, device=u.device)
+    if u.device.type == "meta":
+        ins = (u, dt, A, Bm, Cm, D)
+        needs = tuple(t.requires_grad for t in ins)
+        needs = needs if any(needs) else (True,) * 6
+        plain = work.per_step(L, lambda l: work.autograd_products(
+            ("selective_scan", work.signature(*_steps(ins, l)), needs), selective_scan_plain,
+            _steps(ins, l), needs, gy[:, :l]))
+        work.dry_launch(BWD_LAUNCHES.name, work.selective_scan_backward(B, L, Di, N, _DTYPE_NAMES[u.dtype]),
+                        plain, tile=(bwd.chunk, bwd.d_block))
+        return du, ddt, dA, dBm, dCm, dD
     lib, fn = _build.launcher("selective_scan", "selective_scan_backward_launch", _BWD_ARGS)
     err = fn(
         u.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), D.data_ptr(),

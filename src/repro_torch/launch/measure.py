@@ -41,8 +41,12 @@ fleet work unchanged:
 * ``device``: the card's name and power limit; ``source``: ``"card"``, or
   ``"cpu"`` on a CPU run.
 
-Only mesh ``card`` is measured: ``single`` and ``multi`` raise naming ROADMAP
-item A8 (one card is never measured and called a mesh).  Without a card it
+Only mesh ``card`` is timed.  Meshes ``single`` and ``multi`` take the
+production-mesh dry run (``launch/dryrun_impl.evaluate_cell``), as the
+reference's measurement does: one rank's step counted on the meta device, a
+record with ``source: "dryrun"`` whose ``step_s`` is its roofline, never a
+time (one card is never timed and called a mesh); it runs the full config,
+so it takes no cut, and needs no device.  Without a card mesh ``card``
 raises unless ``--device cpu`` is given.  A measurement that fails raises;
 nothing computed on the CPU ever stands in for a card time.
 
@@ -178,11 +182,11 @@ def evaluate_cell(
 ) -> dict:
     """Build the port's step for ``plan`` on ``device``, run it at the cut,
     and return the measurement record (module docstring).  ``weights``
-    keeps the model across calls; without it the weights are built anew."""
+    keeps the model across calls; without it the weights are built anew.
+    Meshes ``single`` and ``multi``: the dry run's record."""
     if mesh_kind != "card":
-        raise NotImplementedError(
-            f"measuring mesh {mesh_kind!r} needs its collectives on several cards: "
-            "ROADMAP item A8; the port measures mesh 'card' (one device)")
+        return _dry_run(arch, shape_name, mesh_kind, plan, hw=hw, cut=cut, devices=devices,
+                        verbose=verbose)
     if devices not in (None, 1):
         raise ValueError(f"mesh 'card' is one device, not {devices}")
     import numpy as np
@@ -295,6 +299,22 @@ def evaluate_cell(
     return record
 
 
+def _dry_run(arch, shape_name, mesh_kind, plan, *, hw, cut, devices, verbose) -> dict:
+    from repro_torch.core.hardware import get_hardware
+    from repro_torch.core.space import get_mesh
+    from repro_torch.launch import dryrun_impl
+
+    if any((cut or {}).values()):
+        raise ValueError(f"mesh {mesh_kind!r} takes the dry run, which runs the full config: "
+                         f"no cut ({cut})")
+    size = get_mesh(get_hardware(hw), mesh_kind).size
+    if devices not in (None, size):
+        raise ValueError(f"mesh {mesh_kind!r} on {hw} has {size} ranks, not {devices}")
+    record = dryrun_impl.evaluate_cell(arch, shape_name, mesh_kind, plan, hw=hw, verbose=verbose)
+    record["devices"] = devices
+    return record
+
+
 class CardTarget:
     """The fleet's target: a request dict (``core.measure.make_request`` with
     ``device`` set) -> its record.  The fleet sends it to its worker process
@@ -306,13 +326,13 @@ class CardTarget:
     def __call__(self, req: dict) -> dict:
         from repro_torch.core.space import SchedulePlan
 
-        if req.get("device") is None:
+        if req["mesh"] == "card" and req.get("device") is None:
             raise ValueError("a card measurement names its device ('cuda' or 'cpu')")
         plan = req.get("plan")
         return evaluate_cell(
             req["arch"], req["shape"], req["mesh"],
             SchedulePlan.from_dict(plan) if plan is not None else None,
-            hw=req.get("hw") or "h100", device=req["device"], cut=req.get("cut"),
+            hw=req.get("hw") or "h100", device=req.get("device") or "cuda", cut=req.get("cut"),
             devices=req.get("devices"), weights=self.weights, verbose=False,
         )
 
@@ -368,7 +388,8 @@ def main(argv=None) -> int:
         for a, s, e in failures:
             print(f"  {a} x {s}: {e}")
         return 1
-    print(f"[measure] all {len(records)} cell(s) measured on {args.device}, mesh={args.mesh}")
+    where = "the meta device (dry run)" if args.mesh != "card" else args.device
+    print(f"[measure] all {len(records)} cell(s) measured on {where}, mesh={args.mesh}")
     return 0
 
 

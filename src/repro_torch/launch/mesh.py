@@ -23,6 +23,11 @@ contend for), playing the part of JAX's forced host devices.
 the one-device steps run the same code as a mesh's ranks, every collective
 the identity.
 
+``abstract_mesh`` is one rank of a mesh with no process group at all, on
+the ``meta`` device: the dry run (``launch/dryrun_impl.py``) runs that
+rank's step on it, each collective counted and shaped without being run
+(``sharding/collectives.py``).
+
 Nothing here initialises a device or a process group at import.
 """
 from __future__ import annotations
@@ -138,6 +143,29 @@ def _axis_sets(spec: MeshSpec):
 def local_mesh(device="cuda") -> Mesh:
     """One device as a mesh of size 1 (``ONE_CARD``): no process group."""
     return Mesh(ONE_CARD, 0, torch.device(device), "local", {a: None for a in _axis_sets(ONE_CARD)})
+
+
+class AbstractGroup:
+    """The group of an axis set on an abstract mesh: no process behind it."""
+
+    def __init__(self, axes: Tuple[str, ...], size: int):
+        self.axes, self.size = axes, size
+
+    def __repr__(self) -> str:
+        return f"AbstractGroup({self.axes}, size={self.size})"
+
+
+def abstract_mesh(spec: MeshSpec, rank: int = 0) -> Mesh:
+    """Rank ``rank`` of ``spec`` with no process group, on the meta device:
+    its coordinates and every axis set's size are the mesh's, and a set of
+    more than one rank has an ``AbstractGroup``, which only a meta tensor's
+    collective may meet."""
+    if not 0 <= rank < spec.size:
+        raise ValueError(f"rank {rank} of a mesh of {spec.size}")
+    probe = Mesh(spec, rank, torch.device("meta"), "abstract", {})
+    groups = {a: AbstractGroup(a, probe.size(a)) if probe.size(a) > 1 else None
+              for a in _axis_sets(spec)}
+    return Mesh(spec, rank, torch.device("meta"), "abstract", groups)
 
 
 def make_mesh_from_spec(

@@ -96,7 +96,10 @@ def dispatch(topi: torch.Tensor, topw: torch.Tensor, E: int, C: int):
     flat_t = torch.arange(T, device=topi.device).repeat_interleave(k)
     order = torch.argsort(flat_e, stable=True)
     se, st, sw = flat_e[order], flat_t[order], topw.reshape(-1)[order]
-    counts = torch.bincount(flat_e, minlength=E)
+    if flat_e.device.type == "meta":  # bincount has no meta kernel: its shape is (E,)
+        counts = torch.empty((E,), dtype=torch.long, device="meta")
+    else:
+        counts = torch.bincount(flat_e, minlength=E)
     seg_start = torch.cumsum(counts, 0) - counts  # exclusive prefix
     pos = torch.arange(T * k, device=topi.device) - seg_start[se]  # rank within expert
     keep = pos < C

@@ -24,7 +24,7 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import DEFAULT_TILES, KernelTiles
 from repro_torch.models import attention, layers, mamba, moe
-from repro_torch.sharding.parallel import ParallelContext, shard_tree
+from repro_torch.sharding.parallel import ParallelContext, local_shape, shard_tree
 
 
 # ---------------------------------------------------------------------------
@@ -76,9 +76,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     return params
 
 
-def param_shapes(cfg: ModelConfig) -> dict:
-    """The global shape of every parameter leaf, by the tree's nesting, with
-    nothing allocated (the leaves are drawn on the meta device)."""
+def _meta_tree(cfg: ModelConfig) -> dict:
+    """Every parameter leaf, whole, as a meta tensor (nothing allocated)."""
     plan, gen, meta, n = cfg.layer_plan(), torch.Generator(), torch.device("meta"), cfg.n_periods
     dt = getattr(torch, cfg.dtype)
     tree = {"blocks": {f"b{i}": _block_init(cfg, spec, gen, meta, n) for i, spec in enumerate(plan)},
@@ -87,11 +86,35 @@ def param_shapes(cfg: ModelConfig) -> dict:
         tree["embed"] = torch.empty((cfg.vocab_size, cfg.d_model), dtype=dt, device=meta)
     if not cfg.tie_embeddings:
         tree["head"] = torch.empty((cfg.d_model, cfg.vocab_size), dtype=dt, device=meta)
+    return tree
 
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    """The global shape of every parameter leaf, by the tree's nesting, with
+    nothing allocated (the leaves are drawn on the meta device)."""
     def shapes(t):
         return {k: shapes(v) if isinstance(v, dict) else tuple(v.shape) for k, v in t.items()}
 
-    return shapes(tree)
+    return shapes(_meta_tree(cfg))
+
+
+def meta_params(cfg: ModelConfig, par=None) -> dict:
+    """The dry run's weights: every leaf an empty meta tensor in its dtype,
+    of this rank's shard shape under ``par`` (a ``ParallelContext``;
+    whole without one)."""
+    def leaves(t, prefix=""):
+        out = {}
+        for k, v in t.items():
+            if isinstance(v, dict):
+                out[k] = leaves(v, f"{prefix}{k}.")
+                continue
+            shape = tuple(v.shape)
+            if par is not None:
+                shape = local_shape(shape, par.flat_specs[prefix + k], par.mesh)
+            out[k] = torch.empty(shape, dtype=v.dtype, device="meta")
+        return out
+
+    return leaves(_meta_tree(cfg))
 
 
 def period_params(tree: dict, i: int) -> dict:

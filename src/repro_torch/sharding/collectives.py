@@ -23,6 +23,21 @@ Not differentiable: ``all_reduce_max``, ``ppermute`` (a ring shift over
 ``batch_isend_irecv``) and ``softmax_combine``, the decode attention's
 combine of the partial softmaxes of a KV cache split by position.
 
+**Counted.**  Every raw collective (``all_reduce_``, ``all_reduce_max``,
+``all_gather_raw``, ``reduce_scatter_raw``, ``ppermute``, and the two
+all-reduces of ``softmax_combine``) adds to ``COLL`` what it moves, by
+kind (XLA's names: ``all-reduce``, ``all-gather``, ``reduce-scatter``,
+``collective-permute``) and group size, in the ring formulas of the JAX
+package's HLO analysis: the bytes a rank contributes (its operand) and
+those its links carry (an all-gather of an ``s``-byte chunk over ``g``
+ranks ``s(g-1)``; a reduce-scatter of ``s`` bytes ``s(g-1)/g``; an
+all-reduce ``2s(g-1)/g``; a permute ``s``).  A group of one rank moves
+nothing and counts nothing.
+
+**Meta tensors** (a dry run on ``launch.mesh.abstract_mesh``) never reach
+``torch.distributed``: each collective is counted and returns a meta
+tensor of the shape the group's size implies.
+
 On a mesh whose ranks share one card over gloo (``Mesh.host_staged``), gloo
 runs an f32 all-reduce, all-gather, reduce-scatter or broadcast on the card
 where it lies; every other op there (another dtype, or a point-to-point
@@ -34,6 +49,7 @@ and given way on.
 from __future__ import annotations
 
 from collections import Counter
+from typing import Dict, List, Tuple
 
 import torch
 import torch.distributed as dist
@@ -44,10 +60,39 @@ GLOO_CUDA_OPS = frozenset({
     ("reduce_scatter", torch.float32), ("broadcast", torch.float32),
 })
 HOST_STAGED: Counter = Counter()  # host-staged collectives by op since the last reset
+# since the last reset, by (kind, group size): [calls, operand bytes, wire bytes]
+COLL: Dict[Tuple[str, int], List[float]] = {}
 
 
 def reset_host_staged() -> None:
     HOST_STAGED.clear()
+
+
+def reset_counters() -> None:
+    COLL.clear()
+
+
+def _count(kind: str, t: torch.Tensor, g: int) -> None:
+    """One collective of ``kind`` over ``g`` ranks whose operand is ``t``."""
+    s = t.numel() * t.element_size()
+    wire = {"all-gather": s * (g - 1), "reduce-scatter": s * (g - 1) / g,
+            "all-reduce": 2 * s * (g - 1) / g, "collective-permute": s}[kind]
+    c = COLL.setdefault((kind, g), [0, 0.0, 0.0])
+    c[0] += 1
+    c[1] += s
+    c[2] += wire
+
+
+def counters() -> dict:
+    """``COLL`` summed over group sizes: ``{"by_kind": {kind: operand bytes},
+    "counts": {kind: calls}, "wire": bytes, "bytes": operand bytes}``."""
+    by_kind: Dict[str, float] = {}
+    counts: Dict[str, int] = {}
+    for (kind, _), (n, s, _w) in COLL.items():
+        by_kind[kind] = by_kind.get(kind, 0.0) + s
+        counts[kind] = counts.get(kind, 0) + n
+    return {"by_kind": by_kind, "counts": counts,
+            "wire": sum(c[2] for c in COLL.values()), "bytes": sum(by_kind.values())}
 
 
 def _staged(mesh, op: str, t: torch.Tensor) -> bool:
@@ -68,6 +113,11 @@ def all_reduce_(t: torch.Tensor, mesh, axes, op: str = "sum") -> torch.Tensor:
     if group is None:
         return t
     red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+    _count("all-reduce", t, mesh.size(axes))
+    if t.device.type == "meta":
+        if not t.is_contiguous():
+            raise ValueError("all_reduce_ needs a contiguous tensor")
+        return t
     if _staged(mesh, "all_reduce", t):
         host = t.cpu()
         dist.all_reduce(host, op=red, group=group)
@@ -110,6 +160,9 @@ def all_gather_raw(t: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
         return t
     n = mesh.size(axes)
     src = t.contiguous()
+    _count("all-gather", src, n)
+    if src.device.type == "meta":
+        return torch.cat([src] * n, dim=dim)
     staged = _staged(mesh, "all_gather", src)
     if staged:
         src = src.cpu()
@@ -127,6 +180,9 @@ def reduce_scatter_raw(t: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
     n, idx = mesh.size(axes), mesh.index(axes)
     if t.shape[dim] % n:
         raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split over {n} ranks")
+    _count("reduce-scatter", t, n)
+    if t.device.type == "meta":
+        return torch.empty_like(t.chunk(n, dim=dim)[idx], memory_format=torch.contiguous_format)
     staged = _staged(mesh, "reduce_scatter", t)
     src = t.cpu() if staged else t
     chunks = [c.contiguous() for c in src.chunk(n, dim=dim)]
@@ -152,6 +208,9 @@ def ppermute(t: torch.Tensor, mesh, axis: str, shift: int = 1) -> torch.Tensor:
         return t
     idx = mesh.index(axis)
     src = t.contiguous()
+    _count("collective-permute", src, n)
+    if src.device.type == "meta":
+        return torch.empty_like(src)
     staged = _staged(mesh, "ppermute", src)
     if staged:
         src = src.cpu()

@@ -234,24 +234,37 @@ def test_backward_launches_at_head_dim_160(dtype):
         assert (launch.dkdv_grid, launch.dq_grid) == ((8, 1, 64), (32, 1, 64))
 
 
+class _OtherDevice(torch.Tensor):
+    """A tensor that reports a device the port runs on neither for real
+    (cuda, cpu) nor for a dry run (meta)."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
+def _other(*shape):
+    return torch.empty(shape).as_subclass(_OtherDevice)
+
+
 def test_wrappers_refuse_other_devices():
-    x = torch.empty((4, 64), device="meta")
+    x = _other(4, 64)
     with pytest.raises(ValueError):
-        rn.rmsnorm(x, torch.empty((64,), device="meta"))
-    q = torch.empty((1, 2, 8, 64), device="meta")
+        rn.rmsnorm(x, _other(64))
+    q = _other(1, 2, 8, 64)
     with pytest.raises(ValueError):
         fa.flash_attention(q, q, q)
-    x = torch.empty((2, 8, 16), device="meta")
+    x = _other(2, 8, 16)
     with pytest.raises(ValueError):
-        mg.moe_gemm(x, torch.empty((2, 16, 16), device="meta"))
-    u = torch.empty((1, 8, 16), device="meta")
-    a = torch.empty((16, 4), device="meta")
-    b = torch.empty((1, 8, 4), device="meta")
+        mg.moe_gemm(x, _other(2, 16, 16))
+    u = _other(1, 8, 16)
+    a = _other(16, 4)
+    b = _other(1, 8, 4)
     with pytest.raises(ValueError):
-        ss.selective_scan(u, u, a, b, b, torch.empty((16,), device="meta"))
-    x = torch.empty((4, 64), device="meta")
+        ss.selective_scan(u, u, a, b, b, _other(16))
+    x = _other(4, 64)
     with pytest.raises(ValueError):
-        rn.rmsnorm_backward(x, torch.empty((64,), device="meta"), x)
+        rn.rmsnorm_backward(x, _other(64), x)
 
 
 # ---------------------------------------------------------------------------

@@ -415,13 +415,39 @@ def test_launch_measure_takes_an_embeddings_arch(kind):
     assert set(rec) == RECORD_FIELDS and rec["measured_s"] > 0
 
 
+DRYRUN_FIELDS = {
+    "arch", "shape", "mesh", "devices", "plan", "hw", "source", "chips", "rank", "step_s",
+    "compute_s", "memory_s", "collective_s", "dominant", "flops_per_device", "dot_flops_per_device",
+    "aten_flops_per_device", "kernel_flops_per_device", "flops_total", "hbm_bytes_total",
+    "coll_bytes_per_chip", "coll_wire_bytes_per_chip", "coll_by_kind", "coll_counts", "memory",
+    "bytes_per_device", "fits_hbm", "launches", "model_flops", "useful_flops_ratio", "mfu",
+    "dryrun_s",
+}
+
+
 @pytest.mark.parametrize("mesh", ["single", "multi"])
-def test_launch_measure_of_a_mesh_raises_naming_a8(mesh):
-    with pytest.raises(NotImplementedError, match="A8"):
-        card.evaluate_cell("granite-moe-1b-a400m", "train_4k", mesh, None, device="cpu",
-                           cut=CPU_CUT)
-    assert card.main(["--arch", "granite-moe-1b-a400m", "--shape", "train_4k", "--mesh", mesh,
-                      "--device", "cpu", "--reduced", "--seq", "32"]) == 1
+def test_launch_measure_of_a_mesh_returns_a_dry_run_record(mesh, tmp_path):
+    """Meshes ``single`` and ``multi`` take the production-mesh dry run: one
+    rank's step of the full config counted on the meta device, whatever
+    device the request names; it takes no cut, and its request key carries
+    its source and neither device nor cut."""
+    arch, shape = "granite-moe-1b-a400m", "decode_32k"
+    rec = card.evaluate_cell(arch, shape, mesh, None, device="cpu", verbose=False)
+    assert set(rec) == DRYRUN_FIELDS and rec["source"] == "dryrun" and rec["mesh"] == mesh
+    assert rec["chips"] == {"single": 8, "multi": 16}[mesh] and rec["step_s"] > 0
+    assert rec["launches"]["moe_gemm"] == 3 * get_config(arch).n_layers
+    assert rec["coll_by_kind"]["all-reduce"] > 0
+    with pytest.raises(ValueError, match="no cut"):
+        card.evaluate_cell(arch, shape, mesh, None, device="cpu", cut=CPU_CUT, verbose=False)
+    out = tmp_path / "rec.json"
+    assert card.main(["--arch", arch, "--shape", shape, "--mesh", mesh, "--device", "cpu",
+                      "--json-out", str(out)]) == 0
+    assert json.loads(out.read_text())["step_s"] == rec["step_s"]
+    plan = SchedulePlan(kv_dtype="int8")
+    key = request_key(make_request(arch, shape, mesh, plan))
+    assert key == request_key(make_request(arch, shape, mesh, plan, device="cuda", cut={"layers": 6}))
+    assert key != request_key(make_request(arch, shape, mesh, SchedulePlan()))
+    assert key != request_key(make_request(arch, shape, "card", plan))
 
 
 def test_launch_measure_raises_without_a_card():

@@ -118,10 +118,22 @@ def test_cpu_scalar_division_is_not_what_the_plain_version_does():
     np.testing.assert_array_equal(true.numpy(), amax.numpy() / np.float32(127.0))
 
 
+class _OtherDevice(torch.Tensor):
+    """A tensor that reports a device the port runs on neither for real
+    (cuda, cpu) nor for a dry run (meta)."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
+def _other(*shape, **kw):
+    return torch.empty(shape, **kw).as_subclass(_OtherDevice)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take():
-    x = torch.empty((4, 8), device="meta")
+    x = _other(4, 8)
     with pytest.raises(ValueError):
         qt.quantize_int8(x)
     with pytest.raises(ValueError):
-        qt.dequantize_int8(torch.empty((4, 8), dtype=torch.int8, device="meta"),
-                           torch.empty((4, 1), device="meta"))
+        qt.dequantize_int8(_other(4, 8, dtype=torch.int8), _other(4, 1))

@@ -185,17 +185,14 @@ def test_h100_meshes_and_spec():
 
 
 def test_unported_paths_raise_naming_their_roadmap_items(tmp_path):
-    """The one search-side path still unported, a measurement over a mesh,
-    raises naming A8.  The paths that raised naming A5 and A10 now run:
-    ``pricing="jit"``, ``cost="learned"|"hybrid"`` for ``mcts_1s`` and
-    ``beam``, and ``plan_store=`` (a repeat request served from disk)."""
+    """No search-side path raises any more.  The paths that raised naming A5
+    and A10 run: ``pricing="jit"``, ``cost="learned"|"hybrid"`` for
+    ``mcts_1s`` and ``beam``, and ``plan_store=`` (a repeat request served
+    from disk); A8's measurement over a mesh is the dry run
+    (``test_measured_search_on_a_mesh_is_served_by_dry_runs``)."""
     from repro_torch.core.cost_model import JIT_PRICING_TAG, JIT_RTOL
-    from repro_torch.launch.measure import evaluate_cell
     from repro_torch.service.store import PlanStore
 
-    with pytest.raises(NotImplementedError, match="A8"):
-        evaluate_cell("granite-3-2b", "decode_32k", "single", None, device="cpu",
-                      cut={"reduced": True, "seq": 32}, verbose=False)
     jit = make_mdp("granite-3-2b", "decode_32k", pricing="jit", device="cpu").cost_model
     exact = make_mdp("granite-3-2b", "decode_32k")
     assert jit.pricing_tag == JIT_PRICING_TAG
@@ -213,3 +210,28 @@ def test_unported_paths_raise_naming_their_roadmap_items(tmp_path):
     again = autotune("granite-3-2b", "decode_32k", algo="mcts_1s", plan_store=store, **SMALL)
     assert not first.from_store and again.from_store
     assert (again.plan, again.cost, again.hw) == (first.plan, first.cost, "h100")
+
+
+def test_measured_search_on_a_mesh_is_served_by_dry_runs(tmp_path):
+    """``mcts_cost+real_1s`` on mesh ``single`` (the tuner's default) re-ranks
+    its candidates by the production-mesh dry run's records, as the JAX
+    package's search re-ranks by its dry run: every measurement is a
+    ``source: "dryrun"`` record of the 1 x 8 node, none fails and none falls
+    back to the analytic cost."""
+    from repro_torch.core import measure
+    from repro_torch.launch.measure import CardTarget
+
+    target, records = CardTarget(), []
+
+    def dry_run(req):
+        records.append(target(req))
+        return records[-1]
+
+    fn = measure.make_measure_fn("granite-3-2b", "decode_32k", "single", cache_dir=str(tmp_path),
+                                 target=dry_run)
+    res = autotune("granite-3-2b", "decode_32k", algo="mcts_cost+real_1s", measure_fn=fn, **SMALL)
+    assert res.n_measurements > 0 and res.n_measure_failures == 0
+    assert res.measured is not None and math.isfinite(res.measured)
+    assert records and all(r["source"] == "dryrun" and r["mesh"] == "single" and r["chips"] == 8
+                           for r in records)
+    assert res.measured in {r["step_s"] for r in records}

@@ -293,11 +293,24 @@ def test_moe_gemm_function_backward_matches_jax_vjp():
                      ((4, 16, 32), (4, 16, 24), True, False, True)]
 
 
+class _OtherDevice(torch.Tensor):
+    """A tensor that reports a device the port runs on neither for real
+    (cuda, cpu) nor for a dry run (meta)."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
+def _other(*shape, **kw):
+    return torch.empty(shape, **kw).as_subclass(_OtherDevice)
+
+
 def test_scan_wrapper_refuses_a_device_other_than_cpu_or_cuda():
-    u = torch.empty((1, 8, 16), device="meta", requires_grad=True)
-    a = torch.empty((16, 4), device="meta")
-    b = torch.empty((1, 8, 4), device="meta")
-    d = torch.empty((16,), device="meta")
+    u = _other(1, 8, 16).requires_grad_()
+    a = _other(16, 4)
+    b = _other(1, 8, 4)
+    d = _other(16)
     with torch.no_grad(), pytest.raises(ValueError):  # no gradient asked: the usual checks
         ss.selective_scan(u, u, a, b, b, d)
     with pytest.raises(ValueError):  # a gradient asked: the same checks, before ScanFn

@@ -4,6 +4,7 @@
 function it runs from here by name, so this module imports no JAX: a rank
 pays for torch alone.  Each function returns plain data (rank 0 the whole
 trees, every rank its local shapes)."""
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -12,17 +13,18 @@ import torch
 from repro_torch import convert
 from repro_torch.checkpoint.ckpt import Checkpointer
 from repro_torch.configs import get_config
+from repro_torch.configs.base import InputShape
 from repro_torch.core.space import SchedulePlan
 from repro_torch.kernels import ops
-from repro_torch.models import moe
+from repro_torch.models import moe, transformer
 from repro_torch.sharding import collectives as cc
 from repro_torch.sharding.parallel import ParallelContext, gather_tree, shard_tree
 from repro_torch.sharding.rules import ShardingRules
 from repro_torch.training import optimizer as optim
 from repro_torch.training.grad_compress import compressed_psum
 from repro_torch.training.train_step import (
-    gather_opt_state, gather_params, make_positions, make_prefill_step, make_train_step,
-    shard_params,
+    gather_opt_state, gather_params, make_positions, make_prefill_step, make_serve_step,
+    make_train_step, shard_params,
 )
 
 
@@ -243,3 +245,119 @@ def decode_cases(mesh, cases: list, trees: dict) -> list:
             res["cache"] = gathered
         out.append(res)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The dry run against a real step (tests/test_torch_dryrun.py)
+# ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def plain_kernels_counted():
+    """Each kernel wrapper replaced by its plain version that counts launches
+    as the CUDA branch does: one a forward call, and where autograd records
+    (grad on and an input that requires grad) one a backward (the grouped
+    GEMM's backward: one for each operand whose gradient is needed), by a
+    hook on the output.  CPU only: the card runs the kernels."""
+    from repro_torch.kernels import flash_attention as fa, moe_gemm as mg, quantize as qt
+    from repro_torch.kernels import rmsnorm as rn, selective_scan as ss
+
+    def recorded(*ts):
+        return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+    def backward_counts(out, counter, n=1):
+        out.register_hook(lambda g: [counter.add() for _ in range(n)] and None)
+
+    def rmsnorm(x, w, *, eps=1e-6):
+        y = rn.rmsnorm_plain(x, w, eps=eps)
+        rn.LAUNCHES.add()
+        if recorded(x, w):
+            backward_counts(y, rn.BWD_LAUNCHES)
+        return y
+
+    def flash_attention(q, k, v, *, causal=True, block_q=128, block_kv=128):
+        o = fa.attention_plain(q, k, v, causal=causal)
+        fa.LAUNCHES.add()
+        if recorded(q, k, v):
+            backward_counts(o, fa.BWD_LAUNCHES)
+        return o
+
+    def moe_gemm(x, w, *, block_c=128, block_f=128, block_d=256, x_t=False, w_t=False):
+        y = mg.moe_gemm_plain(x, w, x_t=x_t, w_t=w_t)
+        mg.LAUNCHES.add()
+        if recorded(x, w):
+            backward_counts(y, mg.LAUNCHES, int(x.requires_grad) + int(w.requires_grad))
+        return y
+
+    def selective_scan(u, dt, A, Bm, Cm, D, *, chunk=128, d_block=128):
+        y = ss.selective_scan_plain(u, dt, A, Bm, Cm, D)
+        ss.LAUNCHES.add()
+        if recorded(u, dt, A, Bm, Cm, D):
+            backward_counts(y, ss.BWD_LAUNCHES)
+        return y
+
+    def quantize_int8(x):
+        qt.QUANT_LAUNCHES.add()
+        return qt.quantize_int8_plain(x)
+
+    def dequantize_int8(q, scale, dtype=torch.float32):
+        qt.DEQUANT_LAUNCHES.add()
+        return qt.dequantize_int8_plain(q, scale, dtype=dtype)
+
+    fakes = [(rn, "rmsnorm", rmsnorm), (fa, "flash_attention", flash_attention),
+             (mg, "moe_gemm", moe_gemm), (ss, "selective_scan", selective_scan),
+             (qt, "quantize_int8", quantize_int8), (qt, "dequantize_int8", dequantize_int8)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in fakes]
+    for mod, name, fake in fakes:
+        setattr(mod, name, fake)
+    try:
+        yield
+    finally:
+        for mod, name, orig in saved:
+            setattr(mod, name, orig)
+
+
+def real_counts(mesh, case: dict) -> dict:
+    """One real CPU step of ``case`` (``arch`` reduced, ``kind``, ``plan``
+    kwargs, ``B``, ``S``) on ``mesh`` (None: one device), from seed-0
+    weights: its ``FlopCounterMode`` count, launches by kernel (the CUDA
+    branch's, ``plain_kernels_counted``) and collectives by kind."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    cfg = get_config(case["arch"]).reduced()
+    plan = SchedulePlan(**case["plan"])
+    kind, B, S = case["kind"], case["B"], case["S"]
+    shape = InputShape(kind, S, B, kind)
+    params = transformer.init_params(cfg, 0, device="cpu")
+    batch = batch_for(cfg, B, S)
+    if kind == "train":
+        oc = optim.OptimizerConfig(peak_lr=0.0, moment_dtype=plan.opt_dtype)
+        step = make_train_step(cfg, shape, plan, oc, mesh=mesh, device="cpu")
+        params = shard_params(params, step.par) if mesh is not None else params
+        opt = optim.init_opt_state(params, oc, step.par)
+
+        def run():
+            step(params, opt, batch)
+    elif kind == "prefill":
+        step = make_prefill_step(cfg, shape, plan, mesh=mesh, device="cpu")
+        params = shard_params(params, step.par) if mesh is not None else params
+
+        def run():
+            step(params, {k: batch[k] for k in ("inputs", "positions")})
+    else:
+        step = make_serve_step(cfg, shape, plan, mesh=mesh, device="cpu")
+        params = shard_params(params, step.par) if mesh is not None else params
+        cache = transformer.init_cache(cfg, B, S, plan.kv_dtype, device="cpu",
+                                       par=step.par if mesh is not None else None)
+
+        def run():
+            step(params, cache, batch["inputs"][:, :1], S - 1)
+    ops.reset_counters()
+    cc.reset_counters()
+    flops = FlopCounterMode(display=False)
+    with plain_kernels_counted(), flops:
+        run()
+    return {"flops": flops.get_total_flops(), "launches": ops.launch_counts(),
+            "coll": cc.counters()}
+
+
+def real_counts_cases(mesh, cases: list) -> list:
+    return [real_counts(mesh, case) for case in cases]
