@@ -66,14 +66,16 @@ limit as ``nvidia-smi`` reports them):
    ``make_train_step``, B=2 x S=4096 in two microbatches, under plan (a)
    remat full, int8 moments and int8 grad_comm (all five of its kernels)
    and plan (b) remat dots, f32 moments; then falcon-mamba-7b at full width
-   and ``MAMBA_TRAIN_LAYERS`` of its 64 layers, 1 x 4096, remat full, int8
-   moments (rmsnorm, the scan and both backward kernels, quantize); then
-   stablelm-12b at full width and ``STABLELM_TRAIN_LAYERS`` of its 40, 1 x
-   4096, remat full, int8 moments, tile (128, 256) (flash and its backward
-   at head_dim 160, quantize; layernorm, so no rmsnorm): per-step
-   loss, grad norm, lr, ms, tokens/s, peak memory, exact launches per step,
-   every leaf moved by step 1, the plain attention never on the card, and a
-   profile.
+   and depth (64 layers), 1 x 4096, remat full, int8 moments (rmsnorm, the
+   scan and both backward kernels, quantize); then stablelm-12b at full
+   width and depth (40 layers), 1 x 4096, remat full, int8 moments, tile
+   (128, 256) (flash and its backward at head_dim 160, quantize;
+   layernorm, so no rmsnorm) (``TRAIN_PLANS``): per-step loss, grad norm,
+   lr, ms, tokens/s, peak memory beside the dry run's peak of the same job
+   (``launch/dryrun_impl.py``, counted on the host first), exact launches
+   per step (the int8 moments' quantize and dequantize per optimizer
+   chunk, ``optimizer.chunks``), every leaf moved by step 1, the plain
+   attention never on the card, and a profile.
 7. ``search``: step 1 of the quickstart (``launch/quickstart.py``) on the
    host: granite-moe-1b-a400m x train_4k tuned with ``mcts_1s`` for the
    H100 spec and the one card (``hw="h100"``, mesh ``card``); wall seconds,
@@ -190,6 +192,7 @@ the card from a seed; nothing is downloaded.  Nothing of JAX is imported.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import gc
@@ -264,27 +267,17 @@ EXPECTED_PREFILL = {
 }
 TRAIN_ARCH = "granite-moe-1b-a400m"
 TRAIN_STEPS = 3  # a plan's steps on the card: the first is timed apart (warm-up)
-# falcon-mamba-7b training: one 1x4096 sequence, remat full, int8 moments.
-# Full depth does not fit one card (PERF.md section 4: the optimizer's f32
-# temporaries of the stacked in_proj leaf alone are ~1.6 GB a layer), so the
-# depth is cut: 28 of 64 layers fit with ~10 GiB to spare, 32 do not
-# (scripts/torch_train_fit.py); the widths are the published ones
+# falcon-mamba-7b training (the scan's backward) and stablelm-12b training
+# (the flash backward at head_dim 160) at full width and depth: one 1x4096
+# sequence, remat full, int8 moments; stablelm-12b at the 160 forward's
+# faster tile (128, 256).  Both fit one card because the forward unbinds
+# each stacked leaf once and the optimizer updates a leaf in chunks
+# (PERF.md section 4); scripts/torch_train_fit.py runs the same plans
 MAMBA_ARCH = "falcon-mamba-7b"
-MAMBA_TRAIN_LAYERS = 28
-# stablelm-12b training (the flash backward at head_dim 160): one 1x4096
-# sequence, remat full, int8 moments, the 160 forward's faster tile
-# (128, 256).  Full depth does not fit one card either (one layer is
-# ~277.8 M parameters, and the optimizer's f32 temporaries of the stacked
-# w_up leaf grow with the depth: ROADMAP A15), so the depth is cut to the
-# most layers scripts/torch_train_fit.py --arch stablelm-12b found to fit
-# (PERF.md section 4); the widths are the published ones
 STABLELM_ARCH = "stablelm-12b"
-STABLELM_TRAIN_LAYERS = 18
-# the plan and depth of each depth-cut train job (the fit script runs the same)
-TRAIN_CUTS = {
-    MAMBA_ARCH: (dict(remat="full", microbatches=1, opt_dtype="int8", scan_chunk=128), MAMBA_TRAIN_LAYERS),
-    STABLELM_ARCH: (dict(remat="full", microbatches=1, opt_dtype="int8", attn_block=(128, 256)),
-                    STABLELM_TRAIN_LAYERS),
+TRAIN_PLANS = {
+    MAMBA_ARCH: dict(remat="full", microbatches=1, opt_dtype="int8", scan_chunk=128),
+    STABLELM_ARCH: dict(remat="full", microbatches=1, opt_dtype="int8", attn_block=(128, 256)),
 }
 # the decode cut of the card's measurement (core/measure.py CUT_ROWS): 16 rows
 # over a decode_32k cache, every step at cur = S - 1, so it attends the whole cache
@@ -782,16 +775,29 @@ def _tie_rows(torch, gen, R: int, C: int):
     return x
 
 
-def stablelm_moment_rows(mods) -> dict:
-    """The ``(rows, width)`` views the int8 moments of stablelm-12b's train
-    job (``STABLELM_TRAIN_LAYERS``) are quantized and read in, from its
-    parameter shapes -> the leaves that share each."""
-    cfg = dataclasses.replace(mods.get_config(STABLELM_ARCH), n_layers=STABLELM_TRAIN_LAYERS)
+def moment_rows(mods, arch: str) -> dict:
+    """The ``(rows, width)`` views the int8 moments of ``arch``'s train job
+    (full depth) are quantized and read in, one optimizer chunk at a time
+    (``optimizer.chunks``), from its parameter shapes -> the leaves that
+    share each."""
+    optim = mods.optim
     out = {}
-    for path, shape in mods.optim.leaves(mods.transformer.param_shapes(cfg)):
-        if mods.optim._quantizable(shape):
-            out.setdefault((math.prod(shape[:-1]), shape[-1]), []).append(path.rsplit(".", 1)[-1])
-    return out
+    for path, shape in optim.leaves(mods.transformer.param_shapes(mods.get_config(arch))):
+        if optim._quantizable(shape):
+            for index in optim.chunks(shape):
+                rows = (index.stop - index.start) * math.prod(shape[1:-1])
+                out.setdefault((rows, shape[-1]), []).append(path.rsplit(".", 1)[-1])
+    return {rc: sorted(set(names)) for rc, names in out.items()}
+
+
+def quantize_moment_rows(mods) -> dict:
+    """``phase_kernels_quantize``'s main-path moment rows: granite-moe's
+    ``w_up``, tied embedding and router, largest first (the ``kernels``
+    line's quantize row is the first), and every view of stablelm-12b's."""
+    granite = {rc: names for rc, names in sorted(moment_rows(mods, TRAIN_ARCH).items(),
+                                                  key=lambda kv: -math.prod(kv[0]))
+               if {"w_up", "embed", "router"} & set(names)}
+    return {TRAIN_ARCH: granite, STABLELM_ARCH: moment_rows(mods, STABLELM_ARCH)}
 
 
 def _quantize_edge_cases() -> list:
@@ -825,26 +831,26 @@ def _quantize_edge_cases() -> list:
     return out
 
 
-def phase_kernels_quantize(torch, qt, stablelm_rows):
+def phase_kernels_quantize(torch, qt, moment_views):
     """Both int8 kernels against their plain versions: q and the scale
     bit-equal, the f32 dequantize bit-equal and the bf16 one within one bf16
-    step; at the optimizer's moment leaves of granite-moe (w_up, the tied
-    embedding, the router) and of stablelm-12b's train job (every leaf's
-    row view, ``stablelm_moment_rows``), the int8 KV cache's decode write
+    step; at the optimizer's moment chunks of granite-moe (w_up, the tied
+    embedding, the router) and of stablelm-12b's train job (every chunk's
+    row view, ``quantize_moment_rows``), the int8 KV cache's decode write
     (``(B*Hkv, 64)`` bf16), test_kernels.py's shapes, a bf16 input, a ragged
     width, zero rows, exact .5 ties and each quantize regime's edges
     (``_quantize_edge_cases``).  Each row names the regime
     ``geometry.quantize_launch`` gave it; a timed row carries ``ms`` (CUDA
     events over back-to-back calls, the host's launch included) and
     ``device_ms`` (CUDA-graph replay: the device alone) for both kernels."""
-    E, L, d, f = 32, 24, 1024, 512
+    d = 1024
+    stablelm_rows = moment_views[STABLELM_ARCH]
     # (R, C, dtype, kind, role)
     cases = [  # the cheap tie rows first: they catch a rounding fault by design
         (4096, d, "float32", "ties", "exact .5 ties"),
         (777, 1000, "float32", "ties", "exact .5 ties, ragged"),
-        (L * E * d, f, "float32", "normal", "train moment w_up"),
-        (49155, d, "float32", "normal", "train moment embed"),
-        (L * d, E, "float32", "normal", "train moment router"),
+        *[(R, C, "float32", "normal", f"train moment {', '.join(names)}")
+          for (R, C), names in moment_views[TRAIN_ARCH].items()],
         (49155, d, "bfloat16", "normal", "bf16 gradient embed"),
         *[(R, C, "float32", "normal", f"train moment stablelm {', '.join(names)}")
           for (R, C), names in stablelm_rows.items()],
@@ -1520,16 +1526,18 @@ def _profile_one(torch, fn) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans, by_group, other = [], {"kernels": 0.0, "matmul": 0.0, "other": 0.0}, {}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+    # the profiler's raw events: ``prof.events()`` builds a Python object a
+    # CPU op first, ~10 s for a train step's ~10^5 ops, for the same spans
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
             continue
-        start, end = e.time_range.start, e.time_range.end
+        start, end = e.start_ns() / 1e3, e.end_ns() / 1e3  # us
         spans.append((start, end))
         ms = (end - start) / 1e3
-        group = _kernel_group(e.name)
+        group = _kernel_group(e.name())
         by_group[group] += ms
         if group == "other":
-            other[e.name] = other.get(e.name, 0.0) + ms
+            other[e.name()] = other.get(e.name(), 0.0) + ms
     if not spans:
         raise AssertionError("the profiler recorded no device activity")
     spans.sort()
@@ -1619,8 +1627,9 @@ def _expected_train_counts(cfg, plan, params, moment_dtype: str, optim) -> dict:
     again in the backward (the final norm lies outside the remat period);
     one rmsnorm, flash and scan backward for each norm, attention and Mamba
     mixer of the forward, and two more grouped GEMMs for each one's
-    backward.  Then per quantizable leaf two quantizes and two dequantizes
-    for int8 moments, one each for int8 ``grad_comm``."""
+    backward.  Then two quantizes and two dequantizes per optimizer chunk of
+    a quantizable leaf for int8 moments (``_moment_chunks``), and one each
+    per quantizable leaf for int8 ``grad_comm``."""
     fwd = _expected_counts(cfg)
     rerun = int(plan.remat != "none")
     counts = {
@@ -1635,9 +1644,15 @@ def _expected_train_counts(cfg, plan, params, moment_dtype: str, optim) -> dict:
     }
     counts = {k: v * plan.microbatches for k, v in counts.items()}
     n_quant = sum(optim._quantizable(p) for _, p in optim.leaves(params))
-    per_leaf = 2 * (moment_dtype == "int8") + (plan.grad_comm == "int8")
-    counts["quantize_int8"] = counts["dequantize_int8"] = n_quant * per_leaf
+    counts["quantize_int8"] = counts["dequantize_int8"] = (
+        2 * (moment_dtype == "int8") * _moment_chunks(optim, params) + (plan.grad_comm == "int8") * n_quant)
     return counts
+
+
+def _moment_chunks(optim, params) -> int:
+    """The optimizer chunks of ``params``' quantizable leaves: an int8
+    moment is dequantized and requantized once each per chunk."""
+    return sum(len(optim.chunks(p.shape)) for _, p in optim.leaves(params) if optim._quantizable(p))
 
 
 @contextlib.contextmanager
@@ -1682,11 +1697,91 @@ def _bf16_frozen(torch, p, lr: float, weight_decay: float) -> bool:
     return bool((lr * (1 + weight_decay * a) < half_step).all())
 
 
-def phase_train(torch, name, plan, mods, arch=TRAIN_ARCH, batch=2, n_layers=None) -> dict:
+def dry_train_peaks(jobs: dict) -> dict:
+    """Each train job's (``name -> (arch, batch, plan fields, n_layers or
+    None)``) peak bytes as the dry run counts them on the host
+    (``launch/dryrun_impl.py``: one device's step on the meta device)."""
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.core.space import ONE_CARD, SchedulePlan
+    from repro_torch.launch import dryrun_impl
+
+    out = {}
+    for name, (arch, batch, plan, n_layers) in jobs.items():
+        cfg = get_config(arch)
+        if n_layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        rec = dryrun_impl.dry_run(cfg, InputShape("train_chip", SEQ, batch, "train"),
+                                  SchedulePlan.from_dict(plan), ONE_CARD, hw="h100", local=True)
+        out[name] = rec["memory"]["peak_bytes"]
+    return out
+
+
+class TrainDryRuns:
+    """``dry_train_peaks`` of the train jobs in one host process that sees no
+    card, started early so that its CPU seconds overlap the card's phases;
+    ``peak(name)`` waits for it."""
+
+    def __init__(self, jobs: dict):
+        env = {**os.environ, "PYTHONPATH": str(SRC), "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
+        code = ("import json, sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+                "print(json.dumps(chip_smoke.dry_train_peaks(json.loads(sys.argv[2]))))")
+        self.proc = subprocess.Popen([sys.executable, "-c", code, str(ROOT), json.dumps(jobs)],
+                                     cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True)
+        self.peaks = None
+
+    def peak(self, name: str) -> int:
+        if self.peaks is None:
+            out, err = self.proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+            if self.proc.returncode != 0:
+                raise AssertionError(f"train dry runs: exit {self.proc.returncode}\n{err[-3000:]}")
+            self.peaks = json.loads(out.splitlines()[-1])
+        return self.peaks[name]
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def _first_chunks(torch, optim, params) -> dict:
+    """Each leaf's first optimizer chunk, copied to the host."""
+    return {k: v[optim.chunks(v.shape)[0]].detach().to("cpu", copy=True) for k, v in optim.leaves(params)}
+
+
+def _unchanged_leaves(torch, mods, tr, params, heads: dict, lr: float, weight_decay: float):
+    """``(unchanged, frozen)``: the leaves of the trained ``params`` equal to
+    their initial values, and those of them no step could move
+    (``_bf16_frozen``).  The initial weights are drawn again on the card
+    as the trainer ``tr`` drew them (its config and seed: the same
+    generator stream, leaf after leaf), and each leaf's first chunk is held
+    to ``heads``, the first draw's, taken before step 1.  Each leaf is then
+    compared whole, one optimizer chunk at a time, on the card: no host
+    copy of the weights (~11 s for stablelm-12b's 22.6 GiB)."""
+    optim = mods.optim
+    initial = dict(optim.leaves(mods.transformer.init_params(tr.cfg, tr.tc.seed, device="cuda")))
+    unchanged, frozen = [], []
+    for k, v in optim.leaves(params):
+        index = optim.chunks(v.shape)
+        if not torch.equal(initial[k][index[0]], heads[k].to(v.device)):
+            raise AssertionError(f"the initial weights drawn again differ from the first draw in {k}")
+        if all(torch.equal(v[i], initial[k][i]) for i in index):
+            unchanged.append(k)
+            if _bf16_frozen(torch, initial[k], lr, weight_decay):
+                frozen.append(k)
+        del initial[k]
+    return unchanged, frozen
+
+
+def phase_train(torch, name, plan, mods, arch=TRAIN_ARCH, batch=2, n_layers=None,
+                dry_peak=None) -> dict:
     """``arch`` at full width (``n_layers``: a depth cut) through ``Trainer``
     / ``make_train_step``: ``batch`` x 4096 tokens; exact launches per step,
     the plain attention never on the card, finite loss and gradient norm,
-    every leaf moved by step 1, peak memory, a profile."""
+    every leaf moved by step 1, peak memory beside ``dry_peak`` (the dry
+    run's peak bytes of the same job), a profile."""
     optim = mods.optim
     cfg = mods.get_config(arch)
     if n_layers is not None:
@@ -1695,11 +1790,15 @@ def phase_train(torch, name, plan, mods, arch=TRAIN_ARCH, batch=2, n_layers=None
     shape = mods.InputShape("train_chip", SEQ, batch, "train")
     tc = mods.TrainerConfig(total_steps=1, ckpt_every=10**9, log_every=1, ckpt_async=False,
                             ckpt_dir=str(ROOT / "build" / "chip_smoke_ckpt"), seed=SEED)
+    marks = [time.perf_counter()]  # the seconds of each part, on the train line
     tr = mods.Trainer(cfg, shape, plan, tc, opt_cfg=oc, device="cuda")
     params, opt_state, _ = tr.init_state()
     n_params = sum(p.numel() for _, p in optim.leaves(params))
     expected = _expected_train_counts(cfg, plan, params, oc.moment_dtype, optim)
-    before = {k: v.detach().to("cpu", copy=True) for k, v in optim.leaves(params)}  # off the card
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    heads = _first_chunks(torch, optim, params)
+    marks.append(time.perf_counter())
     mods.ops.reset_counters()
     with plain_attention_watch() as seen:
         params, opt_state, step = tr.run(params, opt_state, 0)
@@ -1707,20 +1806,22 @@ def phase_train(torch, name, plan, mods, arch=TRAIN_ARCH, batch=2, n_layers=None
     if first != expected:
         raise AssertionError(f"train {name}: step 1 launches {first}, expected {expected}")
     lr1 = tr.metrics_log[0]["lr"]
-    unchanged = [k for k, v in optim.leaves(params) if torch.equal(v.detach().cpu(), before[k])]
-    frozen = [k for k in unchanged if _bf16_frozen(torch, before[k], lr1, oc.weight_decay)]
+    marks.append(time.perf_counter())
+    unchanged, frozen = _unchanged_leaves(torch, mods, tr, params, heads, lr1, oc.weight_decay)
     if set(unchanged) - set(frozen):
         raise AssertionError(f"train {name}: leaves unchanged after step 1: "
                              f"{sorted(set(unchanged) - set(frozen))}")
-    del before
+    del heads
     gc.collect()  # what earlier phases left in reference cycles is not this run's memory
     torch.cuda.synchronize()
+    marks.append(time.perf_counter())
     torch.cuda.reset_peak_memory_stats()  # peak of steps 2..: weights, state, one step's work
     tr.tc.total_steps = TRAIN_STEPS
     mods.ops.reset_counters()
     with plain_attention_watch() as seen_rest:
         params, opt_state, step = tr.run(params, opt_state, step)
     rest = mods.ops.launch_counts()
+    marks.append(time.perf_counter())
     want = {k: v * (TRAIN_STEPS - 1) for k, v in expected.items()}
     if rest != want:
         raise AssertionError(f"train {name}: steps 2-{TRAIN_STEPS} launches {rest}, expected {want}")
@@ -1735,6 +1836,9 @@ def phase_train(torch, name, plan, mods, arch=TRAIN_ARCH, batch=2, n_layers=None
     tokens = batch * SEQ
     step_batch = tr.batch_at(step)
     prof = _profile_one(torch, lambda: tr.step_fn(params, opt_state, step_batch))
+    marks.append(time.perf_counter())
+    seconds = dict(zip(("init", "first_chunks", "step1", "moved_check", "steps_rest", "profile"),
+                       (b - a for a, b in zip(marks, marks[1:]))))
     emit("train", arch=cfg.name, plan=name, n_layers=cfg.n_layers, params=n_params, plan_fields={
              k: getattr(plan, k) for k in ("remat", "microbatches", "opt_dtype", "grad_comm",
                                            "scan_chunk", "attn_block")},
@@ -1743,10 +1847,12 @@ def phase_train(torch, name, plan, mods, arch=TRAIN_ARCH, batch=2, n_layers=None
                  "step_ms": r["step_time_s"] * 1e3,
                  "tokens_per_s": tokens / r["step_time_s"]} for r in log],
          median_step_ms=med * 1e3, tokens_per_s=tokens / med, peak_memory_gib=peak / 2**30,
+         dry_peak_gib=None if dry_peak is None else dry_peak / 2**30,
+         peak_over_dry=None if dry_peak is None else peak / dry_peak,
          card_memory_gib=torch.cuda.get_device_properties(0).total_memory / 2**30,
          launches_per_step=expected, launches_step1=first, launches_rest=rest,
          plain_attention_calls_on_card=plain_on_card, plain_attention_calls=len(seen + seen_rest),
-         leaves_frozen_by_bf16_rounding=frozen, profile=prof)
+         leaves_frozen_by_bf16_rounding=frozen, profile=prof, seconds=seconds)
     del tr, params, opt_state, step_batch
     gc.collect()
     torch.cuda.empty_cache()
@@ -2551,8 +2657,11 @@ def phase_train_parity(torch, np, mods, arch=TRAIN_ARCH, S=512, plan=None, optim
 
 def _train_parity_optimizer(torch, mods, params, grads) -> dict:
     """One ``apply_updates`` with int8 moments from the same gradients on the
-    card and the CPU: launches, parameters, moments and int8 codes."""
+    card and the CPU: launches, parameters, moments and int8 codes; first,
+    the chunked update against the whole-leaf one on the card
+    (``_chunked_against_whole``)."""
     optim, ops = mods.optim, mods.ops
+    chunked = _chunked_against_whole(torch, mods, params["cuda"], grads)
     oc = optim.OptimizerConfig(peak_lr=1e-3, warmup_steps=2, moment_dtype="int8")
     states = {d: optim.init_opt_state(params[d], oc) for d in ("cuda", "cpu")}
     for d in ("cuda", "cpu"):
@@ -2562,7 +2671,7 @@ def _train_parity_optimizer(torch, mods, params, grads) -> dict:
         if d == "cuda":
             torch.cuda.synchronize()
             opt_counts = ops.launch_counts()
-    n_quant = sum(optim._quantizable(p) for _, p in optim.leaves(params["cpu"]))
+    n_quant = _moment_chunks(optim, params["cpu"])
     if (opt_counts["quantize_int8"], opt_counts["dequantize_int8"]) != (2 * n_quant, 2 * n_quant):
         raise AssertionError(f"train_parity: optimizer launches {opt_counts}, expected "
                              f"{2 * n_quant} of each quantize kernel")
@@ -2587,7 +2696,72 @@ def _train_parity_optimizer(torch, mods, params, grads) -> dict:
     if n_diff > 1e-5 * n_codes:
         raise AssertionError(f"train_parity: {n_diff} of {n_codes} int8 codes differ (limit 1e-5)")
     return {"moment_dtype": "int8", "launches": opt_counts, "worst_param_abs_err": worst_param,
-            "codes": n_codes, "codes_differing": n_diff}
+            "codes": n_codes, "codes_differing": n_diff, "chunked_vs_whole": chunked}
+
+
+def _whole_leaf_apply_updates(torch, optim, params, grads, state, oc) -> None:
+    """One device's ``apply_updates`` as it was before it took leaves in
+    chunks: each leaf's f32 sum of squares and its update whole (the plain
+    version the chunked update is held to)."""
+    flat_p = list(optim.leaves(params))
+    step_t = torch.tensor(state["step"] + 1, dtype=torch.int32, device=flat_p[0][1].device)
+    lr = optim.lr_at(oc, step_t)
+    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for _, g in optim.leaves(grads)))
+    scale = torch.minimum(torch.ones((), device=step_t.device), oc.clip_norm / (gnorm + 1e-9))
+    bc1 = 1.0 - oc.b1 ** step_t.to(torch.float32)
+    bc2 = 1.0 - oc.b2 ** step_t.to(torch.float32)
+    flat_g = dict(optim.leaves(grads))
+    flat_mu, flat_nu = dict(optim.leaves(state["mu"])), dict(optim.leaves(state["nu"]))
+    with torch.no_grad():
+        for path, p in flat_p:
+            g = flat_g[path].float() * scale
+            m = oc.b1 * optim._mom_read(flat_mu[path]) + (1 - oc.b1) * g
+            v = oc.b2 * optim._mom_read(flat_nu[path]) + (1 - oc.b2) * g * g
+            delta = (m / bc1) / (torch.sqrt(v / bc2) + oc.eps)
+            if p.ndim >= 2:
+                delta = delta + oc.weight_decay * p.float()
+            p.copy_((p.float() - lr * delta).to(p.dtype))
+            optim._mom_write_(flat_mu[path], m)
+            optim._mom_write_(flat_nu[path], v)
+    state["step"] += 1
+
+
+def _chunked_against_whole(torch, mods, params, grads) -> dict:
+    """Two ``apply_updates`` steps with int8 moments on the card against the
+    same two steps taken a whole leaf at a time
+    (``_whole_leaf_apply_updates``), from the same weights and gradients,
+    at a clip scale of exactly 1 (so that the chunked norm's other order of
+    sums cannot reach the update): every parameter, code and scale must be
+    bit-equal.  Weights of several chunks and stacked norms (2-D, decayed
+    by the whole leaf's rank) are among them where the arch has them."""
+    optim = mods.optim
+    oc = optim.OptimizerConfig(peak_lr=1e-3, warmup_steps=2, moment_dtype="int8", clip_norm=1e30)
+    steps = [optim.tree_from_leaves(params, {k: v.to("cuda") * f for k, v in grads.items()})
+             for f in (1.0, -0.5)]
+    runs = {}
+    for name in ("chunked", "whole"):
+        p = optim.tree_from_leaves(params, {k: v.detach().clone() for k, v in optim.leaves(params)})
+        state = optim.init_opt_state(p, oc)
+        for g in steps:
+            if name == "chunked":
+                optim.apply_updates(p, g, state, oc)
+            else:
+                _whole_leaf_apply_updates(torch, optim, p, g, state, oc)
+        runs[name] = (p, state)
+    torch.cuda.synchronize()
+    (p_c, s_c), (p_w, s_w) = runs["chunked"], runs["whole"]
+    differ = [k for (k, a), (_, b) in zip(optim.leaves(p_c), optim.leaves(p_w)) if not torch.equal(a, b)]
+    for mom in ("mu", "nu"):
+        for (k, a), (_, b) in zip(optim.leaves(s_c[mom]), optim.leaves(s_w[mom])):
+            pairs = [(a[n], b[n]) for n in ("q", "s")] if isinstance(a, dict) else [(a, b)]
+            if not all(torch.equal(x, y) for x, y in pairs):
+                differ.append(f"{mom}.{k}")
+    if differ:
+        raise AssertionError(f"train_parity: the chunked update differs from the whole-leaf one in {differ}")
+    several = {k: len(optim.chunks(t.shape)) for k, t in optim.leaves(p_c) if len(optim.chunks(t.shape)) > 1}
+    return {"steps": len(steps), "bit_equal": True, "leaves": len(list(optim.leaves(p_c))),
+            "leaves_of_several_chunks": several, "chunks": sum(len(optim.chunks(t.shape))
+                                                              for _, t in optim.leaves(p_c))}
 
 
 def _tree_to(tree, device):
@@ -3827,6 +4001,11 @@ def make_mods():
 
 
 def main() -> int:
+    # segments that grow in place: stablelm-12b's full-depth training peaks
+    # at ~72 GiB, and with fixed segments the card ran out of memory for a
+    # 5.27 GiB gradient while 9.85 GiB sat reserved in pieces (set before
+    # the first allocation, which reads it)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -3878,6 +4057,19 @@ def main() -> int:
         raise AssertionError(f"flash backward at head_dim 160: {bwd160}")
 
     phase_s = {"build": time.perf_counter() - t0}
+    # the train phase's jobs: name -> (arch, batch, plan); plan (a) runs all
+    # five of granite-moe's kernels, (b) has f32 moments; falcon-mamba-7b
+    # puts the scan's backward and stablelm-12b the flash backward at
+    # head_dim 160 on the main path (layernorm: no rmsnorm launches).  Their
+    # dry-run peaks are counted on the host meanwhile
+    train_jobs = {
+        "a": (TRAIN_ARCH, 2, SchedulePlan(remat="full", microbatches=2, opt_dtype="int8", grad_comm="int8")),
+        "b": (TRAIN_ARCH, 2, SchedulePlan(remat="dots", microbatches=2)),
+        "mamba": (MAMBA_ARCH, 1, SchedulePlan(**TRAIN_PLANS[MAMBA_ARCH])),
+        "stablelm": (STABLELM_ARCH, 1, SchedulePlan(**TRAIN_PLANS[STABLELM_ARCH])),
+    }
+    train_dry = TrainDryRuns({n: (a, b, p.to_dict(), None) for n, (a, b, p) in train_jobs.items()})
+    atexit.register(train_dry.close)
 
     def timed_phase(name, fn, *args):
         t = time.perf_counter()
@@ -3892,7 +4084,7 @@ def main() -> int:
         "selective_scan": timed_phase("kernels", phase_kernels_scan, torch, F, ss),
     }
     rows["quantize_int8"] = rows["dequantize_int8"] = timed_phase(
-        "kernels", phase_kernels_quantize, torch, qt, stablelm_moment_rows(mods))
+        "kernels", phase_kernels_quantize, torch, qt, quantize_moment_rows(mods))
     rows.update(timed_phase("grad", phase_grad, torch, rn, fa, mg, ss))
 
     plans = {
@@ -3932,30 +4124,17 @@ def main() -> int:
     for arch in COVERAGE_EMBED_ARCHS:
         add(timed_phase(f"coverage {arch}", phase_embeddings_path, torch, np, arch,
                         coverage_plans(arch), mods))
-    # training: (a) runs all five kernels of the arch, (b) has f32 moments
-    train_plans = {
-        "a": SchedulePlan(remat="full", microbatches=2, opt_dtype="int8", grad_comm="int8"),
-        "b": SchedulePlan(remat="dots", microbatches=2),
-    }
-    for name, plan in train_plans.items():
-        counts = timed_phase("train", phase_train, torch, name, plan, mods)
-        if name == "a" and not all(counts[n] for n in ("quantize_int8", "dequantize_int8", "moe_gemm")):
-            raise AssertionError(f"train plan a launched {counts}")
+    # training at full width and depth
+    must_launch = {"a": ("quantize_int8", "dequantize_int8", "moe_gemm"),
+                   "mamba": ("selective_scan", "selective_scan_backward", "rmsnorm_backward"),
+                   "stablelm": ("flash_attention", "flash_attention_backward", "quantize_int8")}
+    for name, (arch, batch, plan) in train_jobs.items():
+        counts = timed_phase("train", phase_train, torch, name, plan, mods, arch, batch, None,
+                             train_dry.peak(name))
+        if not all(counts[n] for n in must_launch.get(name, ())):
+            raise AssertionError(f"train {name} ({arch}) launched {counts}")
         add(counts)
-    # falcon-mamba-7b: the scan's backward on the main path
-    mamba_plan = SchedulePlan(**TRAIN_CUTS[MAMBA_ARCH][0])
-    counts = timed_phase("train", phase_train, torch, "mamba", mamba_plan, mods, MAMBA_ARCH, 1,
-                         MAMBA_TRAIN_LAYERS)
-    if not all(counts[n] for n in ("selective_scan", "selective_scan_backward", "rmsnorm_backward")):
-        raise AssertionError(f"train falcon-mamba launched {counts}")
-    add(counts)
-    # stablelm-12b: the flash backward at head_dim 160 on the main path
-    # (layernorm: no rmsnorm launches)
-    counts = timed_phase("train", phase_train, torch, "stablelm", SchedulePlan(**TRAIN_CUTS[STABLELM_ARCH][0]),
-                         mods, STABLELM_ARCH, 1, STABLELM_TRAIN_LAYERS)
-    if not all(counts[n] for n in ("flash_attention", "flash_attention_backward", "quantize_int8")):
-        raise AssertionError(f"train stablelm-12b launched {counts}")
-    add(counts)
+    train_dry.close()
     # the quickstart: tune on the host, then train and serve with the tuned plan
     res, tuned_row = timed_phase("search", phase_search, torch, F, fa, mods)
     rows["flash_attention"].append(tuned_row)

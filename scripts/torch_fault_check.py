@@ -25,6 +25,15 @@ phase where the CUDA toolkit is), so run those cases on both:
         mesh_decode_mask_local_positions mesh_decode_write_on_neighbour \
         mamba_decode_in_proj_whole_split
 
+Two faults of the optimizer's chunks (the decay read from a chunk's
+period, a moment chunk's scales read from the next chunk's rows) must be
+caught by ``tests/test_torch_optimizer_chunks.py`` and by the card's
+falcon-mamba ``train_parity`` (its chunked update held to the whole-leaf
+one):
+
+    PYTHONPATH=src python3 scripts/torch_fault_check.py DIR optimizer_decay_from_chunk_rank \
+        optimizer_moment_scales_one_chunk_off
+
 Three faults of the dry run (a meta branch recording a launch twice, an
 all-gather counted at a wrong group size, a ``work.py`` formula off by a
 factor) must be caught by ``tests/test_torch_dryrun.py`` and, where the card
@@ -44,7 +53,7 @@ fresh process, the ``chip_smoke`` phase that must catch it: the file's
 phase, or the case's own where it names one (the unedited control runs
 every phase of the cases run; a case checked by CPU tests runs them on
 its copy with ``pytest``).  The control must pass every check and every
-mutant (forty of them) must fail every check it runs.  Prints one
+mutant (forty-two of them) must fail every check it runs.  Prints one
 JSON line per case (with the failing check's numbers) and exits 1 if any
 case went the other way.
 """
@@ -68,7 +77,7 @@ PHASES = {
     "phase_kernels_moe": "chip_smoke.phase_kernels_moe(torch, F, mg)",
     "phase_kernels_scan": "chip_smoke.phase_kernels_scan(torch, F, ss)",
     "phase_kernels_quantize": ("chip_smoke.phase_kernels_quantize(torch, qt, "
-                               "chip_smoke.stablelm_moment_rows(chip_smoke.make_mods()))"),
+                               "chip_smoke.quantize_moment_rows(chip_smoke.make_mods()))"),
     "phase_grad": "chip_smoke.phase_grad(torch, rn, fa, mg, ss)",
     "phase_decode_int8": "chip_smoke.phase_decode_int8(torch, np, chip_smoke.make_mods())",
     "phase_positions": "chip_smoke.phase_positions(torch, chip_smoke.make_mods())",
@@ -79,6 +88,12 @@ PHASES = {
     "phase_mesh": "_build.build(chip_smoke.LIBRARIES); chip_smoke.phase_mesh(torch, chip_smoke.make_mods())",
     "phase_mesh_decode": ("_build.build(chip_smoke.LIBRARIES); "
                           "chip_smoke.phase_mesh_decode(torch, chip_smoke.make_mods())"),
+    # falcon-mamba-7b's 2-layer f32 train step, then its optimizer steps:
+    # the chunked update against the whole-leaf one (in_proj and the
+    # embedding in several chunks, the stacked norm in one)
+    "phase_train_parity_mamba": ("_build.build(chip_smoke.LIBRARIES); mods = chip_smoke.make_mods(); "
+                                 "chip_smoke.phase_train_parity(torch, np, mods, chip_smoke.MAMBA_ARCH, "
+                                 "320, mods.SchedulePlan(scan_chunk=64))"),
 }
 # CPU tests (pytest arguments) that catch a case, run on the case's copy
 TESTS = {
@@ -87,6 +102,7 @@ TESTS = {
     "tests_mesh_step": ["tests/test_torch_distributed.py", "-k", "2x2 and falcon"],
     "tests_mesh_decode": ["tests/test_torch_mesh_decode.py"],
     "tests_dryrun": ["tests/test_torch_dryrun.py"],
+    "tests_optimizer_chunks": ["tests/test_torch_optimizer_chunks.py"],
 }
 # the phase that must catch a fault in each file
 PHASE_OF = {
@@ -363,6 +379,22 @@ CASES = {
         "    return Work(4 * D * visible_pairs(Sq, Skv, causal) * B * Hq, nbytes, dtype)",
         "    return Work(2 * D * visible_pairs(Sq, Skv, causal) * B * Hq, nbytes, dtype)",
     )], ("tests_dryrun", "phase_kernels_flash")),
+    # the weight decay read from one index of a chunk (``pc[0]``, the rank a
+    # loop over periods would see) instead of the whole leaf's: a stacked
+    # norm leaf (n_periods, d) loses its decay (so does a 2-D embedding)
+    "optimizer_decay_from_chunk_rank": ("training/optimizer.py", [(
+        "            if decay:\n", "            if pc[0].ndim >= 2:\n",
+    )], ("tests_optimizer_chunks", "phase_train_parity_mamba")),
+    # an int8 moment chunk's scales taken from the rows of the next chunk
+    # (where the next chunk is as long): its codes are read and written
+    # against another chunk's scales
+    "optimizer_moment_scales_one_chunk_off": ("training/optimizer.py", [(
+        '        return {"q": m["q"][index], "s": m["s"][index]}',
+        '        shift = index.stop - index.start\n'
+        '        nxt = slice(index.stop, index.stop + shift)\n'
+        '        return {"q": m["q"][index],\n'
+        '                "s": m["s"][nxt if nxt.stop <= m["s"].shape[0] else index]}',
+    )], ("tests_optimizer_chunks", "phase_train_parity_mamba")),
 }
 
 RUN = """

@@ -24,6 +24,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 
 
 def main(argv=None) -> int:
@@ -41,6 +42,11 @@ def main(argv=None) -> int:
                          "with the found schedule")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    # segments that grow in place, unless the caller chose otherwise: the
+    # full-depth trainings peak near the card's memory, where fixed segments
+    # left a large gradient no block while GiBs sat reserved in pieces (read
+    # at the first allocation, so set before it)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
     from repro_torch.configs import get_config, get_shape
     from repro_torch.configs.base import InputShape

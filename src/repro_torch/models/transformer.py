@@ -122,6 +122,19 @@ def period_params(tree: dict, i: int) -> dict:
     return {k: period_params(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
 
 
+def unbind_periods(tree: dict, n: int) -> list:
+    """The ``n`` periods of a stacked tree, each leaf ``unbind(0)`` once
+    (views, no copy).  Under autograd one ``unbind``'s backward stacks the
+    periods' gradients of a leaf once, where ``n`` selects (``period_params``)
+    would each allocate a zero tensor of the whole leaf and sum them."""
+    out = [{} for _ in range(n)]
+    for k, v in tree.items():
+        parts = unbind_periods(v, n) if isinstance(v, dict) else v.unbind(0)
+        for period, part in zip(out, parts, strict=True):
+            period[k] = part
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Shared pieces
 # ---------------------------------------------------------------------------
@@ -269,8 +282,8 @@ def forward(
     par = (par or ParallelContext.local(params)).for_seq(inputs.shape[1])
     h = _embed(params, cfg, inputs, positions, par)
     body = _maybe_remat(_period_forward, remat)
-    for p in range(cfg.n_periods):
-        h = body(period_params(params["blocks"], p), h, positions, plan, cfg, tiles, par)
+    for pp in unbind_periods(params["blocks"], cfg.n_periods):
+        h = body(pp, h, positions, plan, cfg, tiles, par)
     return _logits(params, cfg, h, par)
 
 

@@ -12,7 +12,14 @@ quantized, exactly as in the JAX package.
 
 Where the JAX ``apply_updates`` returns new trees, this one writes the new
 parameters and moments into the given tensors in place (one copy of each on
-the card) and returns the same objects.  Step scalars (learning rate, clip
+the card) and returns the same objects.  It reads, updates and writes each
+leaf in ``chunks``, runs of the leading axis of at most ``CHUNK_ELEMS``
+elements, so that no f32 temporary is larger than a chunk; the update is
+elementwise and an int8 moment rowwise over the last axis, so the
+parameters and moments come out as a whole-leaf update would make them.
+The weight decay reads the whole leaf's rank, never a chunk's.  The global
+norm sums each chunk's f32 sum of squares, in order: over a leaf of several
+chunks that is another order of sums than the whole leaf's.  Step scalars (learning rate, clip
 scale, bias corrections) are f32 0-dim tensors on the parameters' device, as
 JAX computes them.
 
@@ -22,13 +29,15 @@ moment's quantizability reads the leaf's global shape, and the amax of a
 row whose last axis is split is the max over that axis's group, so that the
 scale is the whole row's (its spec drops the last axis: it is replicated
 there); the global norm sums each leaf's local sums of squares over its
-shard group and counts a replicated leaf once.
+shard group and counts a replicated leaf once.  A shard is chunked by its
+own shape: the ranks of a row's group hold equal shapes, so they take the
+same chunks, one amax exchange each.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, List, Tuple
 
 import torch
 
@@ -58,6 +67,22 @@ def lr_at(oc: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
     prog = torch.clamp((s - oc.warmup_steps) / max(oc.total_steps - oc.warmup_steps, 1), 0.0, 1.0)
     cos = 0.5 * (1.0 + torch.cos(math.pi * prog))
     return oc.peak_lr * torch.where(s < oc.warmup_steps, warm, cos)
+
+
+# the most elements of a leaf one optimizer chunk takes: ~256 MiB an f32
+# temporary, one period of falcon-mamba-7b's in_proj
+CHUNK_ELEMS = 1 << 26
+
+
+def chunks(shape) -> List[Any]:
+    """The indices of the chunks a leaf of ``shape`` is read and updated in:
+    runs of its leading axis of at most ``CHUNK_ELEMS`` elements, each at
+    least one index long; a 0-dim leaf is one chunk (``...``)."""
+    shape = tuple(shape)
+    if not shape:
+        return [...]
+    per = max(1, CHUNK_ELEMS // max(math.prod(shape[1:]), 1))
+    return [slice(a, min(a + per, shape[0])) for a in range(0, max(shape[0], 1), per)]
 
 
 # -- int8 moment codecs -------------------------------------------------------
@@ -91,6 +116,14 @@ def _mom_zero(leaf: torch.Tensor, oc: OptimizerConfig, shape):
             "s": torch.zeros(leaf.shape[:-1] + (1,), dtype=torch.float32, device=leaf.device),
         }
     return torch.zeros(leaf.shape, dtype=torch.float32, device=leaf.device)
+
+
+def _mom_chunk(m, index):
+    """The rows ``index`` of the moment ``m`` (views): an int8 moment's codes
+    and scales on the same rows."""
+    if _is_moment(m):
+        return {"q": m["q"][index], "s": m["s"][index]}
+    return m[index]
 
 
 def _mom_read(m) -> torch.Tensor:
@@ -144,10 +177,18 @@ def init_opt_state(params: dict, oc: OptimizerConfig, dist=None) -> Dict[str, An
     return {"mu": zeros(), "nu": zeros(), "step": 0}
 
 
+def _sum_sq(g: torch.Tensor) -> torch.Tensor:
+    """The f32 sum of squares of ``g``: each chunk's, summed in order."""
+    total = None
+    for index in chunks(g.shape):
+        s = torch.sum(torch.square(g[index].float()))
+        total = s if total is None else total + s
+    return total
+
+
 def global_norm(tree: dict, dist=None) -> torch.Tensor:
     dist = dist or ParallelContext.local(tree)
-    return torch.sqrt(dist.norm_sq({path: torch.sum(torch.square(g.float()))
-                                    for path, g in leaves(tree)}))
+    return torch.sqrt(dist.norm_sq({path: _sum_sq(g) for path, g in leaves(tree)}))
 
 
 def opt_state_pspecs(state: Dict[str, Any], param_pspecs: dict) -> Dict[str, Any]:
@@ -183,14 +224,18 @@ def apply_updates(params: dict, grads: dict, state: Dict[str, Any], oc: Optimize
     flat_g = dict(leaves(grads))
     flat_mu, flat_nu = dict(leaves(state["mu"])), dict(leaves(state["nu"]))
     for path, p in flat_p:
-        g = flat_g[path].float() * scale
-        m = oc.b1 * _mom_read(flat_mu[path]) + (1 - oc.b1) * g
-        v = oc.b2 * _mom_read(flat_nu[path]) + (1 - oc.b2) * g * g
-        delta = (m / bc1) / (torch.sqrt(v / bc2) + oc.eps)
-        if p.ndim >= 2:  # decoupled weight decay on matrices only
-            delta = delta + oc.weight_decay * p.float()
-        p.copy_((p.float() - lr * delta).to(p.dtype))
-        _mom_write_(flat_mu[path], m, dist.mesh, dist.row_axes(path))
-        _mom_write_(flat_nu[path], v, dist.mesh, dist.row_axes(path))
+        decay = p.ndim >= 2  # decoupled weight decay on matrices only: the whole leaf's rank
+        axes = dist.row_axes(path)
+        for index in chunks(p.shape):
+            pc, mu, nu = p[index], _mom_chunk(flat_mu[path], index), _mom_chunk(flat_nu[path], index)
+            g = flat_g[path][index].float() * scale
+            m = oc.b1 * _mom_read(mu) + (1 - oc.b1) * g
+            v = oc.b2 * _mom_read(nu) + (1 - oc.b2) * g * g
+            delta = (m / bc1) / (torch.sqrt(v / bc2) + oc.eps)
+            if decay:
+                delta = delta + oc.weight_decay * pc.float()
+            pc.copy_((pc.float() - lr * delta).to(pc.dtype))
+            _mom_write_(mu, m, dist.mesh, axes)
+            _mom_write_(nu, v, dist.mesh, axes)
     state["step"] = step
     return params, state, {"lr": lr, "grad_norm": gnorm}

@@ -19,7 +19,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import moe, transformer
 from repro_torch.sharding import collectives as cc
 from repro_torch.sharding.parallel import ParallelContext, gather_tree, shard_tree
-from repro_torch.sharding.rules import ShardingRules
+from repro_torch.sharding.rules import PartitionSpec, ShardingRules
 from repro_torch.training import optimizer as optim
 from repro_torch.training.grad_compress import compressed_psum
 from repro_torch.training.train_step import (
@@ -361,3 +361,100 @@ def real_counts(mesh, case: dict) -> dict:
 
 def real_counts_cases(mesh, cases: list) -> list:
     return [real_counts(mesh, case) for case in cases]
+
+
+def whole_leaf_apply_updates(params, grads, state, oc, dist=None):
+    """``optimizer.apply_updates`` as it was before it took leaves in chunks:
+    each leaf's sum of squares and its whole update at once (the reference
+    the chunked update is held to)."""
+    dist = dist or ParallelContext.local(params)
+    flat_p = list(optim.leaves(params))
+    device = flat_p[0][1].device
+    step = state["step"] + 1
+    step_t = torch.tensor(step, dtype=torch.int32, device=device)
+    lr = optim.lr_at(oc, step_t)
+    gnorm = whole_leaf_global_norm(grads, dist)
+    scale = torch.minimum(torch.ones((), device=device), oc.clip_norm / (gnorm + 1e-9))
+    bc1 = 1.0 - oc.b1 ** step_t.to(torch.float32)
+    bc2 = 1.0 - oc.b2 ** step_t.to(torch.float32)
+    flat_g = dict(optim.leaves(grads))
+    flat_mu, flat_nu = dict(optim.leaves(state["mu"])), dict(optim.leaves(state["nu"]))
+    with torch.no_grad():
+        for path, p in flat_p:
+            g = flat_g[path].float() * scale
+            m = oc.b1 * optim._mom_read(flat_mu[path]) + (1 - oc.b1) * g
+            v = oc.b2 * optim._mom_read(flat_nu[path]) + (1 - oc.b2) * g * g
+            delta = (m / bc1) / (torch.sqrt(v / bc2) + oc.eps)
+            if p.ndim >= 2:
+                delta = delta + oc.weight_decay * p.float()
+            p.copy_((p.float() - lr * delta).to(p.dtype))
+            optim._mom_write_(flat_mu[path], m, dist.mesh, dist.row_axes(path))
+            optim._mom_write_(flat_nu[path], v, dist.mesh, dist.row_axes(path))
+    state["step"] = step
+    return params, state, {"lr": lr, "grad_norm": gnorm}
+
+
+def whole_leaf_global_norm(tree, dist=None):
+    """The global norm from each leaf's whole f32 sum of squares."""
+    dist = dist or ParallelContext.local(tree)
+    return torch.sqrt(dist.norm_sq({path: torch.sum(torch.square(g.float()))
+                                    for path, g in optim.leaves(tree)}))
+
+
+def chunked_update_case(mesh, tree: dict, specs: dict, chunk_elems: int, oc_kw: dict,
+                        steps: int = 2, seed: int = 0) -> dict:
+    """``steps`` updates of ``tree`` (whole numpy leaves, sharded by ``specs``,
+    a tree of tuples of mesh axes, over ``mesh``; None: one device) by ``apply_updates`` with leaves in
+    chunks of ``chunk_elems`` and by ``whole_leaf_apply_updates``, from the
+    same numpy-drawn gradients: the paths of the parameters and moments
+    that differ, the metrics of both, and each leaf's number of chunks."""
+    optim.CHUNK_ELEMS = chunk_elems
+    oc = optim.OptimizerConfig(**oc_kw)
+    dist = None
+    if mesh is not None:
+        specs = optim.tree_from_leaves(specs, {k: PartitionSpec(*s) for k, s in _spec_leaves(specs)})
+        shapes = {path: tuple(a.shape) for path, a in optim.leaves(tree)}
+        dist = ParallelContext(mesh, specs, optim.tree_from_leaves(tree, shapes))
+
+    def local(t):
+        if mesh is not None:
+            return shard_tree(t, specs, mesh)
+        return {k: local(v) if isinstance(v, dict) else torch.from_numpy(v.copy()) for k, v in t.items()}
+
+    runs = {}
+    for name, update in (("chunked", optim.apply_updates), ("whole", whole_leaf_apply_updates)):
+        rng = np.random.default_rng(seed)
+        params = local(tree)
+        state = optim.init_opt_state(params, oc, dist)
+        metrics = []
+        for _ in range(steps):
+            grads = {k: (rng.standard_normal(a.shape) * 0.3).astype(a.dtype)
+                     for k, a in optim.leaves(tree)}
+            grads = local(optim.tree_from_leaves(tree, grads))
+            params, state, m = update(params, grads, state, oc, dist)
+            metrics.append({k: float(v) for k, v in m.items()})
+        runs[name] = (params, state, metrics)
+    (p_c, s_c, m_c), (p_w, s_w, m_w) = runs["chunked"], runs["whole"]
+    differ = [path for (path, a), (_, b) in zip(optim.leaves(p_c), optim.leaves(p_w))
+              if not torch.equal(a, b)]
+    for mom in ("mu", "nu"):
+        for (path, a), (_, b) in zip(optim.leaves(s_c[mom]), optim.leaves(s_w[mom])):
+            pairs = [(a[k], b[k]) for k in ("q", "s")] if isinstance(a, dict) else [(a, b)]
+            if not all(torch.equal(x, y) for x, y in pairs):
+                differ.append(f"{mom}.{path}")
+    return {"differ": differ, "metrics": {"chunked": m_c, "whole": m_w},
+            "chunks": {path: len(optim.chunks(p.shape)) for path, p in optim.leaves(p_c)},
+            "int8": sorted(path for path, m in optim.leaves(s_c["mu"]) if isinstance(m, dict))}
+
+
+def _spec_leaves(specs: dict, prefix: str = ""):
+    for k, v in specs.items():
+        if isinstance(v, dict):
+            yield from _spec_leaves(v, f"{prefix}{k}.")
+        else:
+            yield prefix + k, v
+
+
+def chunked_update_cases(mesh, cases: list) -> list:
+    """``chunked_update_case`` of each case (its keyword arguments)."""
+    return [chunked_update_case(mesh, **case) for case in cases]
