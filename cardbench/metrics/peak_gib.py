@@ -1,0 +1,6 @@
+"""``peak_gib``: ``torch.cuda.max_memory_allocated()`` over set-up and the
+window (reset before set-up), in GiB.  The reference runs after it is read."""
+
+
+def read(run):
+    return None if run.peak_bytes is None else run.peak_bytes / 2**30
