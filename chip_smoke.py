@@ -1529,7 +1529,8 @@ def _profile_one(torch, fn) -> dict:
     # the profiler's raw events: ``prof.events()`` builds a Python object a
     # CPU op first, ~10 s for a train step's ~10^5 ops, for the same spans
     for e in prof.profiler.kineto_results.events():
-        if e.device_type() != torch.autograd.DeviceType.CUDA:
+        # a span's copy on the device's timeline (the program's spans) is no operation
+        if e.device_type() != torch.autograd.DeviceType.CUDA or e.is_user_annotation():
             continue
         start, end = e.start_ns() / 1e3, e.end_ns() / 1e3  # us
         spans.append((start, end))

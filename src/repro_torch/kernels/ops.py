@@ -18,6 +18,7 @@ from repro_torch.kernels import quantize as _qt
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.kernels import selective_scan as _ss
+from repro_torch.runtime import tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,8 +51,11 @@ COUNTERS = {
 
 
 def reset_counters() -> None:
+    """Every counter of the program: the launch counters and the spans
+    (``runtime.tracing``)."""
     for c in COUNTERS.values():
         c.reset()
+    tracing.reset()
 
 
 def launch_counts() -> Dict[str, int]:

@@ -12,6 +12,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ops import KernelTiles
 from repro_torch.models import layers
+from repro_torch.runtime.tracing import span
 from repro_torch.sharding import collectives as cc
 from repro_torch.sharding.parallel import local_view
 
@@ -215,55 +216,61 @@ def decode_step(
     seq_axes = ctx.kv_seq_axes()
     o = ctx.mesh.index(seq_axes) * L if seq_axes else 0  # the first position this rank holds
 
-    q, k_new, v_new, wo, heads_tp = _project_decode(p, x, cfg, par, Hc)
-    pos = cur[:, None] if per_row else cur.expand(B, 1)
-    if cfg.pos_kind == "mrope":  # a decoded token: the same id in all three components
-        pos = pos[:, None, :].expand(B, 3, 1)
-    q, k_new = layers.apply_positions(q, k_new, cfg, pos)
+    with span("attn.project"):
+        q, k_new, v_new, wo, heads_tp = _project_decode(p, x, cfg, par, Hc)
+        pos = cur[:, None] if per_row else cur.expand(B, 1)
+        if cfg.pos_kind == "mrope":  # a decoded token: the same id in all three components
+            pos = pos[:, None, :].expand(B, 3, 1)
+        q, k_new = layers.apply_positions(q, k_new, cfg, pos)
     k, v = cache["k"], cache["v"]
     int8_kv = "k_s" in cache
-    if int8_kv:
-        (kq, ks), (vq, vs) = _quant_kv(k_new), _quant_kv(v_new)
-        _write_at_cur_(k, kq, cur, commit, o)
-        _write_at_cur_(v, vq, cur, commit, o)
-        _write_at_cur_(cache["k_s"], ks, cur, commit, o)
-        _write_at_cur_(cache["v_s"], vs, cur, commit, o)
-        k_scale = cache["k_s"][..., 0][:, :, None, None, :]  # (B, Hkv, 1, 1, L)
-        v_scale = cache["v_s"][..., 0][:, :, None, None, :]
-        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
-    else:
-        _write_at_cur_(k, k_new.to(k.dtype), cur, commit, o)
-        _write_at_cur_(v, v_new.to(v.dtype), cur, commit, o)
-        k_scale = v_scale = None
-    Hq = q.shape[1]
-    every_head = heads_tp and "model" in seq_axes
-    if every_head:
-        q = cc.all_gather_raw(q, ctx.mesh, "model", 1)
-    elif heads_tp and Hc == cfg.n_kv_heads:
-        # the whole cache's KV heads: read the groups of this rank's q heads
-        g = cfg.n_heads // cfg.n_kv_heads
-        lo, n_kv = ctx.tp_rank * Hq // g, max(1, Hq // g)
-        k, v = k[:, lo:lo + n_kv], v[:, lo:lo + n_kv]
+    with span("attn.cache_write"):
         if int8_kv:
-            k_scale, v_scale = k_scale[:, lo:lo + n_kv], v_scale[:, lo:lo + n_kv]
-    # GQA-grouped masked attention over the cache: query heads reshape to
-    # (Hkv, groups) so the cache is never repeated; f32 on the logits.
-    # Plain PyTorch, as the JAX package's decode attention is plain jnp.
-    Hk = k.shape[1]
-    qg = q.reshape(B, Hk, q.shape[1] // Hk, 1, hd)
-    logits = torch.einsum("bkgqd,bktd->bkgqt", qg.float(), k.float()) * (hd ** -0.5)
-    if int8_kv:
-        logits = logits * k_scale
-    t = torch.arange(o, o + L, device=x.device)  # global positions
-    lim = cur[:, None, None, None, None] if per_row else cur
-    logits = logits.masked_fill(~(t <= lim), -1e30)
-    probs = torch.softmax(logits, dim=-1)
-    if int8_kv:
-        probs = probs * v_scale
-    att = torch.einsum("bkgqt,bktd->bkgqd", probs, v.float())
-    att = cc.softmax_combine(att, logits, ctx.mesh, seq_axes).to(x.dtype)
-    att = att.reshape(B, -1, 1, hd)
-    if every_head:
-        att = att[:, ctx.tp_rank * Hq:(ctx.tp_rank + 1) * Hq]
-    att = att.transpose(1, 2).reshape(B, 1, -1)
-    return ctx.exit(att @ wo, heads_tp), cache
+            (kq, ks), (vq, vs) = _quant_kv(k_new), _quant_kv(v_new)
+            _write_at_cur_(k, kq, cur, commit, o)
+            _write_at_cur_(v, vq, cur, commit, o)
+            _write_at_cur_(cache["k_s"], ks, cur, commit, o)
+            _write_at_cur_(cache["v_s"], vs, cur, commit, o)
+        else:
+            _write_at_cur_(k, k_new.to(k.dtype), cur, commit, o)
+            _write_at_cur_(v, v_new.to(v.dtype), cur, commit, o)
+    with span("attn.attend"):
+        if int8_kv:
+            k_scale = cache["k_s"][..., 0][:, :, None, None, :]  # (B, Hkv, 1, 1, L)
+            v_scale = cache["v_s"][..., 0][:, :, None, None, :]
+            k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+        else:
+            k_scale = v_scale = None
+        Hq = q.shape[1]
+        every_head = heads_tp and "model" in seq_axes
+        if every_head:
+            q = cc.all_gather_raw(q, ctx.mesh, "model", 1)
+        elif heads_tp and Hc == cfg.n_kv_heads:
+            # the whole cache's KV heads: read the groups of this rank's q heads
+            g = cfg.n_heads // cfg.n_kv_heads
+            lo, n_kv = ctx.tp_rank * Hq // g, max(1, Hq // g)
+            k, v = k[:, lo:lo + n_kv], v[:, lo:lo + n_kv]
+            if int8_kv:
+                k_scale, v_scale = k_scale[:, lo:lo + n_kv], v_scale[:, lo:lo + n_kv]
+        # GQA-grouped masked attention over the cache: query heads reshape to
+        # (Hkv, groups) so the cache is never repeated; f32 on the logits.
+        # Plain PyTorch, as the JAX package's decode attention is plain jnp.
+        Hk = k.shape[1]
+        qg = q.reshape(B, Hk, q.shape[1] // Hk, 1, hd)
+        logits = torch.einsum("bkgqd,bktd->bkgqt", qg.float(), k.float()) * (hd ** -0.5)
+        if int8_kv:
+            logits = logits * k_scale
+        t = torch.arange(o, o + L, device=x.device)  # global positions
+        lim = cur[:, None, None, None, None] if per_row else cur
+        logits = logits.masked_fill(~(t <= lim), -1e30)
+        probs = torch.softmax(logits, dim=-1)
+        if int8_kv:
+            probs = probs * v_scale
+        att = torch.einsum("bkgqt,bktd->bkgqd", probs, v.float())
+        att = cc.softmax_combine(att, logits, ctx.mesh, seq_axes).to(x.dtype)
+        att = att.reshape(B, -1, 1, hd)
+        if every_head:
+            att = att[:, ctx.tp_rank * Hq:(ctx.tp_rank + 1) * Hq]
+        att = att.transpose(1, 2).reshape(B, 1, -1)
+    with span("attn.out"):
+        return ctx.exit(att @ wo, heads_tp), cache

@@ -43,6 +43,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ops import KernelTiles
 from repro_torch.models import layers
+from repro_torch.runtime.tracing import span
 from repro_torch.sharding.parallel import local_view
 
 CAPACITY_FACTOR = 1.25
@@ -99,7 +100,9 @@ def dispatch(topi: torch.Tensor, topw: torch.Tensor, E: int, C: int):
     if flat_e.device.type == "meta":  # bincount has no meta kernel: its shape is (E,)
         counts = torch.empty((E,), dtype=torch.long, device="meta")
     else:
-        counts = torch.bincount(flat_e, minlength=E)
+        # the CUDA bincount reads its input's min and max to the host: two waits
+        with span("sync.moe_counts", waits=2 if flat_e.is_cuda else 0):
+            counts = torch.bincount(flat_e, minlength=E)
     seg_start = torch.cumsum(counts, 0) - counts  # exclusive prefix
     pos = torch.arange(T * k, device=topi.device) - seg_start[se]  # rank within expert
     keep = pos < C
@@ -138,23 +141,27 @@ def forward(
     else:
         C = capacity(T, cfg, block=tiles.moe_block_c if T >= tiles.moe_block_c else 8)
     xt = x.reshape(T, d)
-    _, topw, topi = route(w, cfg, xt)
-    se, st, sw, keep, pos = dispatch(topi, topw, E, C)
-    grouped = group(xt, se, st, keep, pos, E, C)
-    if mode == "ep":
-        E_loc = E // ctx.tp
-        r = ctx.tp_rank
-        grouped = grouped[r * E_loc:(r + 1) * E_loc]
-    out = _experts(grouped, w, cfg, tiles, x.dtype)  # (E or E / tp, C, d)
-    if mode == "ep":
-        # the rank's experts in the full (E, C, d) slot layout, zero elsewhere
-        out = torch.cat([out.new_zeros((r * E_loc, C, d)), out,
-                         out.new_zeros(((ctx.tp - r - 1) * E_loc, C, d))])
-    y = _combine(out, se, st, sw, keep, pos, T)
-    if mode == "ep":
-        # the combine in bf16: each token's k experts live on at most k ranks
-        y = y.to(torch.bfloat16)
-    return ctx.exit(y.reshape(B, S, d), region).to(x.dtype)
+    with span("moe.route"):
+        _, topw, topi = route(w, cfg, xt)
+    with span("moe.dispatch"):
+        se, st, sw, keep, pos = dispatch(topi, topw, E, C)
+        grouped = group(xt, se, st, keep, pos, E, C)
+        if mode == "ep":
+            E_loc = E // ctx.tp
+            r = ctx.tp_rank
+            grouped = grouped[r * E_loc:(r + 1) * E_loc]
+    with span("moe.experts"):
+        out = _experts(grouped, w, cfg, tiles, x.dtype)  # (E or E / tp, C, d)
+        if mode == "ep":
+            # the rank's experts in the full (E, C, d) slot layout, zero elsewhere
+            out = torch.cat([out.new_zeros((r * E_loc, C, d)), out,
+                             out.new_zeros(((ctx.tp - r - 1) * E_loc, C, d))])
+    with span("moe.combine"):
+        y = _combine(out, se, st, sw, keep, pos, T)
+        if mode == "ep":
+            # the combine in bf16: each token's k experts live on at most k ranks
+            y = y.to(torch.bfloat16)
+        return ctx.exit(y.reshape(B, S, d), region).to(x.dtype)
 
 
 def _experts(grouped, p: dict, cfg: ModelConfig, tiles: KernelTiles, dtype) -> torch.Tensor:

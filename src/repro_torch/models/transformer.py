@@ -24,6 +24,7 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import DEFAULT_TILES, KernelTiles
 from repro_torch.models import attention, layers, mamba, moe
+from repro_torch.runtime.tracing import span
 from repro_torch.sharding.parallel import ParallelContext, local_shape, shard_tree
 
 
@@ -363,7 +364,8 @@ def decode_step(
     cur = torch.as_tensor(cur, dtype=torch.long, device=device)
     pos = cur[:, None] if cur.ndim == 1 else cur.expand(inputs.shape[0], 1)  # each row's own
     par = par or ParallelContext.local(params)
-    h = _embed(params, cfg, inputs, pos, par)
+    with span("decode.embed"):
+        h = _embed(params, cfg, inputs, pos, par)
     for p in range(cfg.n_periods):
         pp = period_params(params["blocks"], p)
         pc = period_params(cache, p)  # views: the writes land in the stacked cache
@@ -377,4 +379,5 @@ def decode_step(
                 mixed, _ = mamba.decode_step(bp["mamba"], cfg, pc[f"b{i}"], hn, commit,
                                              par=bv.sub("mamba"))
             h = _mlp_slot(bp, spec, cfg, h + mixed, tiles, bv)
-    return _logits(params, cfg, h[:, -1, :], par), cache  # (B, V)
+    with span("decode.logits"):
+        return _logits(params, cfg, h[:, -1, :], par), cache  # (B, V)

@@ -34,6 +34,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ops import KernelTiles
 from repro_torch.models import transformer
 from repro_torch.models.losses import cross_entropy, cross_entropy_vocab_parallel
+from repro_torch.runtime import tracing
 from repro_torch.sharding import collectives as cc
 from repro_torch.sharding.parallel import (
     ParallelContext, gather_tree, local_shape, shard_tree,
@@ -304,15 +305,16 @@ def make_serve_step(
     def serve_step(params, cache, inputs, cur, commit=None):
         if mesh is not None and inputs.shape[0] != shape.global_batch:
             raise ValueError(f"{inputs.shape[0]} rows, the cell has {shape.global_batch}")
-        cur = torch.as_tensor(cur, dtype=torch.long, device=inputs.device)
-        logits, cache = transformer.decode_step(
-            params, cfg, cache, par.decode_rows(inputs), par.decode_rows(cur) if cur.ndim else cur,
-            commit=None if commit is None else par.decode_rows(commit), tiles=tiles, par=par)
-        if vsplit:
-            logits = cc.all_gather_raw(logits, par.mesh, "model", logits.ndim - 1)
-        if par.rows_split:
-            logits = cc.all_gather_raw(logits, par.mesh, par.batch_axes, 0)
-        return logits, cache
+        with tracing.span(tracing.ROOT):
+            cur = torch.as_tensor(cur, dtype=torch.long, device=inputs.device)
+            logits, cache = transformer.decode_step(
+                params, cfg, cache, par.decode_rows(inputs), par.decode_rows(cur) if cur.ndim else cur,
+                commit=None if commit is None else par.decode_rows(commit), tiles=tiles, par=par)
+            if vsplit:
+                logits = cc.all_gather_raw(logits, par.mesh, "model", logits.ndim - 1)
+            if par.rows_split:
+                logits = cc.all_gather_raw(logits, par.mesh, par.batch_axes, 0)
+            return logits, cache
 
     serve_step.par = par
     return serve_step
