@@ -7,7 +7,7 @@ Phases, one JSON line each (every line carries the card's name and power
 limit as ``nvidia-smi`` reports them):
 
 1. ``device``: torch, CUDA, the card.
-2. ``build``: the six CUDA sources (and the shared ``csrc/sm90.cuh``)
+2. ``build``: the seven CUDA sources (and the shared ``csrc/sm90.cuh``)
    compiled with ``nvcc`` for ``sm_90a`` from ``src/repro_torch/kernels/csrc/``,
    one ``nvcc`` each, in parallel; seconds, ``ptxas -v`` lines, and the
    registers and spill bytes of the bf16 TMA -> wgmma kernels, which must
@@ -25,6 +25,14 @@ limit as ``nvidia-smi`` reports them):
    ``F.rms_norm`` yardstick also carry ``device_ms``: the same calls
    captured 20 to a CUDA graph and timed by replaying it, so the host's
    time a launch drops out.
+3b. ``kernels.decode_attention``: the decode step's attention over the KV
+   cache against its plain version at the benchmark cell's shapes (16 rows,
+   16/8 heads of 64, a 32k cache, each row's cur one of the cell's history
+   lengths), deepseek-67b's 64/8 x 128 and stablelm-12b's 32/8 x 160, each
+   with an int8 and a bf16 cache: events and device ms (graph replay), the
+   bound, the plain version's ms; then head_dim x cache dtype x query
+   heads a KV head edge cases, a strided view of some KV heads and a rank
+   holding later positions; every instance's ptxas registers and spills.
 4. ``grad``: the autograd Function of rmsnorm, flash attention, moe_gemm and
    the scan at the training shapes against autograd through the plain
    version, on the card (rmsnorm's backward is a kernel of its own,
@@ -217,9 +225,10 @@ SFU_EXP_PER_SM_CLOCK = 16  # exp2 results a clock per SM: NVIDIA throughput tabl
 SEQ = 4096
 SEED = 0
 KERNELS = ("rmsnorm", "rmsnorm_backward", "flash_attention", "flash_attention_backward", "moe_gemm",
-           "selective_scan", "selective_scan_backward", "quantize_int8", "dequantize_int8")
+           "selective_scan", "selective_scan_backward", "quantize_int8", "dequantize_int8",
+           "decode_attention")
 LIBRARIES = ("rmsnorm", "flash_attention", "flash_attention_backward", "moe_gemm", "selective_scan",
-             "quantize")  # csrc/*.cu
+             "quantize", "decode_attention")  # csrc/*.cu
 ARCHS = ("granite-3-2b", "granite-moe-1b-a400m", "falcon-mamba-7b")
 # model coverage: token archs through the engine, embeddings archs (a stub
 # frontend's vectors in) through prefill and decode_step; the cut depths are
@@ -244,7 +253,8 @@ MROPE_GRID = 16  # qwen2-vl prefill: a 16 x 16 patch grid, then text
 # _expected_counts, which gives every other expected count
 NOT_IN_INFERENCE = {"quantize_int8": 0, "dequantize_int8": 0,  # inference quantizes nothing
                     "rmsnorm_backward": 0, "flash_attention_backward": 0,  # and takes no gradient
-                    "selective_scan_backward": 0}
+                    "selective_scan_backward": 0,
+                    "decode_attention": 0}  # a forward attends with flash, never over a cache
 EXPECTED_PREFILL = {
     "granite-3-2b": {"rmsnorm": 81, "flash_attention": 40, "moe_gemm": 0, "selective_scan": 0,
                      **NOT_IN_INFERENCE},
@@ -443,13 +453,14 @@ def ptxas_lines(text: str) -> list:
                              r"selective_scan_bwd_chunk_kernel|selective_scan_bwd_carry_kernel|"
                              r"selective_scan_bwd_kernel|selective_scan_bwd_reduce_kernel|"
                              r"dequantize_kernel|quantize_warp_kernel|quantize_cta_kernel|"
-                             r"quantize_cluster_kernel|quantize_two_pass_kernel)", name)
+                             r"quantize_cluster_kernel|quantize_two_pass_kernel|"
+                             r"decode_attention_split|decode_attention_combine)", name)
             label = base.group(1) if base else name
             # the template arguments: types, then integer and bool literals
-            arg = r"f|13__nv_bfloat16|L[ib]\d+E"
+            arg = r"f|a|13__nv_bfloat16|L[ib]\d+E"
             targs = re.match(rf"I((?:{arg})+)E", name[base.end():]) if base else None
             if targs:
-                names = {"f": "float", "13__nv_bfloat16": "bf16"}
+                names = {"f": "float", "a": "int8", "13__nv_bfloat16": "bf16"}
                 label += "<" + ",".join(names.get(t) or t[2:-1]
                                         for t in re.findall(arg, targs.group(1))) + ">"
             cur = {"kernel": label}
@@ -943,6 +954,143 @@ def phase_kernels_quantize(torch, qt, moment_views):
     return rows
 
 
+# decode attention at the main paths' shapes: (rows, q heads, KV heads, cache
+# positions, head_dim, cache dtype, role).  Every row's cur is one of the
+# benchmark cell's 16 history lengths (16,384 to 28,672, evenly spaced)
+DECODE_ATTENTION_CASES = [
+    (16, 16, 8, 32768, 64, "int8", "granite-moe-1b-a400m decode-32k cell"),
+    (16, 16, 8, 32768, 64, "bfloat16", "granite-moe-1b-a400m, bf16 cache"),
+    (16, 64, 8, 32768, 128, "int8", "deepseek-67b 64/8 x 128"),
+    (16, 64, 8, 32768, 128, "bfloat16", "deepseek-67b, bf16 cache"),
+    (16, 32, 8, 32768, 160, "int8", "stablelm-12b 32/8 x 160"),
+    (16, 32, 8, 32768, 160, "bfloat16", "stablelm-12b, bf16 cache"),
+]
+# kernel against plain: both sum in f32, in other orders (the kernel over
+# chunks, lane groups and shuffles; the plain version in cuBLAS's gemv), so
+# they agree to f32 rounding of sums over up to ~29k positions
+DECODE_ATTENTION_TOL = dict(atol=1e-4, rtol=1e-4)
+DECODE_ATTENTION_LSE_ATOL = 1e-4
+
+
+def _decode_attention_inputs(torch, gen, B, Hq, Hk, L, hd, kv: str, cur, q_dtype="bfloat16"):
+    """q N(0, 1), K and V N(0, 3^2) (the benchmark cell's history) in bf16,
+    as int8 codes and row scales (the quantize kernel) for ``kv`` int8."""
+    q = torch.randn((B, Hq, hd), generator=gen, device="cuda").to(getattr(torch, q_dtype))
+    k, v = (torch.randn((B, Hk, L, hd), generator=gen, device="cuda", dtype=torch.bfloat16) * 3.0
+            for _ in range(2))
+    k_s = v_s = None
+    if kv == "int8":
+        from repro_torch.kernels import ops
+
+        (k, k_s), (v, v_s) = (ops.quantize_int8(t.reshape(-1, hd)) for t in (k, v))
+        k, v = k.view(B, Hk, L, hd), v.view(B, Hk, L, hd)
+        k_s, v_s = k_s.view(B, Hk, L, 1), v_s.view(B, Hk, L, 1)
+    elif kv == "float32":
+        k, v = k.float(), v.float()
+    return q, k, v, k_s, v_s, torch.as_tensor(cur, dtype=torch.long, device="cuda")
+
+
+def _decode_attention_compare(torch, da, args, o, what: str) -> dict:
+    """The kernel against the plain version on the same tensors."""
+    q, hd = args[0], args[0].shape[-1]
+    da.LAUNCHES.reset()
+    att, lse = da.decode_attention(*args, o, hd ** -0.5)
+    torch.cuda.synchronize()
+    if da.LAUNCHES.count != 1:
+        raise AssertionError(f"decode_attention {what}: {da.LAUNCHES.count} launches")
+    att_p, lse_p = da.decode_attention_plain(*args, o, hd ** -0.5)
+    # rows with a visible position; the others weigh 0 in a combine: the
+    # kernel gives att 0 and lse -inf, the plain version its masked softmax
+    seen = lse_p > -1e29
+    stats = check_close(att[seen], att_p[seen], f"decode_attention {what} att", **DECODE_ATTENTION_TOL)
+    if not bool((lse[~seen] == -float("inf")).all()) or not bool((att[~seen] == 0).all()):
+        raise AssertionError(f"decode_attention {what}: a row with no visible position is not "
+                             "att 0, lse -inf")
+    lse_err = (lse[seen] - lse_p[seen]).abs().max().item() if bool(seen.any()) else 0.0
+    if not lse_err <= DECODE_ATTENTION_LSE_ATOL:
+        raise AssertionError(f"decode_attention {what}: lse {lse_err} from the plain version "
+                             f"(limit {DECODE_ATTENTION_LSE_ATOL})")
+    return {**stats, "lse_max_abs_err": lse_err, "rows_unseen": int((~seen).sum().item())}
+
+
+def _decode_attention_edge_rows(torch, da, gen) -> list:
+    """head_dim 64/128/160 x int8/bf16 x 1, 2, 6, 8 query heads a KV head,
+    scalar and per-row cur (0 and L - 1 among them) over L = 1001 (no
+    multiple of a chunk or a tile), an f32 cache, a strided view of two of
+    four KV heads, and a rank holding positions [600, 1601) with rows that
+    see none of them."""
+    rows = []
+    L = 1001
+    for hd in (64, 128, 160):
+        for kv in ("int8", "bfloat16"):
+            for g in (1, 2, 6, 8):
+                for cur in (L - 1, [0, L - 1, 517]):
+                    args = _decode_attention_inputs(torch, gen, 3, 2 * g, 2, L, hd, kv, cur)
+                    what = f"hd {hd} {kv} g {g} cur {cur}"
+                    rows.append({"role": "edge", "shape": [3, 2 * g, 2, L, hd], "dtype": kv, "cur": cur,
+                                 **_decode_attention_compare(torch, da, args, 0, what)})
+    args = _decode_attention_inputs(torch, gen, 3, 4, 2, L, 128, "float32", [5, 999, 1000], "float32")
+    rows.append({"role": "edge f32 cache", "shape": [3, 4, 2, L, 128], "dtype": "float32",
+                 **_decode_attention_compare(torch, da, args, 0, "f32 cache")})
+    for kv in ("int8", "bfloat16"):
+        q, k, v, k_s, v_s, cur = _decode_attention_inputs(torch, gen, 3, 4, 4, L, 64, kv, [7, 400, 1000])
+        view = (q, k[:, 1:3], v[:, 1:3], None if k_s is None else k_s[:, 1:3],
+                None if v_s is None else v_s[:, 1:3], cur)
+        rows.append({"role": "edge KV-group view", "shape": [3, 4, 2, L, 64], "dtype": kv,
+                     **_decode_attention_compare(torch, da, view, 0, f"{kv} KV-group view")})
+        args = _decode_attention_inputs(torch, gen, 3, 4, 2, L, 64, kv, [100, 600, 1700])
+        rows.append({"role": "edge rank at 600", "shape": [3, 4, 2, L, 64], "dtype": kv,
+                     **_decode_attention_compare(torch, da, args, 600, f"{kv} positions from 600")})
+    return rows
+
+
+def phase_kernels_decode_attention(torch, da):
+    """The decode attention kernel against its plain version at the main
+    paths' shapes (``DECODE_ATTENTION_CASES``, each row's cur one of the
+    cell's history lengths) and the edge cases
+    (``_decode_attention_edge_rows``); each main row's time (CUDA events,
+    the host's launch included; and the device alone, CUDA-graph replay),
+    its bound (``work.decode_attention``: the visible rows read once), the
+    plain version's time, and the instance's geometry; the build's ptxas
+    registers and spills of every instance."""
+    from repro_torch.kernels import _build, work
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    lo, hi, n = 16384, 28672, 16
+    rows = []
+    for B, Hq, Hk, L, hd, kv, role in DECODE_ATTENTION_CASES:
+        lengths = [lo + round(i * (hi - lo) / (n - 1)) for i in range(n)]
+        cur = [lengths[i % n] for i in range(B)]
+        args = _decode_attention_inputs(torch, gen, B, Hq, Hk, L, hd, kv, cur)
+        row = {"shape": [B, Hq, Hk, L, hd], "dtype": kv, "role": role, "cur": [min(cur), max(cur)],
+               **_decode_attention_compare(torch, da, args, 0, role)}
+        seen = sum(c + 1 for c in cur)
+        row_bytes = 2 * hd * (1 if kv == "int8" else 2) + (8 if kv == "int8" else 0)
+        nbytes = seen * Hk * row_bytes + B * Hq * hd * 2 + B * Hq * (hd + 1) * 4
+        b_ms, b_by = work_bound(work.decode_attention(B, Hq, Hk, hd, seen, kv, "bfloat16"), nbytes,
+                                4 * hd * Hq * seen, "float32", f"decode_attention {role}")
+        call = lambda: da.decode_attention(*args, 0, hd ** -0.5)  # noqa: E731
+        row.update(**timed(torch, call, None, 4 * hd * Hq * seen),
+                   device_ms=graph_ms(torch, call),
+                   plain_ms=cuda_ms(torch, lambda: da.decode_attention_plain(*args, 0, hd ** -0.5),
+                                    iters=3, warmup=1),
+                   bound_ms=b_ms, bound_by=b_by, bytes=nbytes, visible_positions=seen,
+                   splits=list(da.splits(L, B * Hk)))
+        row["bound_share_device"] = b_ms / row["device_ms"]
+        row["bound_share_events"] = b_ms / row["ms"]
+        rows.append(row)
+        del args
+    edge = _decode_attention_edge_rows(torch, da, gen)
+    kernels = ptxas_lines(_build.ptxas_report("decode_attention"))
+    spilled = [k["kernel"] for k in kernels if k.get("spill_stores", 0) + k.get("spill_loads", 0)]
+    emit("kernels.decode_attention", cases=rows, edge_cases=edge,
+         int8_vs_bf16_device_ms={r["role"]: r["device_ms"] for r in rows},
+         ptxas={k["kernel"]: [k.get("registers"), k.get("spill_stores", 0) + k.get("spill_loads", 0)]
+                for k in kernels},
+         spilled=spilled, library="none (no one PyTorch call reads an int8 cache with row scales)")
+    return rows + [{**r, "main_path": False} for r in edge]
+
+
 def _grad_case(torch, what, fn_kernel, fn_plain, inputs, gen, tol, launches):
     """Forward and gradients of ``fn_kernel`` (the wrapper, through its
     autograd Function) against autograd through ``fn_plain``, on the card;
@@ -1326,9 +1474,10 @@ def _expected_counts(cfg) -> dict:
 
 
 def _expected_decode_counts(cfg) -> dict:
-    """Launches of one serving decode call: a forward's, less flash attention
-    and the scan (decode runs the plain attention and scan steps)."""
-    return {**_expected_counts(cfg), "flash_attention": 0, "selective_scan": 0}
+    """Launches of one serving decode call: a forward's, with a decode
+    attention kernel where the forward runs flash (the scan step is plain)."""
+    fwd = _expected_counts(cfg)
+    return {**fwd, "flash_attention": 0, "selective_scan": 0, "decode_attention": fwd["flash_attention"]}
 
 
 def phase_prefill(torch, np, cfg, params, plans, ops, make_prefill_step, make_positions, tiles_from_plan,
@@ -1644,6 +1793,7 @@ def _expected_train_counts(cfg, plan, params, moment_dtype: str, optim) -> dict:
         "selective_scan_backward": fwd["selective_scan"],
     }
     counts = {k: v * plan.microbatches for k, v in counts.items()}
+    counts["decode_attention"] = 0
     n_quant = sum(optim._quantizable(p) for _, p in optim.leaves(params))
     counts["quantize_int8"] = counts["dequantize_int8"] = (
         2 * (moment_dtype == "int8") * _moment_chunks(optim, params) + (plan.grad_comm == "int8") * n_quant)
@@ -2998,6 +3148,9 @@ SOURCES = {
     "quantize_int8": ("src/repro_torch/kernels/csrc/quantize.cu", "src/repro/kernels/quantize.py:36"),
     "dequantize_int8": ("src/repro_torch/kernels/csrc/quantize.cu",
                         "src/repro/kernels/quantize.py:65"),
+    # the JAX package's decode attention is plain jnp: no Pallas kernel
+    "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                         "none (plain jnp: src/repro/models/attention.py decode_step)"),
 }
 _SUMMARY_KEYS = ("shape", "dtype", "role", "max_abs_err", "rel_err", "ms", "plain_ms", "bound_ms",
                  "bound_by", "library_ms", "vs_library", "achieved_tflops", "device_ms",
@@ -3410,8 +3563,10 @@ MESH_DECODE_ARCHS = tuple(MESH_DECODE_LAYERS)
 # f32 jobs' bounds (scripts/torch_fault_check.py)
 MESH_DECODE_REL = {"float32": 1e-3, "bfloat16": 1e-1}
 MESH_DECODE_CACHE_REL = {"float32": 1e-3, "bfloat16": 5e-2}
-MESH_DECODE_KERNELS = {"granite-3-2b": ("rmsnorm",), "granite-moe-1b-a400m": ("rmsnorm", "moe_gemm"),
-                       "falcon-mamba-7b": ("rmsnorm",), "stablelm-12b": ()}  # stablelm: layernorm
+MESH_DECODE_KERNELS = {"granite-3-2b": ("rmsnorm", "decode_attention"),
+                       "granite-moe-1b-a400m": ("rmsnorm", "moe_gemm", "decode_attention"),
+                       "falcon-mamba-7b": ("rmsnorm",),
+                       "stablelm-12b": ("decode_attention",)}  # stablelm: layernorm
 
 
 def _mesh_decode_setup(job):
@@ -4020,6 +4175,7 @@ def main() -> int:
     import torch.nn.functional as F
 
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gemm as mg
     from repro_torch.kernels import quantize as qt
@@ -4086,6 +4242,7 @@ def main() -> int:
     }
     rows["quantize_int8"] = rows["dequantize_int8"] = timed_phase(
         "kernels", phase_kernels_quantize, torch, qt, quantize_moment_rows(mods))
+    rows["decode_attention"] = timed_phase("kernels", phase_kernels_decode_attention, torch, da)
     rows.update(timed_phase("grad", phase_grad, torch, rn, fa, mg, ss))
 
     plans = {

@@ -16,10 +16,14 @@ model ranks (``sp_norm_grad_not_summed``), by the card's ``mesh`` phase,
 leaf by leaf.  Four faults of decode over a mesh (the partial softmaxes
 combined under each rank's own max, the mask on local positions, the new
 row at a shard's first position written on the shard before, and Mamba's
-``in_proj`` taken as a contiguous split) must be caught both by
-``tests/test_torch_mesh_decode.py`` and by the card's ``mesh_decode``
-phase: each machine runs the half it can (the tests where JAX is, the
-phase where the CUDA toolkit is), so run those cases on both:
+``in_proj`` taken as a contiguous split) must be caught by
+``tests/test_torch_mesh_decode.py`` and, all but the mask (planted in the
+plain decode attention, which the card does not run), by the card's
+``mesh_decode`` phase; the decode attention kernel's own mask on local
+positions and its combine leaving out a row's last chunk are caught by
+the card's ``kernels.decode_attention`` phase.  Each machine runs the half
+it can (the tests where JAX is, the phase where the CUDA toolkit is), so
+run those cases on both:
 
     PYTHONPATH=src python3 scripts/torch_fault_check.py DIR mesh_decode_combine_local_max \
         mesh_decode_mask_local_positions mesh_decode_write_on_neighbour \
@@ -53,7 +57,7 @@ fresh process, the ``chip_smoke`` phase that must catch it: the file's
 phase, or the case's own where it names one (the unedited control runs
 every phase of the cases run; a case checked by CPU tests runs them on
 its copy with ``pytest``).  The control must pass every check and every
-mutant (forty-two of them) must fail every check it runs.  Prints one
+mutant (forty-four of them) must fail every check it runs.  Prints one
 JSON line per case (with the failing check's numbers) and exits 1 if any
 case went the other way.
 """
@@ -78,6 +82,7 @@ PHASES = {
     "phase_kernels_scan": "chip_smoke.phase_kernels_scan(torch, F, ss)",
     "phase_kernels_quantize": ("chip_smoke.phase_kernels_quantize(torch, qt, "
                                "chip_smoke.quantize_moment_rows(chip_smoke.make_mods()))"),
+    "phase_kernels_decode_attention": "chip_smoke.phase_kernels_decode_attention(torch, da)",
     "phase_grad": "chip_smoke.phase_grad(torch, rn, fa, mg, ss)",
     "phase_decode_int8": "chip_smoke.phase_decode_int8(torch, np, chip_smoke.make_mods())",
     "phase_positions": "chip_smoke.phase_positions(torch, chip_smoke.make_mods())",
@@ -112,6 +117,7 @@ PHASE_OF = {
     "kernels/csrc/moe_gemm.cu": "phase_kernels_moe",
     "kernels/csrc/selective_scan.cu": "phase_kernels_scan",
     "kernels/csrc/quantize.cu": "phase_kernels_quantize",
+    "kernels/csrc/decode_attention.cu": "phase_kernels_decode_attention",
     "kernels/rmsnorm.py": "phase_grad",
     "models/attention.py": "phase_decode_int8",
     "models/layers.py": "phase_positions",
@@ -339,14 +345,25 @@ CASES = {
     # decode over a cache split by position: the partial softmaxes combined
     # under each rank's own max, with no rescale to the global one
     "mesh_decode_combine_local_max": ("sharding/collectives.py", [(
-        'm = all_reduce_(logits.amax(dim=-1, keepdim=True).contiguous(), mesh, axes, "max")',
-        "m = logits.amax(dim=-1, keepdim=True)",
+        'm = all_reduce_(lse.clone(memory_format=torch.contiguous_format), mesh, axes, "max")',
+        "m = lse.clone()",
     )], ("tests_mesh_decode", "phase_mesh_decode")),
-    # the mask compares a rank's local position with the row's global cur
-    "mesh_decode_mask_local_positions": ("models/attention.py", [(
-        "t = torch.arange(o, o + L, device=x.device)  # global positions",
-        "t = torch.arange(L, device=x.device)  # global positions",
-    )], ("tests_mesh_decode", "phase_mesh_decode")),
+    # the plain decode attention's mask compares a rank's local position
+    # with the row's global cur (the CPU path; the card runs the kernel)
+    "mesh_decode_mask_local_positions": ("kernels/decode_attention.py", [(
+        "t = torch.arange(o, o + L, device=q.device)  # global positions",
+        "t = torch.arange(L, device=q.device)  # global positions",
+    )], "tests_mesh_decode"),
+    # the kernel's mask likewise: a rank's first position taken as 0
+    "decode_attention_mask_local_positions": ("kernels/csrc/decode_attention.cu", [(
+        "const long long lim = a.cur[a.cur_per_row ? b : 0] - a.off + 1;",
+        "const long long lim = a.cur[a.cur_per_row ? b : 0] + 1;",
+    )], "phase_kernels_decode_attention"),
+    # the combine leaves out each row's last visible chunk
+    "decode_attention_combine_drops_last_chunk": ("kernels/csrc/decode_attention.cu", [(
+        "const int nv = (visible_end(a, b) + a.chunk - 1) / a.chunk;",
+        "const int nv = max(1, (visible_end(a, b) + a.chunk - 1) / a.chunk - 1);",
+    )], "phase_kernels_decode_attention"),
     # the new row at a shard's first position is written at the end of the
     # shard before it
     "mesh_decode_write_on_neighbour": ("models/attention.py", [(
@@ -403,8 +420,8 @@ sys.path.insert(0, "src")
 import numpy as np
 import torch, torch.nn.functional as F
 import chip_smoke
-from repro_torch.kernels import flash_attention as fa, moe_gemm as mg, quantize as qt
-from repro_torch.kernels import rmsnorm as rn, selective_scan as ss
+from repro_torch.kernels import decode_attention as da, flash_attention as fa, moe_gemm as mg
+from repro_torch.kernels import quantize as qt, rmsnorm as rn, selective_scan as ss
 from repro_torch.kernels import _build
 torch.backends.cuda.matmul.allow_tf32 = False
 {call}

@@ -12,6 +12,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import moe_gemm as _mg
 from repro_torch.kernels import quantize as _qt
@@ -47,6 +48,7 @@ COUNTERS = {
     "selective_scan_backward": _ss.BWD_LAUNCHES,
     "quantize_int8": _qt.QUANT_LAUNCHES,
     "dequantize_int8": _qt.DEQUANT_LAUNCHES,
+    "decode_attention": _da.LAUNCHES,
 }
 
 
@@ -66,6 +68,15 @@ def attention(q, k, v, *, causal: bool = True, tiles: KernelTiles = DEFAULT_TILE
     return _fa.flash_attention(
         q, k, v, causal=causal, block_q=tiles.attn_block_q, block_kv=tiles.attn_block_kv
     )
+
+
+def decode_attention(q, k, v, k_s, v_s, cur, o: int, scale: float) -> tuple:
+    """One new query a row over the KV cache as stored: ``q (B, Hq, hd)``,
+    ``k``/``v (B, Hk, L, hd)`` (int8 with ``k_s``/``v_s (B, Hk, L, 1)``, or
+    bf16/f32 with None), ``cur`` the new token's global position (scalar or
+    ``(B,)``, on the device), ``o`` the first position ``k`` holds ->
+    ``(att (B, Hq, hd) f32, lse (B, Hq) f32)``."""
+    return _da.decode_attention(q, k, v, k_s, v_s, cur, o, scale)
 
 
 def rmsnorm(x, w, *, eps: float = 1e-6) -> torch.Tensor:

@@ -17,7 +17,10 @@ These are the formulas behind ``chip_smoke.py``'s bound columns and
 * selective scan: B·L·Di·(7·N + 3) f32 operations; u, dt, y (a channel
   each), Bm, Cm (a state each) and A, D; backward 25 a state update;
 * quantize: x read, q and the scales written, 4 operations an element;
-  dequantize: q and the scales read, the output written, 1 an element.
+  dequantize: q and the scales read, the output written, 1 an element;
+* decode attention: 4·D f32 operations a visible (position, q-head) pair
+  (the two products); each visible K and V row read once (and its two f32
+  scales in an int8 cache), q read, att and lse written.
 
 ``bound_ms`` turns a ``Work`` into the least time a card could take.
 
@@ -59,7 +62,7 @@ def bound_ms(work: Work, hbm_bytes_per_s: float, peak_ops: Dict[str, float]) -> 
 
 
 def _esize(dtype: str) -> int:
-    return {"float32": 4, "bfloat16": 2}[dtype]
+    return {"float32": 4, "bfloat16": 2, "int8": 1}[dtype]
 
 
 def visible_pairs(Sq: int, Skv: int, causal: bool) -> int:
@@ -117,6 +120,15 @@ def quantize_int8(R: int, C: int, dtype: str) -> Work:
 
 def dequantize_int8(R: int, C: int, out_dtype: str) -> Work:
     return Work(R * C, R * C + 4 * R + R * C * _esize(out_dtype), "float32")
+
+
+def decode_attention(B: int, Hq: int, Hkv: int, D: int, seen: int, kv_dtype: str,
+                     q_dtype: str) -> Work:
+    """One new query a row over ``seen`` visible positions summed over the
+    ``B`` rows, each read for every one of the ``Hkv`` KV heads."""
+    row = 2 * D * _esize(kv_dtype) + (8 if kv_dtype == "int8" else 0)
+    nbytes = seen * Hkv * row + B * Hq * D * _esize(q_dtype) + B * Hq * (D + 1) * 4
+    return Work(4 * D * Hq * seen, nbytes, "float32")
 
 
 # ---------------------------------------------------------------------------

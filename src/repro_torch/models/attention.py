@@ -192,8 +192,10 @@ def decode_step(
 
     An int8 cache (``k_s`` / ``v_s`` scales, ``init_cache(kv_dtype="int8")``)
     takes each new K and V row through the quantize kernel and is never
-    dequantized: the scales fold into the logits and the probabilities, and
-    the codes go int8 -> bf16 -> f32 in the products, as in the JAX package.
+    dequantized: the scales fold into the logits and the probabilities, as
+    in the JAX package.  The attention over the cache is
+    ``ops.decode_attention``: on the card a kernel that reads the codes as
+    stored, on the CPU the plain version (int8 -> bf16 -> f32 products).
 
     ``par`` (a ``ParamView``, one device's by default) with its context's
     decode layout (``ParallelContext.for_decode``): ``x`` holds this rank's
@@ -203,7 +205,8 @@ def decode_step(
     positions are split (over ``model``, or the whole mesh for batch-1
     long context) the rank holds ``[o, o + L)``, writes the new row only
     where ``cur`` lies there, masks by global position, and the partial
-    softmaxes combine explicitly (``collectives.softmax_combine``); a rank
+    softmaxes combine from each rank's log-sum-exp
+    (``collectives.softmax_combine``); a rank
     that runs only some q heads then attends with every head (q gathered
     over ``model``: the other model ranks hold other positions of them)."""
     par = par or local_view(p)
@@ -235,12 +238,7 @@ def decode_step(
             _write_at_cur_(k, k_new.to(k.dtype), cur, commit, o)
             _write_at_cur_(v, v_new.to(v.dtype), cur, commit, o)
     with span("attn.attend"):
-        if int8_kv:
-            k_scale = cache["k_s"][..., 0][:, :, None, None, :]  # (B, Hkv, 1, 1, L)
-            v_scale = cache["v_s"][..., 0][:, :, None, None, :]
-            k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
-        else:
-            k_scale = v_scale = None
+        k_s, v_s = cache.get("k_s"), cache.get("v_s")
         Hq = q.shape[1]
         every_head = heads_tp and "model" in seq_axes
         if every_head:
@@ -251,23 +249,11 @@ def decode_step(
             lo, n_kv = ctx.tp_rank * Hq // g, max(1, Hq // g)
             k, v = k[:, lo:lo + n_kv], v[:, lo:lo + n_kv]
             if int8_kv:
-                k_scale, v_scale = k_scale[:, lo:lo + n_kv], v_scale[:, lo:lo + n_kv]
-        # GQA-grouped masked attention over the cache: query heads reshape to
-        # (Hkv, groups) so the cache is never repeated; f32 on the logits.
-        # Plain PyTorch, as the JAX package's decode attention is plain jnp.
-        Hk = k.shape[1]
-        qg = q.reshape(B, Hk, q.shape[1] // Hk, 1, hd)
-        logits = torch.einsum("bkgqd,bktd->bkgqt", qg.float(), k.float()) * (hd ** -0.5)
-        if int8_kv:
-            logits = logits * k_scale
-        t = torch.arange(o, o + L, device=x.device)  # global positions
-        lim = cur[:, None, None, None, None] if per_row else cur
-        logits = logits.masked_fill(~(t <= lim), -1e30)
-        probs = torch.softmax(logits, dim=-1)
-        if int8_kv:
-            probs = probs * v_scale
-        att = torch.einsum("bkgqt,bktd->bkgqd", probs, v.float())
-        att = cc.softmax_combine(att, logits, ctx.mesh, seq_axes).to(x.dtype)
+                k_s, v_s = k_s[:, lo:lo + n_kv], v_s[:, lo:lo + n_kv]
+        # GQA-grouped masked attention over the cache as stored (a view of
+        # some KV heads is read in place); f32, as the JAX package's
+        att, lse = ops.decode_attention(q[:, :, 0], k, v, k_s, v_s, cur, o, hd ** -0.5)
+        att = cc.softmax_combine(att, lse, ctx.mesh, seq_axes).to(x.dtype)
         att = att.reshape(B, -1, 1, hd)
         if every_head:
             att = att[:, ctx.tp_rank * Hq:(ctx.tp_rank + 1) * Hq]

@@ -132,22 +132,23 @@ def all_reduce_max(t: torch.Tensor, mesh, axes) -> torch.Tensor:
     return all_reduce_(t.detach().contiguous().clone(), mesh, axes, "max")
 
 
-def softmax_combine(o: torch.Tensor, logits: torch.Tensor, mesh, axes) -> torch.Tensor:
+def softmax_combine(o: torch.Tensor, lse: torch.Tensor, mesh, axes) -> torch.Tensor:
     """``softmax(l) . v`` over every rank's positions of ``axes``, from each
-    rank's own: ``o`` is ``softmax(logits) . v`` (f32) over this rank's
-    positions (the last dim of ``logits``, masked with a large negative
-    value) and the result is the softmax over all of them.
+    rank's own: ``o`` is ``softmax(l) . v`` (f32) over this rank's positions
+    and ``lse`` (``o``'s shape less its last dim) the log-sum-exp of this
+    rank's logits ``l`` (masked positions at a large negative value or
+    ``-inf``); the result is the softmax over all of them.
 
-    The row max is taken over the group (MAX); each rank's share of the sum
-    under that max is ``w = sum(exp(l - m))``; ``o * w`` and ``w`` add up over
+    The largest ``lse`` is taken over the group (MAX); each rank's share of
+    the sum under it is ``w = exp(lse - m)``; ``o * w`` and ``w`` add up over
     the group in one f32 all-reduce (SUM), and their quotient is the whole
     softmax's product.  A rank whose positions all lie past the row's
     ``cur`` has ``w = 0`` and adds nothing.  A group of one rank holds the
     whole softmax: ``o`` comes back as it is."""
     if mesh.size(axes) == 1:
         return o
-    m = all_reduce_(logits.amax(dim=-1, keepdim=True).contiguous(), mesh, axes, "max")
-    w = torch.exp(logits - m).sum(dim=-1, keepdim=True)
+    m = all_reduce_(lse.clone(memory_format=torch.contiguous_format), mesh, axes, "max")
+    w = torch.exp(lse - m)[..., None]
     packed = all_reduce_(torch.cat([(o * w).flatten(), w.flatten()]), mesh, axes)
     num, den = packed[:o.numel()].view(o.shape), packed[o.numel():].view(w.shape)
     return num / den

@@ -225,7 +225,7 @@ def test_collective_counts_follow_the_ring_formulas():
     assert cc.all_reduce_(x, mesh, "data") is x
     assert cc.ppermute(x, mesh, "model").shape == x.shape
     assert cc.all_gather_raw(x, mesh, ("pod",), 1).shape == (12, 16)
-    out = cc.softmax_combine(torch.empty((3, 5), device="meta"), torch.empty((3, 7), device="meta"),
+    out = cc.softmax_combine(torch.empty((3, 5), device="meta"), torch.empty((3,), device="meta"),
                              mesh, "model")
     assert out.shape == (3, 5)
     assert cc.COLL == {

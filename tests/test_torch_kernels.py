@@ -18,6 +18,7 @@ import torch
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as jax_flash_attention
 from repro.kernels.rmsnorm import rmsnorm as jax_rmsnorm
+from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import _build, geometry, ops, ref
 from repro_torch.kernels import moe_gemm as mg
@@ -265,6 +266,9 @@ def test_wrappers_refuse_other_devices():
     x = _other(4, 64)
     with pytest.raises(ValueError):
         rn.rmsnorm_backward(x, _other(64), x)
+    q, kv = _other(2, 4, 64), _other(2, 2, 16, 64)
+    with pytest.raises(ValueError):
+        da.decode_attention(q, kv, kv, None, None, _other(2), 0, 0.125)
 
 
 # ---------------------------------------------------------------------------
@@ -275,7 +279,8 @@ def test_kernel_tiles_are_the_jax_defaults():
     assert (t.moe_block_c, t.moe_block_f, t.moe_block_d) == (128, 256, 256)
     assert set(ops.COUNTERS) == {"rmsnorm", "rmsnorm_backward", "flash_attention",
                                  "flash_attention_backward", "moe_gemm", "selective_scan",
-                                 "selective_scan_backward", "quantize_int8", "dequantize_int8"}
+                                 "selective_scan_backward", "quantize_int8", "dequantize_int8",
+                                 "decode_attention"}
 
 
 @pytest.mark.parametrize(

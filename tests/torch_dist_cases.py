@@ -250,6 +250,36 @@ def decode_cases(mesh, cases: list, trees: dict) -> list:
 # ---------------------------------------------------------------------------
 # The dry run against a real step (tests/test_torch_dryrun.py)
 # ---------------------------------------------------------------------------
+def combine_case(mesh, q, k, v, k_s, v_s, cur, axes) -> tuple:
+    """A cache of ``L`` positions (numpy ``(B, Hk, L, hd)``; ``k_s``/``v_s``
+    the scales of an int8 one, or None) split by position over ``axes``:
+    this rank attends over its shard with the plain version, and the shards
+    combine twice, from each rank's ``lse`` (``softmax_combine``) and by the
+    rule that combined from the masked logits themselves: both results."""
+    from repro_torch.kernels import decode_attention as da
+
+    n, r = mesh.size(axes), mesh.index(axes)
+    Lr, hd = k.shape[2] // n, q.shape[-1]
+    mine = slice(r * Lr, (r + 1) * Lr)
+    t = lambda x: None if x is None else torch.from_numpy(np.ascontiguousarray(x[:, :, mine]))  # noqa: E731
+    q_, cur_ = torch.from_numpy(q), torch.from_numpy(cur)
+    k_, v_, ks_, vs_ = t(k), t(v), t(k_s), t(v_s)
+    att, lse = da.decode_attention_plain(q_, k_, v_, ks_, vs_, cur_, r * Lr, hd ** -0.5)
+    new = cc.softmax_combine(att, lse, mesh, axes)
+    # the masked logits as the plain version forms them, (B, Hq, Lr)
+    B, Hq, Hk = q.shape[0], q.shape[1], k.shape[1]
+    kf = k_.float() if ks_ is None else k_.to(torch.bfloat16).float() * ks_
+    logits = torch.einsum("bkgd,bktd->bkgt", q_.float().reshape(B, Hk, Hq // Hk, hd), kf)
+    logits = (logits * hd ** -0.5).reshape(B, Hq, Lr)
+    pos = torch.arange(r * Lr, (r + 1) * Lr)
+    logits = logits.masked_fill(~(pos <= cur_[:, None, None]), -1e30)
+    m = cc.all_reduce_(logits.amax(dim=-1, keepdim=True).contiguous(), mesh, axes, "max")
+    w = torch.exp(logits - m).sum(dim=-1, keepdim=True)
+    packed = cc.all_reduce_(torch.cat([(att * w).flatten(), w.flatten()]), mesh, axes)
+    old = packed[:att.numel()].view(att.shape) / packed[att.numel():].view(w.shape)
+    return new.numpy(), old.numpy(), lse.numpy()
+
+
 @contextlib.contextmanager
 def plain_kernels_counted():
     """Each kernel wrapper replaced by its plain version that counts launches
@@ -257,8 +287,8 @@ def plain_kernels_counted():
     (grad on and an input that requires grad) one a backward (the grouped
     GEMM's backward: one for each operand whose gradient is needed), by a
     hook on the output.  CPU only: the card runs the kernels."""
-    from repro_torch.kernels import flash_attention as fa, moe_gemm as mg, quantize as qt
-    from repro_torch.kernels import rmsnorm as rn, selective_scan as ss
+    from repro_torch.kernels import decode_attention as da, flash_attention as fa, moe_gemm as mg
+    from repro_torch.kernels import quantize as qt, rmsnorm as rn, selective_scan as ss
 
     def recorded(*ts):
         return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
@@ -302,7 +332,12 @@ def plain_kernels_counted():
         qt.DEQUANT_LAUNCHES.add()
         return qt.dequantize_int8_plain(q, scale, dtype=dtype)
 
+    def decode_attention(q, k, v, k_s, v_s, cur, o, scale):
+        da.LAUNCHES.add()
+        return da.decode_attention_plain(q, k, v, k_s, v_s, cur, o, scale)
+
     fakes = [(rn, "rmsnorm", rmsnorm), (fa, "flash_attention", flash_attention),
+             (da, "decode_attention", decode_attention),
              (mg, "moe_gemm", moe_gemm), (ss, "selective_scan", selective_scan),
              (qt, "quantize_int8", quantize_int8), (qt, "dequantize_int8", dequantize_int8)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in fakes]
