@@ -26,9 +26,10 @@ limit as ``nvidia-smi`` reports them):
    captured 20 to a CUDA graph and timed by replaying it, so the host's
    time a launch drops out.
 3b. ``kernels.decode_attention``: the decode step's attention over the KV
-   cache against its plain version at the benchmark cell's shapes (16 rows,
+   cache against its plain version at the benchmark cells' shapes (16 rows,
    16/8 heads of 64, a 32k cache, each row's cur one of the cell's history
-   lengths), deepseek-67b's 64/8 x 128 and stablelm-12b's 32/8 x 160, each
+   lengths; jamba2-mini's 32/8 x 128 over a 256k cache, histories 128k-240k),
+   deepseek-67b's 64/8 x 128 and stablelm-12b's 32/8 x 160, each
    with an int8 and a bf16 cache: events and device ms (graph replay), the
    bound, the plain version's ms; then head_dim x cache dtype x query
    heads a KV head edge cases, a strided view of some KV heads and a rank
@@ -483,7 +484,8 @@ def ptxas_lines(text: str) -> list:
 def phase_kernels_rmsnorm(torch, F, rn):
     """The forward kernel against its plain version at every main-path width
     (granite-3-2b 2048, granite-moe 1024, falcon-mamba 4096, deepseek-67b and
-    qwen2-vl-72b 8192; prefill and decode rows), ``test_kernels.py``'s
+    qwen2-vl-72b 8192; prefill and decode rows; jamba2-mini's decode rows of
+    4096 and its Mamba inner norms of dt (256) and B, C (16)), ``test_kernels.py``'s
     shapes, ragged widths and the widest rows a group of warps holds.  Timed
     rows carry the kernel's and ``F.rms_norm``'s ``ms`` (CUDA events over
     back-to-back calls: the host's time a launch included where it is the
@@ -497,6 +499,9 @@ def phase_kernels_rmsnorm(torch, F, rn):
         ((4, 4096), "bfloat16", "decode falcon-mamba"),
         ((SEQ, 8192), "bfloat16", "prefill deepseek-67b / qwen2-vl-72b"),
         ((4, 8192), "bfloat16", "decode deepseek-67b"),
+        ((16, 4096), "bfloat16", "decode jamba2-mini, 16 slots"),
+        ((16, 256), "bfloat16", "decode jamba2-mini inner norm of dt"),
+        ((16, 16), "bfloat16", "decode jamba2-mini inner norms of B and C"),
         ((3, 7, 64), "float32", "test"), ((16, 128), "float32", "test"), ((5, 96), "float32", "test"),
         ((3, 7, 64), "bfloat16", "test"), ((16, 128), "bfloat16", "test"), ((5, 96), "bfloat16", "test"),
         ((7, 2050), "bfloat16", "ragged width"), ((9, 1000), "float32", "ragged width"),
@@ -628,7 +633,8 @@ def phase_kernels_flash(torch, F, fa):
 def phase_kernels_moe(torch, F, mg):
     # (E, C, d, f, block_c, block_f, block_d, dtype, role[, x_t, w_t]):
     # granite-moe's prefill at 1x4096 (C = capacity(4096) = 1280) and decode
-    # at 4 slots (C = 8), test_kernels.py's f32 tiles, ragged tiles, and the
+    # at 4 slots (C = 8), jamba2-mini's decode at 16 slots (16 experts, C = 8,
+    # 4096 <-> 14336), test_kernels.py's f32 tiles, ragged tiles, and the
     # bf16 kernel's edges: one consumer warpgroup, a block_d off the 64-deep
     # ring stage, two column chunks, and every operand layout (x stored
     # (E,d,C), w stored (E,f,d)) at a ragged shape
@@ -637,6 +643,8 @@ def phase_kernels_moe(torch, F, mg):
         (32, 1280, 512, 1024, 128, 256, 256, "bfloat16", "prefill down"),
         (32, 8, 1024, 512, 128, 256, 256, "bfloat16", "decode up/gate, 4 slots"),
         (32, 8, 512, 1024, 128, 256, 256, "bfloat16", "decode down, 4 slots"),
+        (16, 8, 4096, 14336, 128, 256, 256, "bfloat16", "decode jamba2-mini up/gate, 16 slots"),
+        (16, 8, 14336, 4096, 128, 256, 256, "bfloat16", "decode jamba2-mini down, 16 slots"),
         (4, 32, 64, 48, 16, 16, 32, "float32", "test"),
         (2, 16, 32, 32, 16, 32, 16, "float32", "test"),
         (8, 8, 16, 16, 8, 16, 16, "float32", "test"),
@@ -964,7 +972,12 @@ DECODE_ATTENTION_CASES = [
     (16, 64, 8, 32768, 128, "bfloat16", "deepseek-67b, bf16 cache"),
     (16, 32, 8, 32768, 160, "int8", "stablelm-12b 32/8 x 160"),
     (16, 32, 8, 32768, 160, "bfloat16", "stablelm-12b, bf16 cache"),
+    (16, 32, 8, 262144, 128, "int8", "jamba2-mini decode-256k cell"),
+    (16, 32, 8, 262144, 128, "bfloat16", "jamba2-mini, bf16 cache"),
 ]
+# each case's rows sit at the history lengths of its benchmark cell: evenly
+# spaced over this range (the granite cell's where the case names none)
+DECODE_ATTENTION_HISTORIES = {262144: (131072, 245760)}
 # kernel against plain: both sum in f32, in other orders (the kernel over
 # chunks, lane groups and shuffles; the plain version in cuBLAS's gemv), so
 # they agree to f32 rounding of sums over up to ~29k positions
@@ -1056,9 +1069,10 @@ def phase_kernels_decode_attention(torch, da):
     from repro_torch.kernels import _build, work
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
-    lo, hi, n = 16384, 28672, 16
+    n = 16
     rows = []
     for B, Hq, Hk, L, hd, kv, role in DECODE_ATTENTION_CASES:
+        lo, hi = DECODE_ATTENTION_HISTORIES.get(L, (16384, 28672))
         lengths = [lo + round(i * (hi - lo) / (n - 1)) for i in range(n)]
         cur = [lengths[i % n] for i in range(B)]
         args = _decode_attention_inputs(torch, gen, B, Hq, Hk, L, hd, kv, cur)

@@ -292,10 +292,10 @@ CASES = {
     # the int8 KV cache writes the new row's K and V scales one position
     # early: the row at cur keeps the scale it had
     "int8_kv_scale_written_one_position_off": ("models/attention.py", [(
-        '        _write_at_cur_(cache["k_s"], ks, cur, commit, o)\n'
-        '        _write_at_cur_(cache["v_s"], vs, cur, commit, o)\n',
-        '        _write_at_cur_(cache["k_s"], ks, cur - 1, commit, o)\n'
-        '        _write_at_cur_(cache["v_s"], vs, cur - 1, commit, o)\n',
+        '            _write_at_cur_(cache["k_s"], ks, cur, commit, o)\n'
+        '            _write_at_cur_(cache["v_s"], vs, cur, commit, o)\n',
+        '            _write_at_cur_(cache["k_s"], ks, cur - 1, commit, o)\n'
+        '            _write_at_cur_(cache["v_s"], vs, cur - 1, commit, o)\n',
     )]),
     # the decode path quantizes the new K and V rows with the plain version,
     # on the card too
@@ -372,11 +372,11 @@ CASES = {
     # Mamba's decode takes in_proj's columns as a contiguous split of [x | z]
     # (rank 0 all of x at tp 2) instead of its own channels of each half
     "mamba_decode_in_proj_whole_split": ("models/mamba.py", [(
-        '    xi, z = (x[:, 0] @ p["in_proj"]).chunk(2, dim=-1)  # (B, Di) each: this rank\'s channels\n',
-        '    xz = cc.all_gather_raw(x[:, 0] @ p["in_proj"], par.mesh, "model", 1)\n'
-        "    n = par.ctx.tp\n"
-        "    xz = xz.reshape(xz.shape[0], n, 2, -1).transpose(1, 2).reshape(xz.shape[0], -1)\n"
-        "    xi, z = xz.chunk(n, dim=-1)[par.ctx.tp_rank].chunk(2, dim=-1)\n",
+        '        xi, z = (x[:, 0] @ p["in_proj"]).chunk(2, dim=-1)  # (B, Di) each: this rank\'s channels\n',
+        '        xz = cc.all_gather_raw(x[:, 0] @ p["in_proj"], par.mesh, "model", 1)\n'
+        "        n = par.ctx.tp\n"
+        "        xz = xz.reshape(xz.shape[0], n, 2, -1).transpose(1, 2).reshape(xz.shape[0], -1)\n"
+        "        xi, z = xz.chunk(n, dim=-1)[par.ctx.tp_rank].chunk(2, dim=-1)\n",
     )], ("tests_mesh_decode", "phase_mesh_decode")),
     # the dry run: the flash forward's meta branch records each launch twice
     # (caught against a real step's launches, on the CPU and on the card)

@@ -1,15 +1,17 @@
 """Architecture registry of the port: ``get_config(arch_id)``.
 
-Every arch id of the JAX package resolves, in the JAX package's order.  Which
-of them fit one H100 at full width is ``PERF.md`` section 4's business: the
-configs are the published ones whatever the card holds.
+Every arch id of the JAX package resolves, in the JAX package's order
+(``ARCH_IDS``, the cells ``cells()`` walks); the archs the port adds beyond
+them (``PORT_ARCH_IDS``) resolve too.  Which of them fit one H100 at full
+width is ``PERF.md`` section 4's business: the configs are the published
+ones whatever the card holds.
 """
 from __future__ import annotations
 
 import importlib
 from typing import List
 
-from repro_torch.configs.base import SHAPES, InputShape, LayerSpec, ModelConfig
+from repro_torch.configs.base import SHAPES, InputShape, LayerSpec, ModelConfig, PortConfig
 
 _MODULES = {
     "qwen2-vl-72b": "qwen2_vl_72b",
@@ -24,14 +26,20 @@ _MODULES = {
     "falcon-mamba-7b": "falcon_mamba_7b",
 }
 
+# archs of the port alone: no JAX counterpart, so no JAX parity test or cell
+_PORT_MODULES = {
+    "jamba2-mini": "jamba2_mini",
+}
+
 ARCH_IDS: List[str] = list(_MODULES)
+PORT_ARCH_IDS: List[str] = list(_PORT_MODULES)
 
 
 def get_config(arch_id: str) -> ModelConfig:
-    if arch_id not in _MODULES:
-        raise KeyError(f"unknown arch {arch_id!r}; the port runs: {ARCH_IDS}")
-    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
-    return mod.CONFIG
+    module = _MODULES.get(arch_id) or _PORT_MODULES.get(arch_id)
+    if module is None:
+        raise KeyError(f"unknown arch {arch_id!r}; the port runs: {ARCH_IDS + PORT_ARCH_IDS}")
+    return importlib.import_module(f"repro_torch.configs.{module}").CONFIG
 
 
 def get_shape(name: str) -> InputShape:
@@ -52,5 +60,5 @@ def cells(include_skipped: bool = False):
             yield cfg, shape
 
 
-__all__ = ["ARCH_IDS", "SHAPES", "InputShape", "LayerSpec", "ModelConfig", "cells", "get_config",
-           "get_shape"]
+__all__ = ["ARCH_IDS", "PORT_ARCH_IDS", "SHAPES", "InputShape", "LayerSpec", "ModelConfig", "PortConfig",
+           "cells", "get_config", "get_shape"]

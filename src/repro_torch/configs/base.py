@@ -3,6 +3,12 @@
 A copy of the JAX package's ``configs/base.py`` (pure Python): the port keeps
 its own so that nothing of the JAX package is imported.  ``reduced()``
 derives the CPU-test variant of the same family (same layer plan, tiny dims).
+
+``PortConfig`` adds the fields of mechanisms that no arch of the JAX package
+has (Jamba's attention offset, the Mamba mixer's inner norms, top-k weights
+left unnormalised).  ``ModelConfig`` holds each as a class attribute at its
+default, so every ``ModelConfig`` computes as the JAX package's and its
+fields stay the JAX package's, one for one.
 """
 from __future__ import annotations
 
@@ -81,6 +87,11 @@ class ModelConfig:
     dtype: str = "bfloat16"
     source: str = ""
 
+    # ``PortConfig``'s fields at their defaults (class attributes, no fields)
+    attn_offset = 0
+    mamba_inner_norms = False
+    moe_renormalize = True
+
     # -- derived ------------------------------------------------------------
     @property
     def resolved_head_dim(self) -> int:
@@ -123,7 +134,7 @@ class ModelConfig:
             if self.is_attention_free:
                 mixer = "mamba"
             elif self.attn_every:
-                mixer = "attn" if i == 0 else "mamba"
+                mixer = "attn" if i == self.attn_offset else "mamba"
             else:
                 mixer = "attn"
             if self.d_ff == 0:
@@ -160,7 +171,8 @@ class ModelConfig:
         dt_proj = dtr * di + di
         a_d = di * ds + di
         out_proj = di * d
-        return in_proj + conv + x_proj + dt_proj + a_d + out_proj
+        norms = dtr + 2 * ds if self.mamba_inner_norms else 0
+        return in_proj + conv + x_proj + dt_proj + a_d + out_proj + norms
 
     def _mlp_params(self, spec: LayerSpec) -> Tuple[int, int]:
         """(total, active) parameters of the MLP slot."""
@@ -216,6 +228,16 @@ class ModelConfig:
             dt_rank=8 if self.is_ssm else 0,
             dtype="float32",
         )
+
+
+@dataclass(frozen=True)
+class PortConfig(ModelConfig):
+    """A ``ModelConfig`` with the port's own fields; their defaults change
+    nothing."""
+
+    attn_offset: int = 0  # hybrid: the attention layer's index in the period (Jamba's attn_layer_offset)
+    mamba_inner_norms: bool = False  # RMS norms of dt, B and C after x_proj (Jamba's mixer)
+    moe_renormalize: bool = True  # top-k weights over their sum; False: the softmax's as they are
 
 
 def _lcm(a: int, b: int) -> int:

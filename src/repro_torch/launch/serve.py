@@ -2,10 +2,12 @@
 
     python -m repro_torch.launch.serve --arch ARCH [--smoke] [--device cpu]
 
-ARCH is any arch the port registers (``repro_torch.configs.ARCH_IDS``):
-granite-3-2b, granite-moe-1b-a400m, falcon-mamba-7b, nemotron-4-15b and
-stablelm-12b fit one H100 at full width; deepseek-67b, jamba-1.5-large-398b
-and phi3.5-moe-42b-a6.6b only with ``--smoke`` (the reduced config).  The
+ARCH is any arch the port registers (``repro_torch.configs.ARCH_IDS`` and
+``PORT_ARCH_IDS``): granite-3-2b, granite-moe-1b-a400m, falcon-mamba-7b,
+nemotron-4-15b and stablelm-12b fit one H100 at full width; deepseek-67b,
+jamba-1.5-large-398b, phi3.5-moe-42b-a6.6b and jamba2-mini (whose 32 layers
+fit at 16, one stage of a two-card pipeline) only with ``--smoke`` (the
+reduced config).  The
 engine drives token-input archs: for musicgen-large and qwen2-vl-72b (a stub
 frontend's embeddings in) it says so and returns 0, as the JAX package's CLI
 does.  Runs on the CUDA device unless ``--device cpu`` is given; weights are

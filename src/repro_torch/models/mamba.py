@@ -4,7 +4,16 @@ The counterpart of the JAX package's ``models/mamba.py``.  ``forward`` runs
 the scan through ``ops.selective_scan`` (the CUDA kernel on the card);
 ``decode_step`` advances the conv window and the f32 SSM state by one token
 with the plain ``selective_scan_step`` and, unlike the JAX step, writes the
-new state into the cache in place, in the rows of ``commit`` only.
+new state into the cache in place, in the rows of ``commit`` only.  Where
+``cfg.mamba_inner_norms`` (Jamba's mixer) ``dt``, ``B`` and ``C`` pass an RMS
+norm of their own learned weights (``dt_norm``, ``B_norm``, ``C_norm``) right
+after ``x_proj``.
+
+Spans (``runtime.tracing``; ``step`` None outside a serve step):
+``mamba.project`` (``in_proj``), ``mamba.conv`` (the window, the conv and
+silu), ``mamba.ssm`` (``x_proj``, the norms, ``dt`` and the scan or its
+step), ``mamba.out`` (the gate and ``out_proj``) and, in the decode step,
+``mamba.state_write`` (the conv window's and the state's commits).
 """
 from __future__ import annotations
 
@@ -18,13 +27,15 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ops import KernelTiles
 from repro_torch.models import layers
+from repro_torch.runtime.tracing import span
 from repro_torch.sharding import collectives as cc
 from repro_torch.sharding.parallel import local_view
 
 
 def init(cfg: ModelConfig, gen: torch.Generator, device, n_periods: int = 0) -> dict:
     """Weights of one Mamba slot; with ``n_periods`` a stacked leading axis.
-    ``A_log`` and ``Dp`` are f32 whatever the model dtype, as in the JAX package."""
+    ``A_log`` and ``Dp`` are f32 whatever the model dtype, as in the JAX package;
+    the inner norms' weights (``cfg.mamba_inner_norms``) start at one."""
     d, Di, N = cfg.d_model, cfg.d_inner, cfg.ssm_state
     dtr, K = cfg.resolved_dt_rank, cfg.conv_width
     dt = getattr(torch, cfg.dtype)
@@ -32,7 +43,7 @@ def init(cfg: ModelConfig, gen: torch.Generator, device, n_periods: int = 0) -> 
     lead = (n_periods,) if n_periods else ()
     # S4D-real initialization for A: A[d, n] = -(n + 1)
     a = torch.arange(1, N + 1, dtype=torch.float32, device=device).expand(lead + (Di, N))
-    return {
+    p = {
         "in_proj": layers.dense_init(gen, lead + (d, 2 * Di), dt, device),
         "conv_w": layers.dense_init(gen, lead + (K, Di), dt, device, scale=0.1),
         "conv_b": torch.zeros(lead + (Di,), dtype=dt, device=device),
@@ -43,6 +54,10 @@ def init(cfg: ModelConfig, gen: torch.Generator, device, n_periods: int = 0) -> 
         "Dp": torch.ones(lead + (Di,), dtype=torch.float32, device=device),
         "out_proj": layers.dense_init(gen, lead + (Di, d), dt, device, scale=o_scale),
     }
+    if cfg.mamba_inner_norms:
+        for name, width in zip(_NORMS, (dtr, N, N)):
+            p[name] = torch.ones(lead + (width,), dtype=dt, device=device)
+    return p
 
 
 def _conv_causal(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -55,17 +70,23 @@ def _conv_causal(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
     return (y + b.float()).to(x.dtype)
 
 
+_NORMS = ("dt_norm", "B_norm", "C_norm")  # the inner norms' weights, of dt_raw, B and C
+
+
 def _ssm_inputs(p: dict, xc: torch.Tensor, cfg: ModelConfig, par=None):
     """``dt``, ``A``, ``B``, ``C`` of the scan.  Under a ``d_inner``-parallel
     ``par``, ``x_proj`` is row-split: its partial ``(dt, B, C)`` add up over
     ``model`` (and the sum's gradient, which each rank's channels give a
-    part of, adds up too)."""
+    part of, adds up too), so the inner norms see whole rows."""
     dtr, N = cfg.resolved_dt_rank, cfg.ssm_state
     proj = xc @ p["x_proj"]  # (..., dtr + 2N)
     if par is not None:
         mesh = par.mesh
         proj = cc.copy_to_region(cc.all_reduce_sum(proj, mesh, "model"), mesh, "model")
     dt_raw, Bm, Cm = torch.split(proj, [dtr, N, N], dim=-1)
+    if cfg.mamba_inner_norms:
+        dt_raw, Bm, Cm = (layers.norm(t.contiguous(), p[name], cfg.norm)
+                          for t, name in zip((dt_raw, Bm, Cm), _NORMS))
     # jax.nn.softplus is logaddexp(x, 0)
     dt = torch.logaddexp(dt_raw.float() @ p["dt_w"].float() + p["dt_b"].float(),
                          torch.zeros((), device=xc.device))
@@ -74,7 +95,7 @@ def _ssm_inputs(p: dict, xc: torch.Tensor, cfg: ModelConfig, par=None):
 
 
 _WANT = {"in_proj": 1, "conv_w": 1, "conv_b": 0, "x_proj": 0, "dt_w": 1, "dt_b": 0,
-         "A_log": 0, "Dp": 0, "out_proj": 0}
+         "A_log": 0, "Dp": 0, "out_proj": 0, "dt_norm": None, "B_norm": None, "C_norm": None}
 
 
 def _weights(p: dict, cfg: ModelConfig, par):
@@ -103,16 +124,20 @@ def forward(
     runs every channel."""
     p, tp, par = _weights(p, cfg, par)
     x = par.ctx.enter(x, tp)
-    xz = x @ p["in_proj"]  # (B, S, 2*Di)
-    xi, z = xz.chunk(2, dim=-1)
-    xc = F.silu(_conv_causal(xi, p["conv_w"], p["conv_b"]))
-    dt, A, Bm, Cm = _ssm_inputs(p, xc, cfg, par if tp else None)
-    # the kernel takes contiguous operands: Bm and Cm are slices of one projection
-    y = ops.selective_scan(
-        xc, dt.to(xc.dtype), A, Bm.contiguous(), Cm.contiguous(), p["Dp"], tiles=tiles
-    )
-    y = y * F.silu(z)
-    return par.ctx.exit(y @ p["out_proj"], tp)
+    with span("mamba.project"):
+        xz = x @ p["in_proj"]  # (B, S, 2*Di)
+        xi, z = xz.chunk(2, dim=-1)
+    with span("mamba.conv"):
+        xc = F.silu(_conv_causal(xi, p["conv_w"], p["conv_b"]))
+    with span("mamba.ssm"):
+        dt, A, Bm, Cm = _ssm_inputs(p, xc, cfg, par if tp else None)
+        # the kernel takes contiguous operands: Bm and Cm are slices of one projection
+        y = ops.selective_scan(
+            xc, dt.to(xc.dtype), A, Bm.contiguous(), Cm.contiguous(), p["Dp"], tiles=tiles
+        )
+    with span("mamba.out"):
+        y = y * F.silu(z)
+        return par.ctx.exit(y @ p["out_proj"], tp)
 
 
 def init_cache(cfg: ModelConfig, batch: int, dtype, device, n_periods: int = 0, par=None) -> dict:
@@ -155,16 +180,22 @@ def decode_step(
     ``out_proj`` row-split)."""
     p, tp, par = _weights(p, cfg, par)
     x = par.ctx.enter(x, tp)
-    xi, z = (x[:, 0] @ p["in_proj"]).chunk(2, dim=-1)  # (B, Di) each: this rank's channels
-    # conv over (cached K-1 inputs, new input)
-    window = torch.cat([cache["conv"], xi[:, None, :]], dim=1)  # (B, K, Di)
-    xc = (window.float() * p["conv_w"].float()[None]).sum(dim=1) + p["conv_b"].float()
-    xc = F.silu(xc).to(x.dtype)  # (B, Di)
-    dt, A, Bm, Cm = _ssm_inputs(p, xc, cfg, par if tp else None)
-    new_state, y = ops.selective_scan_step(
-        cache["ssm"], xc, dt.to(xc.dtype), A, Bm, Cm, p["Dp"]
-    )
-    y = y * F.silu(z)
-    _commit_(cache["conv"], window[:, 1:, :], commit)
-    _commit_(cache["ssm"], new_state, commit)
-    return par.ctx.exit((y @ p["out_proj"])[:, None, :], tp), cache
+    with span("mamba.project"):
+        xi, z = (x[:, 0] @ p["in_proj"]).chunk(2, dim=-1)  # (B, Di) each: this rank's channels
+    with span("mamba.conv"):
+        # conv over (cached K-1 inputs, new input)
+        window = torch.cat([cache["conv"], xi[:, None, :]], dim=1)  # (B, K, Di)
+        xc = (window.float() * p["conv_w"].float()[None]).sum(dim=1) + p["conv_b"].float()
+        xc = F.silu(xc).to(x.dtype)  # (B, Di)
+    with span("mamba.ssm"):
+        dt, A, Bm, Cm = _ssm_inputs(p, xc, cfg, par if tp else None)
+        new_state, y = ops.selective_scan_step(
+            cache["ssm"], xc, dt.to(xc.dtype), A, Bm, Cm, p["Dp"]
+        )
+    with span("mamba.out"):
+        y = y * F.silu(z)
+        out = par.ctx.exit((y @ p["out_proj"])[:, None, :], tp)
+    with span("mamba.state_write"):
+        _commit_(cache["conv"], window[:, 1:, :], commit)
+        _commit_(cache["ssm"], new_state, commit)
+    return out, cache

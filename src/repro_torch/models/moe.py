@@ -83,10 +83,14 @@ def init(cfg: ModelConfig, gen: torch.Generator, device, n_periods: int = 0) -> 
 
 
 def route(p: dict, cfg: ModelConfig, xt: torch.Tensor):
-    """(router probs (T, E) f32, top-k weights renormalised (T, k), top-k experts (T, k))."""
+    """(router probs (T, E) f32, top-k weights (T, k), top-k experts (T, k)):
+    the weights renormalised over the k, or where ``cfg.moe_renormalize`` is
+    off (Jamba) the softmax's probabilities as they are."""
     probs = torch.softmax(xt.float() @ p["router"], dim=-1)
     topw, topi = torch.topk(probs, cfg.experts_per_token, dim=-1)
-    return probs, topw / topw.sum(dim=-1, keepdim=True), topi
+    if cfg.moe_renormalize:
+        topw = topw / topw.sum(dim=-1, keepdim=True)
+    return probs, topw, topi
 
 
 def dispatch(topi: torch.Tensor, topw: torch.Tensor, E: int, C: int):

@@ -127,7 +127,8 @@ class ShardingRules:
         parent = path[-2] if len(path) >= 2 else ""
         tp_dim: Optional[int] = None
 
-        if name in ("norm1", "norm2", "final_norm", "conv_b", "dt_b", "Dp"):
+        if name in ("norm1", "norm2", "final_norm", "conv_b", "dt_b", "Dp",
+                    "dt_norm", "B_norm", "C_norm"):
             spec = P(*([None] * len(dims)))
             if name in ("conv_b", "dt_b", "Dp") and self.tp_mixer:
                 spec = P(self._fit("model", dims[0]))
