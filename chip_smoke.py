@@ -107,6 +107,14 @@ limit as ``nvidia-smi`` reports them):
    the bf16 ones in relative norm, decode ms of each in turns and each
    one's peak; then a 2-layer f32 int8 decode, card against the CPU path
    (logits, codes and scales).
+9b. ``serve.graph``: the serve step's CUDA graph (``runtime/graphs.py``) at
+   the benchmark cells' shapes, 16 slots over an int8 cache: granite-moe at
+   full width over 32k positions, jamba2-mini's 16-layer stage over 256k.
+   Replayed logits against the step run as it is (bit for bit, no row
+   committed), host ms a step of each, device ms a step (events over
+   replays), the launches a replay counts (equal to the step run as it is:
+   a replay counts as the launches its capture recorded) and the device
+   operations of one replay under ``torch.profiler``.
 10. ``measure``: ``mcts_cost+real_1s`` tunes granite-moe-1b-a400m x
    train_4k for the H100 spec and mesh ``card``, its candidates timed on
    the card by a one-worker measurement fleet (``core/measure_fleet.py``)
@@ -2311,6 +2319,115 @@ def phase_decode_int8(torch, np, mods) -> dict:
     return {n: counts["bf16"][n] + counts["int8"][n] for n in KERNELS}
 
 
+# the benchmark cells' decode shapes (cardbench/traffic, cardbench/configs):
+# 16 slots over an int8 cache, each slot at one of its history lengths
+# (evenly spaced, lowest to highest); jamba2-mini at the cell's 16 of 32 layers
+SERVE_GRAPH_CELLS = (
+    ("granite-moe-1b-a400m", None, 32768, (16384, 28672)),
+    ("jamba2-mini", 16, 262144, (131072, 245760)),
+)
+SERVE_GRAPH_STEPS = 8  # timed steps of each kind
+
+
+def phase_serve_graph(torch, np, mods) -> dict:
+    """``serve.graph``, a line a benchmark cell's shape (``SERVE_GRAPH_CELLS``):
+    the step run as it is (``transformer.decode_step``) against the serve
+    step's CUDA graph (``runtime.graphs``).  First, with no row committed (so
+    the cache stays as it is), the logits of two replays against those of the
+    step run as it is, bit for bit; then ``SERVE_GRAPH_STEPS`` steps of each
+    that advance every slot: host ms a step (launch to the logits' argmax on
+    the host, as the benchmark times it), device ms a step (CUDA events over
+    back-to-back replays), the launches a replay counts against a step run as
+    it is (equal, kernel by kernel), and the device operations of one replay
+    as ``torch.profiler`` records them (``_profile_one``).  Weights from the
+    seed, the cache's visible rows random int8 codes and scales, the Mamba
+    window and state N(0, 1) and N(0, 0.01)."""
+    ops, transformer = mods.ops, mods.transformer
+    launches = {n: 0 for n in KERNELS}
+    for arch, n_layers, max_len, (lo, hi) in SERVE_GRAPH_CELLS:
+        t_phase = time.perf_counter()
+        cfg = mods.get_config(arch)
+        if n_layers:
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        plan = mods.SchedulePlan(kv_dtype="int8")
+        tiles = mods.tiles_from_plan(plan)
+        torch.cuda.reset_peak_memory_stats()
+        params = transformer.init_params(cfg, SEED, device="cuda")
+        cache = transformer.init_cache(cfg, DECODE_ROWS, max_len, kv_dtype="int8", device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 35)
+        for leaves in cache.values():
+            for name, t in leaves.items():
+                if t.dtype == torch.int8:
+                    t.random_(-127, 128, generator=gen)
+                elif name.endswith("_s"):
+                    t.uniform_(0.01, 0.06, generator=gen)
+                else:
+                    t.normal_(0.0, 1.0 if name == "conv" else 0.01, generator=gen)
+        cur = torch.tensor([lo + round(i * (hi - lo) / (DECODE_ROWS - 1)) for i in range(DECODE_ROWS)],
+                           device="cuda")
+        tok = torch.from_numpy(
+            np.random.default_rng(SEED + 35).integers(0, cfg.vocab_size, (DECODE_ROWS, 1))).to("cuda")
+        step = mods.make_serve_step(cfg, None, plan, device="cuda")
+        # no row committed: every call reads the same state
+        none = torch.zeros(DECODE_ROWS, dtype=torch.bool, device="cuda")
+        want = transformer.decode_step(params, cfg, cache, tok, cur, none, tiles=tiles)[0]
+        got = [step(params, cache, tok, cur, none)[0] for _ in range(3)]  # as it is, capture, replay
+        torch.cuda.synchronize()
+        diffs = [(g.float() - want.float()).abs().max().item() for g in got]
+        if any(diffs):
+            raise AssertionError(f"serve.graph {arch}: replayed logits differ from the step run as it "
+                                 f"is by {diffs}")
+
+        def timed(call, cur):
+            tok_, ms, counts = tok, [], []
+            for _ in range(SERVE_GRAPH_STEPS):
+                ops.reset_counters()
+                t0 = time.perf_counter()
+                logits = call(tok_, cur)
+                nxt = logits.argmax(-1).cpu()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                counts.append(ops.launch_counts())
+                tok_, cur = nxt[:, None].to("cuda"), cur + 1
+            return ms, counts, cur
+
+        eager_ms, eager_counts, cur = timed(
+            lambda t, c: transformer.decode_step(params, cfg, cache, t, c, tiles=tiles)[0], cur)
+        for _ in range(2):  # this key's first call runs as it is, its second captures
+            step(params, cache, tok, cur)
+            cur = cur + 1
+        graph_ms_, graph_counts, cur = timed(lambda t, c: step(params, cache, t, c)[0], cur)
+        if any(c != eager_counts[0] for c in eager_counts + graph_counts):
+            raise AssertionError(f"serve.graph {arch}: launches a step {graph_counts} against the "
+                                 f"step run as it is {eager_counts[0]}")
+        graph = next(reversed(step.graphs.graphs.values()))
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(SERVE_GRAPH_STEPS):
+            graph.graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        device_ms = start.elapsed_time(end) / SERVE_GRAPH_STEPS
+        traced = _profile_one(torch, graph.graph.replay)
+        for n in KERNELS:
+            launches[n] += sum(c[n] for c in eager_counts + graph_counts)
+        emit("serve.graph", arch=arch, n_layers=cfg.n_layers, slots=DECODE_ROWS, max_len=max_len,
+             kv_dtype="int8", cur_first=[lo, hi], graphs=len(step.graphs.graphs),
+             logits_replay_vs_eager="bit-equal", logits_max_abs_diff=diffs,
+             median_eager_step_ms=statistics.median(eager_ms), eager_step_ms=eager_ms,
+             median_replay_step_ms=statistics.median(graph_ms_), replay_step_ms=graph_ms_,
+             device_ms_per_step=device_ms,
+             host_speedup=statistics.median(eager_ms) / statistics.median(graph_ms_),
+             captured_launches_per_step={k: c for k, (c, _) in graph.launches.items()},
+             launches_per_step=eager_counts[0], replay_device_events=traced["device_events"],
+             replay_traced_device_busy_ms=traced["device_busy_ms"],
+             peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+             seconds=time.perf_counter() - t_phase)
+        del params, cache, step, graph, got, want
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
 def _ranks(np, xs):
     """Ranks from 0, ties given their mean rank."""
     xs = np.asarray(xs, dtype=float)
@@ -4316,6 +4433,8 @@ def main() -> int:
     if not decode_counts["quantize_int8"]:
         raise AssertionError("the int8 decode launched no quantize_int8 kernel")
     add(decode_counts)
+    # the serve step's CUDA graph at the benchmark cells' shapes
+    add(timed_phase("serve_graph", phase_serve_graph, torch, np, mods))
     counts, records, measure_res, measure_cache, cut = timed_phase(
         "measure", phase_measure, torch, np, mods, res)
     add(counts)

@@ -101,12 +101,10 @@ def dispatch(topi: torch.Tensor, topw: torch.Tensor, E: int, C: int):
     flat_t = torch.arange(T, device=topi.device).repeat_interleave(k)
     order = torch.argsort(flat_e, stable=True)
     se, st, sw = flat_e[order], flat_t[order], topw.reshape(-1)[order]
-    if flat_e.device.type == "meta":  # bincount has no meta kernel: its shape is (E,)
-        counts = torch.empty((E,), dtype=torch.long, device="meta")
-    else:
-        # the CUDA bincount reads its input's min and max to the host: two waits
-        with span("sync.moe_counts", waits=2 if flat_e.is_cuda else 0):
-            counts = torch.bincount(flat_e, minlength=E)
+    # each expert's pairs, a scatter-add of ones: exact, and read by no host
+    # (``torch.bincount`` reads its input's min and max to the host on the card)
+    counts = torch.zeros((E,), dtype=torch.long, device=topi.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
     seg_start = torch.cumsum(counts, 0) - counts  # exclusive prefix
     pos = torch.arange(T * k, device=topi.device) - seg_start[se]  # rank within expert
     keep = pos < C

@@ -35,6 +35,7 @@ from repro_torch.kernels.ops import KernelTiles
 from repro_torch.models import transformer
 from repro_torch.models.losses import cross_entropy, cross_entropy_vocab_parallel
 from repro_torch.runtime import tracing
+from repro_torch.runtime.graphs import StepGraphs
 from repro_torch.sharding import collectives as cc
 from repro_torch.sharding.parallel import (
     ParallelContext, gather_tree, local_shape, shard_tree,
@@ -286,6 +287,12 @@ def make_serve_step(
     token, its cache state written into ``cache`` in place for the rows in
     ``commit``; the plan's tiles reach the MoE MLP's grouped GEMMs.
 
+    Without a mesh, where ``inputs`` lie on a CUDA device, the step runs
+    through CUDA graphs (``runtime.graphs.StepGraphs``): the first call of a
+    key runs as it is, the second captures the step and replays it, later
+    ones replay it; each call advances the cache once and returns logits of
+    its own.  On the CPU, on meta tensors and over a mesh it runs as it is.
+
     ``mesh``: this rank's step.  ``shape`` is the decode cell's
     ``InputShape``: ``global_batch`` rows over a cache of ``seq_len``
     positions, as the JAX dry run passes it.  ``params`` are the rank's
@@ -293,7 +300,7 @@ def make_serve_step(
     (``transformer.init_cache(..., par=step.par)`` or ``shard_cache``),
     ``inputs`` / ``cur`` / ``commit`` the global rows, and the logits
     ``(B, V)`` every row's on every rank.  The step carries its context as
-    ``step.par``."""
+    ``step.par`` and its graphs as ``step.graphs`` (None over a mesh)."""
     tiles = tiles_from_plan(plan)
     par = parallel_context(cfg, shape, plan, mesh, device)
     if mesh is not None:
@@ -302,19 +309,26 @@ def make_serve_step(
         par = par.for_decode(shape.global_batch, shape.seq_len)
     vsplit = transformer.vocab_split(cfg, par)
 
+    def step(params, cache, inputs, cur, commit):
+        logits, _ = transformer.decode_step(
+            params, cfg, cache, par.decode_rows(inputs), par.decode_rows(cur) if cur.ndim else cur,
+            commit=None if commit is None else par.decode_rows(commit), tiles=tiles, par=par)
+        if vsplit:
+            logits = cc.all_gather_raw(logits, par.mesh, "model", logits.ndim - 1)
+        if par.rows_split:
+            logits = cc.all_gather_raw(logits, par.mesh, par.batch_axes, 0)
+        return logits
+
+    graphs = StepGraphs(step) if mesh is None else None
+
     def serve_step(params, cache, inputs, cur, commit=None):
         if mesh is not None and inputs.shape[0] != shape.global_batch:
             raise ValueError(f"{inputs.shape[0]} rows, the cell has {shape.global_batch}")
         with tracing.span(tracing.ROOT):
             cur = torch.as_tensor(cur, dtype=torch.long, device=inputs.device)
-            logits, cache = transformer.decode_step(
-                params, cfg, cache, par.decode_rows(inputs), par.decode_rows(cur) if cur.ndim else cur,
-                commit=None if commit is None else par.decode_rows(commit), tiles=tiles, par=par)
-            if vsplit:
-                logits = cc.all_gather_raw(logits, par.mesh, "model", logits.ndim - 1)
-            if par.rows_split:
-                logits = cc.all_gather_raw(logits, par.mesh, par.batch_axes, 0)
-            return logits, cache
+            run = graphs if graphs is not None and inputs.is_cuda else step
+            return run(params, cache, inputs, cur, commit), cache
 
     serve_step.par = par
+    serve_step.graphs = graphs
     return serve_step

@@ -191,6 +191,49 @@ def test_dispatch_sort_is_stable():
     assert keep.tolist() == [True, True, False, True, True, False, False, True]
 
 
+def _dispatch_by_bincount(topi, topw, E, C):
+    """``moe.dispatch`` as it counted each expert's pairs before: ``torch.bincount``."""
+    T, k = topi.shape
+    flat_e = topi.reshape(-1)
+    flat_t = torch.arange(T).repeat_interleave(k)
+    order = torch.argsort(flat_e, stable=True)
+    se, st, sw = flat_e[order], flat_t[order], topw.reshape(-1)[order]
+    counts = torch.bincount(flat_e, minlength=E)
+    pos = torch.arange(T * k) - (torch.cumsum(counts, 0) - counts)[se]
+    keep = pos < C
+    return se, st, sw, keep, torch.where(keep, pos, 0)
+
+
+def _routing(case: str, T: int, k: int, E: int) -> torch.Tensor:
+    gen = torch.Generator().manual_seed(7)
+    if case == "one_expert":  # every pair to expert 3: most past capacity
+        return torch.full((T, k), 3)
+    if case == "idle_experts":  # experts 2, 5 and every odd one above 8 get no pair
+        used = torch.tensor([0, 1, 3, 4, 6, 8, 10, 12])
+        return used[torch.rand(T, used.numel(), generator=gen).argsort(-1)[:, :k]]
+    # distinct experts a token, as top-k gives them
+    return torch.rand(T, E, generator=gen).argsort(-1)[:, :k]
+
+
+@pytest.mark.parametrize("case,T,k,E,C,drops", [
+    ("random", 32, 8, 32, 16, False),
+    ("random", 48, 2, 16, 16, False),  # jamba's top-2 of 16
+    ("random", 64, 8, 16, 8, True),  # pairs past capacity
+    ("one_expert", 16, 1, 8, 8, True),
+    ("idle_experts", 40, 4, 16, 8, True),
+])
+def test_dispatch_counts_equal_bincount_bit_for_bit(case, T, k, E, C, drops):
+    topi = _routing(case, T, k, E)
+    topw = torch.rand(T, k, generator=torch.Generator().manual_seed(1))
+    got = moe.dispatch(topi, topw, E, C)
+    want = _dispatch_by_bincount(topi, topw, E, C)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert bool((~got[3]).any()) == drops  # pairs past capacity, dropped to slot 0
+    if case == "idle_experts":
+        assert torch.bincount(topi.reshape(-1), minlength=E)[[2, 5, 7, 9]].eq(0).all()
+
+
 def test_aux_loss_matches_jax(cfgs):
     jcfg, cfg = cfgs
     rng = np.random.default_rng(5)

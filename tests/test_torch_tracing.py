@@ -12,7 +12,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.space import SchedulePlan
 from repro_torch.kernels import ops
 from repro_torch.models import moe, transformer
-from repro_torch.runtime import tracing
+from repro_torch.runtime import graphs, tracing
 from repro_torch.runtime.tracing import Span
 from repro_torch.training.train_step import make_serve_step, tiles_from_plan
 
@@ -23,14 +23,26 @@ MOE = ("moe.route", "moe.dispatch", "moe.experts", "moe.combine")
 
 
 def _decode(device="cpu", kv_dtype="int8", rows=2):
-    """The reduced granite-moe config's serve step, and a call of it."""
+    """The reduced granite-moe config's serve step, and a call of it; the
+    call's ``eager`` is the same step run as it is, inside a ``serve_step``
+    span, never through a CUDA graph."""
     cfg = get_config("granite-moe-1b-a400m").reduced()
     params = transformer.init_params(cfg, 0, device=device)
     cache = transformer.init_cache(cfg, rows, 16, kv_dtype=kv_dtype, device=device)
-    step = make_serve_step(cfg, None, SchedulePlan(kv_dtype=kv_dtype), device=device)
+    plan = SchedulePlan(kv_dtype=kv_dtype)
+    step = make_serve_step(cfg, None, plan, device=device)
     tok = torch.arange(3, 3 + rows, device=device)[:, None]
     cur = torch.arange(2, 2 + rows, device=device)
-    return cfg, lambda: step(params, cache, tok, cur)
+
+    def call():
+        return step(params, cache, tok, cur)
+
+    def eager():
+        with tracing.span(tracing.ROOT):
+            return transformer.decode_step(params, cfg, cache, tok, cur, tiles=tiles_from_plan(plan))
+
+    call.eager = eager
+    return cfg, call
 
 
 @pytest.fixture(scope="module")
@@ -69,10 +81,8 @@ def test_serve_step_records_its_layers_and_waits(traced):
         assert all(s.end_ns is not None and s.start_ns <= s.end_ns for s in mine)
         under = [s.name for s in mine if s.parent == root]
         assert under == (["decode.embed"] + [*ATTN, *MOE] * n_attn + ["decode.logits"])
-        waits = [s for s in mine if s.name.startswith(tracing.SYNC)]
-        assert [s.name for s in waits] == ["sync.moe_counts"] * n_moe
-        assert all(s.waits == 0 for s in waits)  # a CPU bincount waits for no device
-        assert all(spans[s.parent].name == "moe.dispatch" for s in waits)
+        # the experts' counts are a scatter-add on the device: a step waits nowhere
+        assert n_moe and not [s for s in mine if s.name.startswith(tracing.SYNC)]
         assert all(spans[root].start_ns <= s.start_ns and s.end_ns <= spans[root].end_ns for s in mine)
 
 
@@ -123,23 +133,25 @@ def test_moe_outside_a_serve_step_records_no_step():
     with profile(activities=[ProfilerActivity.CPU]):
         moe.forward(p, cfg, x, tiles=tiles_from_plan(SchedulePlan()))
     spans = tracing.spans()
-    assert [s.name for s in spans] == ["moe.route", "moe.dispatch", "sync.moe_counts", "moe.experts",
-                                       "moe.combine"]
-    assert all(s.step is None for s in spans) and spans[2].parent == 1
+    assert [s.name for s in spans] == ["moe.route", "moe.dispatch", "moe.experts", "moe.combine"]
+    assert all(s.step is None and s.parent is None for s in spans)
 
 
 @pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
 def test_every_host_wait_of_a_cuda_serve_step_lies_in_a_sync_span(kv_dtype):
+    """No host wait at all: not in the step run as it is, nor in a replay of
+    its CUDA graph (``runtime.graphs``), so no ``sync.*`` span either."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    _, call = _decode("cuda", kv_dtype, rows=4)
-    call()  # builds the kernels
+    cfg, call = _decode("cuda", kv_dtype, rows=4)
+    call()  # builds the kernels; the serve step's first call runs as it is
+    call()  # captures its graph and replays it
     torch.cuda.synchronize()
     waits = []
 
     def seen(message, *args, **kwargs):
         if "synchronizing" in str(message):
-            waits.append((time.time_ns(), "".join(traceback.format_stack(limit=12)[:-1])))
+            waits.append("".join(traceback.format_stack(limit=12)[:-1]))
 
     ops.reset_counters()
     with warnings.catch_warnings():
@@ -151,11 +163,13 @@ def test_every_host_wait_of_a_cuda_serve_step_lies_in_a_sync_span(kv_dtype):
                 torch.ones(1, device="cuda").item()  # a wait the mode must see
                 assert waits, "the sync debug mode did not report a wait"
                 waits.clear()
+                call.eager()
+                assert not waits, "host waits in an eager step:\n" + "\n---\n".join(waits)
                 call()
             finally:
                 torch.cuda.set_sync_debug_mode("default")
-    inside = [s for s in tracing.spans() if s.name.startswith(tracing.SYNC)]
-    outside = [where for t, where in waits if not any(s.start_ns <= t <= s.end_ns for s in inside)]
-    assert not outside, "host waits outside any sync.* span:\n" + "\n---\n".join(outside)
-    seen_in = [sum(s.start_ns <= t <= s.end_ns for t, _ in waits) for s in inside]
-    assert seen_in == [s.waits for s in inside], "a sync.* span's waits differ from the waits seen in it"
+    assert not waits, "host waits in a replayed step:\n" + "\n---\n".join(waits)
+    recorded = tracing.spans()
+    assert not [s for s in recorded if s.name.startswith(tracing.SYNC)]
+    assert [s.name for s in recorded if s.name.startswith(tracing.ROOT)] == [
+        tracing.ROOT, tracing.ROOT, graphs.REPLAY]
